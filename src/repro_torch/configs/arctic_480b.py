@@ -1,0 +1,13 @@
+"""arctic-480b [moe] — 128 experts top-2 + dense residual branch
+[hf:Snowflake/snowflake-arctic-base; hf]."""
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="arctic-480b", family="moe",
+    n_layers=35, d_model=7168, n_heads=56, n_kv_heads=8,
+    d_ff=4864, vocab=32000,
+    act="swiglu", rope_theta=10_000.0,
+    n_experts=128, top_k=2, d_ff_expert=4864,
+    moe_dense_residual=True,
+)

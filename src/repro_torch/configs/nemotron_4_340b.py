@@ -1,0 +1,10 @@
+"""nemotron-4-340b [dense] — GQA, squared-ReLU MLP [arXiv:2402.16819]."""
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="nemotron-4-340b", family="dense",
+    n_layers=96, d_model=18432, n_heads=96, n_kv_heads=8,
+    d_ff=73728, vocab=256000,
+    act="relu2", rope_theta=10_000.0,
+)

@@ -1,0 +1,10 @@
+"""qwen2-7b [dense] — GQA with QKV bias [arXiv:2407.10671; hf]."""
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-7b", family="dense",
+    n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4,
+    d_ff=18944, vocab=152064,
+    act="swiglu", qkv_bias=True, rope_theta=1_000_000.0,
+)

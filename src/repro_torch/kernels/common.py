@@ -1,0 +1,265 @@
+"""Device resolution, the CUDA kernel build, launch counters and tolerances.
+
+Dispatch is by the tensor's device, never by a switch: a wrapper runs its
+plain PyTorch version for a CPU tensor, launches its hand-written kernel for a
+CUDA tensor (raising if the build or the launch fails), and raises for any
+other device.
+
+The CUDA sources under ``repro_torch/csrc/*.cu`` are compiled with ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes`` at first use:
+
+    build/repro_torch/<source-hash>/libkernels.so
+
+Each source compiles in its own ``nvcc`` process, all started together, and
+the objects are linked in one more step.  The directory name is a hash of the
+sources and flags, so an edited source builds anew and a built one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-Xcompiler", "-fPIC")
+
+# ---------------------------------------------------------------------------
+# device
+# ---------------------------------------------------------------------------
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the card, raising when there is none; else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device; none is available. "
+                "Pass device='cpu' to run the plain PyTorch versions.")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    return device
+
+
+def kernel_device(*tensors: torch.Tensor) -> str:
+    """The device type the wrapper dispatches on: 'cpu' or 'cuda'.  All
+    tensors must lie on one device; any other device type raises."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and "
+                             f"{t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or plain version for device {dev}")
+    return dev.type
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, for a ctypes launch.  The C
+    entry points launch on the current device, so that must be the
+    tensors' device."""
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise ValueError(f"tensors on {device} but the current device is "
+                         f"cuda:{current}; launch under "
+                         f"torch.cuda.device({device.index})")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# launch counters: each wrapper adds one where it launches its kernel
+# ---------------------------------------------------------------------------
+
+LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
+                            "decode_attention": 0}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launches() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# tolerances, used by the tests and by chip_smoke.py
+# ---------------------------------------------------------------------------
+
+TOLERANCES: dict[str, tuple[float, float]] = {
+    # (atol, rtol): |got - want| <= atol + rtol·|want| elementwise.
+    #
+    # CPU, float32, plain version against the JAX package (ref and Pallas in
+    # interpret mode): the same arithmetic summed in another order.
+    # rmsnorm's one mean of squares leaves ~1e-7; attention's softmax and
+    # two products over up to a few hundred keys ~1e-6.
+    "rmsnorm/cpu_fp32": (1e-5, 0.0),
+    "flash_attention/cpu_fp32": (1e-4, 0.0),
+    "decode_attention/cpu_fp32": (1e-4, 0.0),
+    # Card, bfloat16 in and out, kernel against its plain version on the
+    # same inputs.  Both compute y in fp32 and round once; the fp32 sums run
+    # in another order, so a value next to a rounding boundary can round the
+    # other way: one bf16 ulp, 2^-7 of |y| at most.
+    "rmsnorm/card_bf16": (1e-3, 2.0 ** -7),
+    # The kernel rounds p to bf16 for the P·V tensor-core product, as the
+    # plain version (and the JAX reference) does, but at another point of
+    # the softmax (p relative to a running max, before normalising), so each
+    # p differs by up to 2^-8 relative; the output (an average of V rows,
+    # |v| < 5 for unit normals) then rounds once more.
+    "flash_attention/card_bf16": (2e-2, 2.0 ** -7),
+    # Decode keeps p in fp32 (as the TPU kernel does): only the fp32 sum
+    # order and the output's one bf16 rounding remain.
+    "decode_attention/card_bf16": (1e-2, 2.0 ** -7),
+}
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def within(got: torch.Tensor, want: torch.Tensor, key: str) -> bool:
+    """``got`` matches ``want`` under ``TOLERANCES[key]``."""
+    atol, rtol = TOLERANCES[key]
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+# ---------------------------------------------------------------------------
+# the CUDA library
+# ---------------------------------------------------------------------------
+
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):           # .cu and .cuh
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(put the CUDA toolkit's bin directory on PATH)")
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link
+    ``libkernels.so``; returns its path.  Raises with nvcc's stderr."""
+    out_dir = BUILD_ROOT / _source_hash()
+    lib = out_dir / "libkernels.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
+    try:
+        procs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        objs, errors = [], []
+        for src, obj, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {src.name}:\n{err}{out}")
+            elif verbose and (err or out):
+                print(f"[nvcc {src.name}]\n{err}{out}", flush=True)
+            objs.append(str(obj))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp_lib = tmp / "libkernels.so"
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             *objs, "-o", str(tmp_lib)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}"
+                               f"{link.stdout}")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp_lib, lib)          # atomic: a reader sees all or none
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+    lib.flash_attention_fwd.argtypes = [
+        p, p, p, p,                       # q, k, v, o
+        i, i, i, i, i,                    # B, Hq, Hkv, S, D
+        i64, i64, i64,                    # q strides (b, h, s)
+        i64, i64, i64,                    # k strides
+        i64, i64, i64,                    # v strides
+        i64, i64, i64,                    # o strides
+        f, i, i, p]                       # scale, causal, window, stream
+    lib.flash_attention_fwd.restype = i
+    lib.decode_attention_fwd.argtypes = [
+        p, p, p, p,                       # q, k, v, lengths
+        p, p, p,                          # out, m_out, l_out (m, l: or NULL)
+        p, p, p,                          # partial o, m, l scratch
+        i, i, i, i, i, i,                 # B, Hq, Hkv, S, D, n_split
+        i64, i64,                         # q strides (b, h)
+        i64, i64, i64,                    # k strides (b, s, h)
+        i64, i64, i64,                    # v strides (b, s, h)
+        f, p]                             # scale, stream
+    lib.decode_attention_fwd.restype = i
+    lib.decode_attention_chunk.argtypes = []
+    lib.decode_attention_chunk.restype = i
+    lib.repro_cuda_error_string.argtypes = [i]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_library()))
+            _declare(lib)
+            _LIB = lib
+    return _LIB
+
+
+def check_status(name: str, status: int) -> None:
+    """Raise if a C entry point reported a launch error."""
+    if status != 0:
+        msg = library().repro_cuda_error_string(status)
+        raise RuntimeError(f"{name} launch failed: CUDA error {status} "
+                           f"({msg.decode() if msg else '?'})")

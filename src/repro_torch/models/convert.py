@@ -1,0 +1,42 @@
+"""Carry parameters across from the JAX package.
+
+``params_from_numpy(jax.tree.map(np.asarray, params), cfg, device)`` turns
+the JAX parameter tree (layers stacked on axis 0, weights in the (in, out)
+layout) into the port's tree of tensors, in the same layout: nothing is
+transposed, so ``x @ w`` means the same in both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels.common import resolve_device
+from .config import ModelConfig
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":            # ml_dtypes: no numpy ↔ torch
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """Numpy (or array-like) parameter tree → the same tree of tensors on
+    ``device``, dtypes kept.  Checks the layer axis against ``cfg``."""
+    device = resolve_device(device)
+    layers = tree.get("layers")
+    if layers is not None:
+        n = np.asarray(layers["attn"]["wq"]).shape[0]
+        if n != cfg.n_layers:
+            raise ValueError(f"tree has {n} stacked layers, {cfg.name} has "
+                             f"{cfg.n_layers}")
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, device)
+
+    return conv(tree)

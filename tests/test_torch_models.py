@@ -1,0 +1,238 @@
+"""The port's dense model (``repro_torch.models``) against the JAX package's
+(``repro.models``) on the CPU, with JAX's parameters carried across by
+``params_from_numpy``.
+
+The config is the reduced qwen2-7b (float32, 2 layers, d_model 128, 4 q
+heads over 2 kv heads).  JAX's ``init_params`` makes the QKV biases zero and
+the norm weights one; both are replaced by random values here so the bias
+adds and norm scales are tested too.  Tolerance: float32 with the same
+arithmetic in another order, through two layers — 1e-4 absolute and
+relative (observed errors are ~1e-6).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, reduced
+from repro.models import decode_step as jax_decode_step
+from repro.models import forward as jax_forward
+from repro.models import init_params as jax_init_params
+from repro.models import prefill as jax_prefill
+from repro.models.layers import attention_block as jax_attention_block
+from repro.models.layers import attention_decode as jax_attention_decode
+from repro.models.layers import rope as jax_rope
+from repro.serve.step import make_decode_step as jax_make_decode_step
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import reduced as t_reduced
+from repro_torch.models import (decode_step, forward, init_params,
+                                params_from_numpy, prefill)
+from repro_torch.models.layers import attention_block, attention_decode, rope
+from repro_torch.serve.step import make_decode_step
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _cfgs(**over):
+    jcfg = dataclasses.replace(reduced(get_config("qwen2-7b")), **over)
+    tcfg = dataclasses.replace(t_reduced(t_get_config("qwen2-7b")), **over)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    return jcfg, tcfg
+
+
+def _params(jcfg, seed=0):
+    """JAX params with random biases and norm weights, as (jax tree,
+    numpy tree)."""
+    rng = np.random.default_rng(seed)
+    tree = jax.tree.map(np.asarray,
+                        jax_init_params(jcfg, jax.random.PRNGKey(seed)))
+    lay = tree["layers"]
+    for name in ("bq", "bk", "bv"):
+        lay["attn"][name] = rng.normal(
+            size=lay["attn"][name].shape).astype(np.float32) * 0.1
+    for norm in ("attn_norm", "mlp_norm"):
+        lay[norm]["w"] = (1 + 0.1 * rng.normal(
+            size=lay[norm]["w"].shape)).astype(np.float32)
+    tree["final_norm"]["w"] = (1 + 0.1 * rng.normal(
+        size=tree["final_norm"]["w"].shape)).astype(np.float32)
+    return jax.tree.map(jnp.asarray, tree), tree
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _layer0(tree):
+    return jax.tree.map(lambda a: a[0], tree)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, tcfg = _cfgs()
+    jp, npt = _params(jcfg)
+    return jcfg, tcfg, jp, params_from_numpy(npt, tcfg, device="cpu")
+
+
+def test_init_params_tree_matches_jax_shapes_and_dtypes():
+    jcfg, tcfg = _cfgs()
+    jp = jax.tree.map(np.asarray, jax_init_params(jcfg,
+                                                  jax.random.PRNGKey(0)))
+    tp = init_params(tcfg, device="cpu")
+    flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
+    flat_t = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), tp,
+                     is_leaf=lambda x: isinstance(x, torch.Tensor)))[0]
+    assert [p for p, _ in flat_j] == [p for p, _ in flat_t]
+    for (path, a), (_, b) in zip(flat_j, flat_t):
+        assert a.shape == b.shape and a.dtype == b.dtype, path
+        # same scales: std within 20% of JAX's for every weight matrix
+        if a.ndim >= 2 and a.std() > 0:
+            assert 0.8 < b.std() / a.std() < 1.25, path
+
+
+def test_rope_matches_jax():
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 9, 3, 32)).astype(np.float32)
+    pos = rng.integers(0, 5000, (2, 9)).astype(np.int32)
+    np.testing.assert_allclose(
+        rope(_t(x), _t(pos), 1e6).numpy(),
+        np.asarray(jax_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)), **TOL)
+
+
+def test_attention_block_matches_jax(setup):
+    jcfg, tcfg, jp, tp = setup
+    rng = np.random.default_rng(2)
+    B, S = 2, 19
+    x = rng.normal(size=(B, S, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    jo, jk, jv = jax_attention_block(_layer0(jp["layers"])["attn"],
+                                     jnp.asarray(x), jcfg, jnp.asarray(pos))
+    lp = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    to, tk, tv = attention_block(lp, _t(x), tcfg, _t(pos))
+    for a, b in ((to, jo), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_attention_decode_matches_jax_including_dropped_write(setup):
+    jcfg, tcfg, jp, tp = setup
+    rng = np.random.default_rng(3)
+    B, S_max = 3, 16
+    dh, hkv = jcfg.d_head, jcfg.n_kv_heads
+    x = rng.normal(size=(B, 1, jcfg.d_model)).astype(np.float32)
+    kc = rng.normal(size=(B, S_max, hkv, dh)).astype(np.float32)
+    vc = rng.normal(size=(B, S_max, hkv, dh)).astype(np.float32)
+    # lane 1 is full: JAX drops its write (mode="drop") and attends over
+    # all S_max rows
+    cache_len = np.asarray([5, S_max, 0], np.int32)
+    jo, jk, jv = jax_attention_decode(
+        _layer0(jp["layers"])["attn"], jnp.asarray(x), jcfg, jnp.asarray(kc),
+        jnp.asarray(vc), jnp.asarray(cache_len))
+    lp = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    tkc, tvc = _t(kc), _t(vc)
+    to, tk, tv = attention_decode(lp, _t(x), tcfg, tkc, tvc, _t(cache_len))
+    assert tk is tkc and tv is tvc                    # written in place
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+    np.testing.assert_array_equal(tk[1].numpy(), kc[1])   # full lane kept
+    assert not np.allclose(tk[0, 5].numpy(), kc[0, 5])    # lane 0 written
+
+
+def test_forward_prefill_decode_match_jax(setup):
+    jcfg, tcfg, jp, tp = setup
+    rng = np.random.default_rng(4)
+    B, S, max_len = 2, 13, 20
+    toks = rng.integers(0, jcfg.vocab, (B, S + 2)).astype(np.int32)
+
+    jh, jkv = jax_forward(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                          collect=True)
+    th, tkv = forward(tp, {"tokens": _t(toks)}, tcfg, collect=True)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    for i, (k, v) in enumerate(tkv):
+        np.testing.assert_allclose(k.numpy(), np.asarray(jkv[0][i]), **TOL)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jkv[1][i]), **TOL)
+
+    jl, js = jax_prefill(jp, {"tokens": jnp.asarray(toks[:, :S])}, jcfg,
+                         max_len=max_len)
+    tl, ts = prefill(tp, {"tokens": _t(toks[:, :S])}, tcfg, max_len=max_len)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_array_equal(ts["len"].numpy(), np.asarray(js["len"]))
+    for name in ("k", "v"):
+        np.testing.assert_allclose(ts["kv"][name].numpy(),
+                                   np.asarray(js["kv"][name]), **TOL)
+
+    for step in range(2):                   # two steps: the state carries
+        tok = toks[:, S + step:S + step + 1]
+        jl, js = jax_decode_step(jp, js, jnp.asarray(tok), jcfg)
+        tl, ts = decode_step(tp, ts, _t(tok), tcfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        np.testing.assert_array_equal(ts["len"].numpy(),
+                                      np.asarray(js["len"]))
+        for name in ("k", "v"):
+            np.testing.assert_allclose(ts["kv"][name].numpy(),
+                                       np.asarray(js["kv"][name]), **TOL)
+
+
+def test_decode_step_masks_padded_vocab_like_jax():
+    jcfg, tcfg = _cfgs(vocab=500)            # vocab_padded 512
+    assert tcfg.vocab_padded == 512
+    jp, npt = _params(jcfg, seed=5)
+    tp = params_from_numpy(npt, tcfg, device="cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, 500, (3, 7)).astype(np.int32)
+    _, js = jax_prefill(jp, {"tokens": jnp.asarray(toks[:, :6])}, jcfg,
+                        max_len=10)
+    _, ts = prefill(tp, {"tokens": _t(toks[:, :6])}, tcfg, max_len=10)
+    jn, jl, _ = jax_make_decode_step(jcfg)(jp, js, jnp.asarray(toks[:, 6:]))
+    tn, tl, _ = make_decode_step(tcfg)(tp, ts, _t(toks[:, 6:]))
+    assert torch.isinf(tl[:, 500:]).all() and (tl[:, 500:] < 0).all()
+    np.testing.assert_allclose(tl[:, :500].numpy(), np.asarray(jl)[:, :500],
+                               **TOL)
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    assert (tn < 500).all()
+
+
+def test_decode_consistency_with_forward():
+    """Teacher-forced decode reproduces the full forward's next-token logits
+    (the port's twin of tests/test_models.py's check), at float32's
+    precision rather than the 2e-2 that check allows."""
+    _, tcfg = _cfgs()
+    tp = init_params(tcfg, torch.Generator().manual_seed(2), device="cpu")
+    rng = np.random.default_rng(6)
+    B, S = 2, 12
+    toks = _t(rng.integers(0, tcfg.vocab, (B, S + 1)).astype(np.int64))
+    hidden, _ = forward(tp, {"tokens": toks}, tcfg)
+    full = (hidden[:, -1] @ tp["lm_head"]).float()
+    _, state = prefill(tp, {"tokens": toks[:, :S]}, tcfg, max_len=S + 4)
+    dec, _ = decode_step(tp, state, toks[:, S:S + 1], tcfg)
+    np.testing.assert_allclose(dec.numpy(), full.numpy(), **TOL)
+    assert torch.equal(dec.argmax(-1), full.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b",
+                                  "granite-moe-3b-a800m"])
+def test_unported_families_raise(arch):
+    cfg = t_reduced(t_get_config(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_params(cfg, device="cpu")
+
+
+def test_params_from_numpy_keeps_layout_and_bf16():
+    jcfg, tcfg = _cfgs(dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, jax_init_params(jcfg,
+                                                    jax.random.PRNGKey(0)))
+    tp = params_from_numpy(tree, tcfg, device="cpu")
+    wq = tp["layers"]["attn"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    assert wq.shape == (tcfg.n_layers, tcfg.d_model,
+                        tcfg.n_heads * tcfg.d_head)           # (in, out)
+    np.testing.assert_array_equal(
+        wq.float().numpy(), tree["layers"]["attn"]["wq"].astype(np.float32))
+    assert tp["layers"]["attn_norm"]["w"].dtype == torch.float32
+    with pytest.raises(ValueError):
+        params_from_numpy(tree, dataclasses.replace(tcfg, n_layers=3),
+                          device="cpu")
