@@ -20,6 +20,19 @@ Phases, each of which must pass:
 5. serve   — ``serve_demo("qwen2-7b", use_reduced=False, ...)``: 16 requests
              in two waves of 8 lanes, 1024-token prompts, 64 new tokens;
              the launch counts of every kernel must match the path exactly.
+6. train   — qwen2-7b at its published widths, cut to 4 layers (the only
+             cut: 28 layers need 122 GB of training state), through
+             ``init_params``, ``adamw`` and ``make_train_step``: 4 steps on
+             one repeated batch of 2 microbatches of 4 x 2048 tokens from
+             ``data/lm.py`` at a constant lr; the loss must fall at every step
+             and every kernel's launches must match the path exactly.  Then
+             ``build_trainer``'s ``TrainLoop`` at a small config (bf16, head
+             dim 128) is preempted at step 2 and resumed from its checkpoint
+             under ``build/``: its losses must equal an uninterrupted run's.
+
+Each path is driven with the launch counters set to 0 just before it and
+read just after; the kernels line reports each kernel's launches in the
+paths' runs (``launches``, and by path).
 
 It imports torch and the port, never jax or the JAX package.  Without a CUDA
 device, or without the port beside it, it exits non-zero before printing a
@@ -30,7 +43,9 @@ it lists the kernels; details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -40,7 +55,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out"
 ARCH = "qwen2-7b"
-PHASES = ("device", "build", "kernels", "consistency", "serve")
+PHASES = ("device", "build", "kernels", "consistency", "serve", "train")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -66,9 +81,10 @@ def log(msg: str) -> None:
 class Timer:
     """Device time of one call between CUDA events, averaged over ``iters``
     calls.  Before each, the 50 MB L2 is flushed (the model's callers find
-    it cold) and the stream is held busy by a ~0.5 ms sleep kernel, so the
-    host's launch cost (Python, Triton's launcher, ctypes) is enqueued
-    behind it and not counted: the events bracket the device work."""
+    it cold) and the stream is held busy by a ~2 ms sleep kernel, so the
+    host's launch cost (Python, Triton's launcher, ctypes, autograd for the
+    backward yardsticks) is enqueued behind it and not counted: the events
+    bracket the device work."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -83,7 +99,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush_buf.zero_()
-            torch.cuda._sleep(1_000_000)          # ~0.5 ms at 1.98 GHz
+            torch.cuda._sleep(4_000_000)          # ~2 ms at 1.98 GHz
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -108,7 +124,8 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
 def kernel_phase(torch, timer, report):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.common import TOLERANCES, max_abs_err, within
+    from repro_torch.kernels.common import (REL_L2, TOLERANCES, max_abs_err,
+                                            rel_l2, within)
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -129,8 +146,14 @@ def kernel_phase(torch, timer, report):
         err = max_abs_err(got, want)
         ok = within(got, want, key)
         atol, rtol = TOLERANCES[key]
-        log(f"  {name:17s} {case:44s} max_abs_err={err:.3e} (tolerance "
-            f"{atol:g} + {rtol:.4g}*|ref|) {'ok' if ok else 'OUT OF TOLERANCE'}")
+        msg = (f"  {name:19s} {case:44s} max_abs_err={err:.3e} (tolerance "
+               f"{atol:g} + {rtol:.4g}*|ref|)")
+        if key in REL_L2:
+            rel = rel_l2(got, want)
+            ok = ok and rel <= REL_L2[key]
+            msg += f" rel_l2={rel:.3e} (limit {REL_L2[key]:g})"
+            report.setdefault("rel_l2", {})[f"{name} {case}"] = rel
+        log(f"{msg} {'ok' if ok else 'OUT OF TOLERANCE'}")
         if not ok:
             fail(f"{name} {case} disagrees with its plain version "
                  f"(max abs err {err})")
@@ -250,11 +273,194 @@ def kernel_phase(torch, timer, report):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True))})
+    rows += train_kernel_rows(torch, timer, randn, check, gen, report)
     for r in rows:
-        log(f"  {r['name']:17s} kernel {r['ms']:.4f} ms  plain "
+        log(f"  {r['name']:19s} kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+def train_kernel_rows(torch, timer, randn, check, gen, report):
+    """The training path's kernels against their plain versions: the fused
+    LM-head cross entropy, and the backward of flash attention and rmsnorm,
+    at the train step's shapes and at ragged ones."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.cross_entropy.kernel import ce_forward_cuda
+    from repro_torch.kernels.cross_entropy.ref import ce_forward_chunked
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_triton
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+
+    bf16 = torch.bfloat16
+    rows = []
+
+    # ---- cross entropy forward -------------------------------------------
+    T, D, V = 8192, 3584, 152064
+    errs = []
+    for (t_, v_, n_valid, poison) in (
+            (T, V, V, False),                 # the train step's shape
+            (1000, V, 151000, True),          # ragged T, padded head
+            (77, 5000, 4999, True)):          # a partial last tile
+        x = randn(t_, D)
+        w = (randn(D, v_) * D ** -0.5).to(bf16)
+        if poison:
+            w[:, n_valid:] = 100.0            # must be masked out exactly
+        lab = torch.randint(0, n_valid, (t_,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        lse, ll = ce_forward_cuda(x, w, lab, n_valid)
+        rl, rll = ce_forward_chunked(x, w, lab, n_valid)
+        case = f"T{t_} D{D} V{v_} n_valid {n_valid}"
+        errs.append(check("cross_entropy", case + " lse", lse, rl))
+        errs.append(check("cross_entropy", case + " label", ll, rll))
+    x = randn(T, D)
+    w = (randn(D, V) * D ** -0.5).to(bf16)
+    lab = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+
+    def library_ce():
+        logits = (x @ w).float()
+        return torch.logsumexp(logits, -1), logits.gather(
+            1, lab.long()[:, None])
+
+    b_ms, b_by = bound(T * D * 2 + D * V * 2 + T * 4 + 2 * T * 4,
+                       2 * T * D * V, PEAK_BF16)
+    rows.append({
+        "name": "cross_entropy", "route": "cuda",
+        "source": "src/repro_torch/csrc/cross_entropy.cu",
+        "replaces": "src/repro/kernels/cross_entropy/kernel.py:76",
+        "max_abs_err": max(errs),
+        "ms": timer.ms(lambda: ce_forward_cuda(x, w, lab, V)),
+        "plain_ms": timer.ms(lambda: ce_forward_chunked(x, w, lab, V),
+                             iters=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(library_ce, iters=3)})
+    del x, w, lab
+
+    # ---- flash attention backward ----------------------------------------
+    def bshd(B, S, H, D):
+        return randn(B, S, H, D).transpose(1, 2)
+
+    errs = []
+    for (B, Hq, Hkv, S, causal, window) in (
+            (4, 28, 4, 2048, True, 0),        # the train step's shape
+            (2, 28, 4, 1000, True, 0),        # ragged S
+            (1, 14, 2, 300, True, 64),        # windowed
+            (1, 14, 2, 300, False, 0),        # not causal
+            (1, 7, 1, 77, True, 0)):          # group 7 over one kv head
+        q, k, v = bshd(B, S, Hq, 128), bshd(B, S, Hkv, 128), \
+            bshd(B, S, Hkv, 128)
+        do = bshd(B, S, Hq, 128)
+        opts = dict(causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **opts)
+        _, rlse = attention_ref(q, k, v, return_lse=True, **opts)
+        case = (f"B{B} Hq{Hq} Hkv{Hkv} S{S} "
+                f"{'causal' if causal else 'full'} w{window}")
+        rel = float(((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max())
+        log(f"    forward lse {case}: max rel err {rel:.3e}")
+        if rel > 1e-4:
+            fail(f"flash forward lse disagrees ({case}, rel {rel})")
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **opts)
+        want = attention_bwd_ref(q, k, v, o, lse, do, **opts)
+        for name, g, w_ in zip(("dq", "dk", "dv"), got, want):
+            errs.append(check("flash_attention_bwd", f"{case} {name}", g,
+                              w_))
+        del q, k, v, do, o, lse, got, want
+    B, Hq, Hkv, S, D = 4, 28, 4, 2048, 128
+    q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
+    do = bshd(B, S, Hq, D)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    planted_fault(torch, report, q, k, v, o, lse, do)
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(B * S * D * 2 * (4 * Hq + 4 * Hkv) + B * Hq * S * 4,
+                       5 * 2 * B * Hq * D * pairs, PEAK_BF16)
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                        enable_gqa=True)
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "no Pallas counterpart: the JAX package cannot "
+                    "differentiate flash_attention_pallas "
+                    "(src/repro/kernels/flash_attention/kernel.py:103)",
+        "max_abs_err": max(errs),
+        "ms": timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse,
+                                                        do)),
+        "plain_ms": timer.ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
+                             iters=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True))})
+    del q, k, v, do, o, lse, lq, lk, lv, lo
+
+    # ---- rmsnorm backward ------------------------------------------------
+    eps = 1e-5
+    errs = []
+    for shape, dtype in (((8192, 3584), bf16), ((77, 1000), bf16),
+                         ((300, 3584), torch.float32)):
+        x = randn(*shape, dtype=dtype)
+        w = 1.0 + 0.1 * randn(shape[-1], dtype=torch.float32)
+        dy = randn(*shape, dtype=dtype)
+        dx, dw = rmsnorm_bwd_triton(x, w, dy, eps)
+        rdx, rdw = rmsnorm_bwd_ref(x, w, dy, eps)
+        case = f"x{shape} {str(dtype)[6:]}"
+        errs.append(check("rmsnorm_bwd", case + " dx", dx, rdx))
+        errs.append(check("rmsnorm_bwd_dw", case + " dw", dw, rdw))
+    x, dy = randn(8192, 3584), randn(8192, 3584)
+    w = 1.0 + 0.1 * randn(3584, dtype=torch.float32)
+    n = x.numel()
+    b_ms, b_by = bound(3 * n * 2 + 2 * 3584 * 4, 8 * n, PEAK_FP32)
+    lx = x.detach().requires_grad_()
+    lw = w.to(bf16).requires_grad_()
+    ly = F.rms_norm(lx, (3584,), lw, eps)
+    rows.append({
+        "name": "rmsnorm_bwd", "route": "triton",
+        "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
+        "replaces": "no Pallas counterpart: the JAX package cannot "
+                    "differentiate rmsnorm_pallas "
+                    "(src/repro/kernels/rmsnorm/kernel.py:35)",
+        "max_abs_err": max(errs),
+        "ms": timer.ms(lambda: rmsnorm_bwd_triton(x, w, dy, eps)),
+        "plain_ms": timer.ms(lambda: rmsnorm_bwd_ref(x, w, dy, eps)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: torch.autograd.grad(
+            ly, (lx, lw), dy, retain_graph=True))})
+    del x, dy, w, lx, lw, ly
+    torch.cuda.empty_cache()
+    return rows
+
+
+def planted_fault(torch, report, q, k, v, o, lse, do):
+    """The flash backward's check must reject a wrong kernel.  Given o = 0,
+    the kernel's Delta = rowsum(dO∘O) pass yields 0: the kernel runs as if
+    that term were dropped, with no edit to its source.  dv does not use
+    Delta; dq and dk must fail the check against the sound plain version."""
+    from repro_torch.kernels.common import REL_L2, rel_l2, within
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    key = "flash_attention_bwd/card_bf16"
+    want = attention_bwd_ref(q, k, v, o, lse, do)
+    got = flash_attention_bwd_cuda(q, k, v, torch.zeros_like(o), lse, do)
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        out[name] = {"elementwise_ok": within(g, w, key),
+                     "rel_l2": rel_l2(g, w),
+                     "rms_ref": float(w.float().square().mean().sqrt())}
+        log(f"    planted fault (Delta dropped) {name}: rel_l2="
+            f"{out[name]['rel_l2']:.3e} (limit {REL_L2[key]:g}), elementwise "
+            f"check {'passes' if out[name]['elementwise_ok'] else 'fails'}"
+            f", rms of the sound {name} {out[name]['rms_ref']:.3e}")
+    report["flash_bwd_planted_fault"] = out
+    if not (out["dq"]["rel_l2"] > REL_L2[key] and
+            out["dk"]["rel_l2"] > REL_L2[key]):
+        fail("the flash backward's check does not reject a kernel that "
+             "drops Delta")
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +520,8 @@ def consistency_phase(torch, np, report):
 # ---------------------------------------------------------------------------
 
 EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
-            "decode_attention": 28 * 128}
+            "decode_attention": 28 * 128, "cross_entropy": 0,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 def serve_phase(torch, report):
@@ -345,6 +552,218 @@ def serve_phase(torch, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: training, full width at 4 layers
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = 2048, 8, 2
+TRAIN_STEPS = 4
+# constant: on the H100 the loss on the repeated batch rose again at step 2
+# for lr 3e-4, 5e-5 and 2e-5 and fell at every step for 1e-5, 5e-6 and 2e-6
+# (this phase with TRAIN_LR set to each); 1e-5 is the largest of those.  The
+# params are bf16, as in the JAX package: an update smaller than half a
+# bf16 ulp of a weight rounds away.  At step 1 AdamW's update is ~lr·sign(g),
+# so at 1e-5 no weight with |p| >= 2^-8 moves; the phase counts the bf16
+# weights left unchanged by its first and last steps.
+TRAIN_LR = 1e-5
+# per step at L = 4, M = 2 (remat reruns each layer's 2 norms and 1 flash
+# forward in the backward; the final norm and the CE head are not remat'd)
+TRAIN_EXPECTED = {
+    "rmsnorm": TRAIN_MB * (2 * TRAIN_LAYERS * 2 + 1),
+    "rmsnorm_bwd": TRAIN_MB * (2 * TRAIN_LAYERS + 1),
+    "flash_attention": TRAIN_MB * TRAIN_LAYERS * 2,
+    "flash_attention_bwd": TRAIN_MB * TRAIN_LAYERS,
+    "cross_entropy": TRAIN_MB,
+    "decode_attention": 0,
+}
+# a small config the kernels take (bf16, head dim 128) for the TrainLoop
+LOOP_OVERRIDES = dict(dtype="bfloat16", d_model=256, n_heads=2,
+                      n_kv_heads=1)
+
+
+def train_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+
+
+def matmul_flop_per_step(cfg) -> float:
+    """Matmul FLOP of one step: forward, remat forward and backward of the
+    layers' projections (8·tokens·N_layers), and the LM head's forward, the
+    CE backward's recompute and its two products (8·tokens·N_head)."""
+    D, dh = cfg.d_model, cfg.d_head
+    per_layer = D * cfg.n_heads * dh * 2 + D * cfg.n_kv_heads * dh * 2 \
+        + 3 * D * cfg.d_ff
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    return 8.0 * tokens * (cfg.n_layers * per_layer + D * cfg.vocab_padded)
+
+
+def _bf16_leaves(torch, params):
+    from repro_torch.optim.optimizers import tree_leaves
+    return [p.reshape(-1) for p in tree_leaves(params)
+            if p.dtype == torch.bfloat16]
+
+
+CHUNK = 1 << 26        # elements a comparison handles at once on the card
+
+
+def share_at_least(torch, params, thr: float) -> float:
+    """Share of the bf16 weights with |p| >= thr."""
+    n = total = 0
+    for p in _bf16_leaves(torch, params):
+        for i in range(0, p.numel(), CHUNK):
+            n += int((p[i:i + CHUNK].abs() >= thr).sum())
+        total += p.numel()
+    return n / total
+
+
+def unchanged_share(torch, params, before) -> float:
+    """Share of the bf16 weights equal to ``before`` (their host copies),
+    compared chunk by chunk on the card."""
+    same = total = 0
+    for p, b in zip(_bf16_leaves(torch, params), before):
+        for i in range(0, p.numel(), CHUNK):
+            same += int((p[i:i + CHUNK] ==
+                         b[i:i + CHUNK].to(p.device)).sum())
+        total += p.numel()
+    return same / total
+
+
+def train_phase(torch, np, report):
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    from repro_torch.kernels.common import launches, reset_launches
+    from repro_torch.kernels.cross_entropy.ops import ce_forward
+    from repro_torch.kernels.cross_entropy.ref import ce_backward_chunked
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = train_config()
+    log(f"  qwen2-7b widths, {cfg.n_layers} layers (reduced from 28: "
+        f"training keeps 16 B a parameter, and 28 layers are 122 GB on an "
+        f"80 GB card); {cfg.params_count() / 1e9:.3f} B parameters, "
+        f"remat={cfg.remat} ({cfg.remat_policy}), {cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    step = make_train_step(cfg, adamw(lr=TRAIN_LR))
+    opt_state = step.init_opt_state(params)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, microbatches=TRAIN_MB,
+                      seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in global_batch_at(data, 0).items()}
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    # for |p| in [2^e, 2^(e+1)) the bf16 spacing is 2^(e-7), and a change
+    # below half of it rounds away: from the least e with 2^(e-8) > lr up,
+    # a step of ~lr moves no weight
+    ulp_thr = 2.0 ** (int(np.floor(np.log2(TRAIN_LR))) + 9)
+    above_thr = share_at_least(torch, params, ulp_thr)
+    losses, times, norms, unchanged = [], [], [], {}
+    torch.cuda.synchronize()
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        before = ([p.to("cpu", copy=True)
+                   for p in _bf16_leaves(torch, params)]
+                  if i in (0, TRAIN_STEPS - 1) else None)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"].item()))
+        norms.append(float(metrics["grad_norm"].item()))
+        times.append(time.perf_counter() - t0)
+        if before is not None:
+            unchanged[i + 1] = unchanged_share(torch, params, before)
+            del before
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(times[1:])) * 1e3
+    flop = matmul_flop_per_step(cfg)
+
+    # the CE backward's share: the chunked fp32 recompute at this shape,
+    # timed alone on the last hidden-sized input and the LM head (the
+    # timer's flush buffer exists only here, after the peak was read)
+    timer = Timer(torch)
+    x = torch.randn(tokens // TRAIN_MB, cfg.d_model, device="cuda",
+                    dtype=torch.bfloat16)
+    lab = batch["labels"][0].reshape(-1)
+    valid = lab >= 0
+    w = params["lm_head"].detach()
+    lse, _ = ce_forward(x, w, lab, cfg.vocab)
+    g = torch.ones((), device="cuda")
+    ce_bwd_ms = timer.ms(lambda: ce_backward_chunked(x, w, lab, valid, lse,
+                                                     g, cfg.vocab),
+                         iters=2, warmup=1)
+    del x, lse, timer
+    share = TRAIN_MB * ce_bwd_ms / step_ms
+    log(f"  lr {TRAIN_LR:g}  losses {[round(v, 4) for v in losses]}  grad "
+        f"norms {[round(v, 3) for v in norms]}")
+    log(f"  bf16 weights with |p| >= {ulp_thr:g} (half an ulp > lr) at "
+        f"init: {above_thr:.4f}; unchanged by step "
+        + ", step ".join(f"{k}: {v:.4f}" for k, v in unchanged.items()))
+    log(f"  step ms {[round(t * 1e3, 1) for t in times]}  (median after the "
+        f"first: {step_ms:.1f} ms)  tokens/s {tokens / step_ms * 1e3:.0f}  "
+        f"matmul TFLOP a step {flop / 1e12:.1f} "
+        f"({flop / step_ms / 1e9:.1f} TFLOP/s)")
+    log(f"  CE backward {ce_bwd_ms:.1f} ms a microbatch: {share:.3f} of the "
+        f"step  peak memory {peak / 2**30:.2f} GiB  launches {counts}")
+    expected = {k: v * TRAIN_STEPS for k, v in TRAIN_EXPECTED.items()}
+    report["train"] = {
+        "layers": cfg.n_layers, "reduced": "depth 28 -> 4 (memory)",
+        "lr": TRAIN_LR, "bf16_share_half_ulp_above_lr": above_thr,
+        "bf16_share_unchanged_by_step": unchanged,
+        "params": cfg.params_count(), "tokens_per_step": tokens,
+        "losses": losses, "grad_norms": norms, "step_s": times,
+        "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "matmul_flop_per_step": flop, "ce_bwd_ms_per_microbatch": ce_bwd_ms,
+        "ce_bwd_share": share, "peak_bytes": peak, "launches": counts}
+    del params, opt_state, batch, step, w
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"the loss did not fall at every step on a repeated batch: "
+             f"{losses}")
+    if counts != expected:
+        fail(f"train launch counts {counts}, expected {expected}")
+    loop_phase(torch, report)
+    return counts
+
+
+def loop_phase(torch, report):
+    """TrainLoop on the card: an uninterrupted run against a run preempted
+    at step 2 and resumed from its checkpoint."""
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.train import PreemptionError
+
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(use_reduced=True, overrides=LOOP_OVERRIDES, seq_len=64,
+              global_batch=4, microbatches=2, total_steps=5, ckpt_every=2,
+              device="cuda")
+    whole = build_trainer(ARCH, ckpt_dir=str(root / "whole"), **kw).run()
+    first = build_trainer(ARCH, ckpt_dir=str(root / "preempted"),
+                          inject_preemption_at=2, **kw)
+    try:
+        first.run()
+        fail("the injected preemption at step 2 did not happen")
+    except PreemptionError:
+        pass
+    resumed = build_trainer(ARCH, ckpt_dir=str(root / "preempted"),
+                            **kw).run()
+    got = first.state.losses + resumed.losses
+    log(f"  TrainLoop (reduced, bf16, head dim 128): uninterrupted "
+        f"{[round(v, 6) for v in whole.losses]}")
+    log(f"  preempted at 2, resumed from {resumed.resumed_from}: "
+        f"{[round(v, 6) for v in got]}  equal {got == whole.losses}")
+    report["train_loop"] = {"whole": whole.losses, "preempted_resumed": got,
+                            "resumed_from": resumed.resumed_from}
+    shutil.rmtree(root, ignore_errors=True)
+    if resumed.resumed_from != 2 or got != whole.losses:
+        fail("the resumed TrainLoop's losses differ from the uninterrupted "
+             "run's")
+
+
+# ---------------------------------------------------------------------------
 # optional: where the serving time goes (torch.profiler)
 # ---------------------------------------------------------------------------
 
@@ -357,8 +776,12 @@ def _kernel_table(prof, n_calls: int):
         dev = getattr(evt, "self_device_time_total", None)
         if dev is None:
             dev = evt.self_cuda_time_total
-        if dev <= 0 or evt.key.startswith(("aten::", "cuda")) or \
-                evt.key == "Command Buffer Full":       # not a kernel
+        # host-side ranges (aten ops, autograd Functions such as
+        # _FusedCrossEntropy, the profiler's own buffer requests) carry the
+        # device time of kernels launched inside them: not kernels
+        on_host = str(getattr(evt, "device_type", "CUDA")).endswith("CPU")
+        if dev <= 0 or on_host or evt.key.startswith(("aten::", "cuda")) or \
+                evt.key in ("Command Buffer Full", "Activity Buffer Request"):
             continue
         rows.append((evt.key, evt.count / n_calls, dev / n_calls))
     rows.sort(key=lambda r: -r[2])
@@ -366,10 +789,87 @@ def _kernel_table(prof, n_calls: int):
 
 
 OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
-        "decode_merge_kernel")
+        "decode_merge_kernel", "_rms_bwd_rows", "_dw_sum", "delta_kernel",
+        "dkdv_kernel", "dq_kernel", "ce_split_kernel", "ce_merge_kernel")
 
 
-def profile_phase(torch, np, report):
+# kernel families by name, for the breakdown of a profile
+FAMILIES = (
+    ("fp32 GEMMs (the CE backward's products)", ("f32f32", "sgemm")),
+    ("bf16 GEMMs (cuBLAS)", ("nvjet", "splitKreduce")),
+    ("ported kernels", OURS),
+    ("elementwise, copies and the rest", ("",)),
+)
+
+
+def _families(rows):
+    out = {}
+    for name, cnt, us in rows:
+        fam = next(f for f, keys in FAMILIES if any(k in name for k in keys))
+        n, t = out.get(fam, (0.0, 0.0))
+        out[fam] = (n + cnt, t + us)
+    return out
+
+
+def _profile_lines(label, wall, busy, nk, rows, report):
+    lines = [f"{label}: wall {wall * 1e3:.3f} ms, device busy "
+             f"{busy / 1e3:.3f} ms, idle share {1 - busy / 1e6 / wall:.3f}, "
+             f"{nk:.0f} kernel launches"]
+    fams = _families(rows)
+    for fam, (cnt, us) in fams.items():
+        lines.append(f"    {fam}: {us / 1e3:.3f} ms ({us / busy:.3f} of "
+                     f"device time), {cnt:.0f} launches")
+    for name, cnt, us in rows[:15]:
+        lines.append(f"    {us:10.1f} us {cnt:7.1f}x  {name[:90]}")
+    for name, cnt, us in rows:
+        if any(k in name for k in OURS):
+            lines.append(f"    ported kernel {name[:48]}: {cnt:.0f} "
+                         f"launches, {us / cnt:.2f} us each")
+    report.setdefault("profile", {})[label] = {
+        "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+        "kernel_launches": nk, "families_us": {f: t for f, (_, t) in
+                                               fams.items()},
+        "kernels": rows}
+    return lines
+
+
+def profile_train_step(torch, report):
+    """One train step at the train phase's configuration under
+    torch.profiler, after one warm step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = train_config()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    step = make_train_step(cfg, adamw(lr=TRAIN_LR))
+    opt_state = step.init_opt_state(params)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, microbatches=TRAIN_MB)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in global_batch_at(data, 0).items()}
+    params, opt_state, m = step(params, opt_state, batch)      # warm
+    m["loss"].item()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        m["loss"].item()
+        wall = time.perf_counter() - t0
+    rows, busy, nk = _kernel_table(prof, 1)
+    del params, opt_state, batch, step
+    torch.cuda.empty_cache()
+    return _profile_lines(f"train step ({cfg.n_layers} layers, "
+                          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens)", wall, busy,
+                          nk, rows, report)
+
+
+def profile_phase(torch, np, report, phases):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -379,6 +879,14 @@ def profile_phase(torch, np, report):
     cfg = get_config(ARCH)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     lines = []
+    if "train" in phases:
+        lines += profile_train_step(torch, report)
+    if "serve" not in phases:
+        for line in lines:
+            log("  " + line)
+        with open(OUT / "profile.txt", "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return
     with torch.inference_mode():
         params = init_params(cfg, torch.Generator(
             device="cuda").manual_seed(0), device="cuda")
@@ -436,19 +944,7 @@ def profile_phase(torch, np, report):
     for label, wall, busy, nk, rows in (
             ("prefill B=8 S=1024", wall_p, busy_p, nk_p, rows_p),
             ("decode step B=8 len~1030", wall_d, busy_d, nk_d, rows_d)):
-        lines.append(f"{label}: wall {wall * 1e3:.3f} ms, device busy "
-                     f"{busy / 1e3:.3f} ms, idle share "
-                     f"{1 - busy / 1e6 / wall:.3f}, {nk:.0f} kernel "
-                     "launches")
-        for name, cnt, us in rows[:15]:
-            lines.append(f"    {us:10.1f} us {cnt:7.1f}x  {name[:90]}")
-        for name, cnt, us in rows:
-            if any(k in name for k in OURS):
-                lines.append(f"    ported kernel {name[:48]}: {cnt:.0f} "
-                             f"launches, {us / cnt:.2f} us each")
-        report.setdefault("profile", {})[label] = {
-            "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
-            "kernel_launches": nk, "kernels": rows}
+        lines += _profile_lines(label, wall, busy, nk, rows, report)
     for line in lines:
         log("  " + line)
     with open(OUT / "profile.txt", "w") as f:
@@ -488,6 +984,13 @@ def main() -> None:
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         and smi.stdout.strip() else f"nvidia-smi failed: {smi.stderr.strip()}"
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60).stdout.strip()
+    log(f"[device] {card}; sm clock, max sm clock, power draw, temperature: "
+        f"{clocks}")
+    report["clocks_at_start"] = clocks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -499,22 +1002,23 @@ def main() -> None:
     report["torch"] = torch.__version__
 
     # ---- 2: build --------------------------------------------------------
-    if "build" in phases or "kernels" in phases or "serve" in phases:
+    if set(phases) & {"build", "kernels", "serve", "train"}:
         from repro_torch.kernels.common import build_library, library
-        from repro_torch.kernels.rmsnorm.kernel import rmsnorm_triton
+        from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_bwd_triton,
+                                                        rmsnorm_triton)
         t0 = time.perf_counter()
         lib_path = build_library(verbose=True)
         library()
         report["build_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        rmsnorm_triton(torch.ones(1, 3584, device="cuda",
-                                  dtype=torch.bfloat16),
-                       torch.ones(3584, device="cuda"))   # Triton compiles
+        one = torch.ones(1, 3584, device="cuda", dtype=torch.bfloat16)
+        rmsnorm_triton(one, torch.ones(3584, device="cuda"))  # Triton compiles
+        rmsnorm_bwd_triton(one, torch.ones(3584, device="cuda"), one)
         torch.cuda.synchronize()
         report["triton_compile_s"] = time.perf_counter() - t0
         log(f"[build] nvcc: {lib_path.relative_to(ROOT)} in "
-            f"{report['build_s']:.1f} s; Triton rmsnorm compiled in "
-            f"{report['triton_compile_s']:.1f} s")
+            f"{report['build_s']:.1f} s; Triton rmsnorm forward and backward "
+            f"compiled in {report['triton_compile_s']:.1f} s")
 
     rows = []
     if "kernels" in phases:
@@ -523,16 +1027,23 @@ def main() -> None:
     if "consistency" in phases:
         log("[consistency] full-width qwen2-7b, B=2")
         consistency_phase(torch, np, report)
-    counts = {}
+    by_path = {}
     if "serve" in phases:
         log("[serve] serve_demo qwen2-7b full width")
-        counts = serve_phase(torch, report)
+        by_path["serve"] = serve_phase(torch, report)
+    if "train" in phases:
+        log("[train] make_train_step qwen2-7b full width, 4 layers")
+        by_path["train"] = train_phase(torch, np, report)
     if args.profile:
         log("[profile] full-width qwen2-7b, torch.profiler")
-        profile_phase(torch, np, report)
+        profile_phase(torch, np, report, phases)
 
     for r in rows:
-        r["launches"] = counts.get(r["name"], 0)
+        r["launches_by_path"] = {p: c.get(r["name"], 0)
+                                 for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if phases == list(PHASES) and r["launches"] == 0:
+            fail(f"{r['name']} was launched no time on the paths driven")
     report["kernels"] = rows
     report["seconds"] = time.perf_counter() - t_start
     with open(OUT / "chip_smoke.json", "w") as f:
@@ -543,7 +1054,8 @@ def main() -> None:
         log("partial run: no result line")
         return
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -29,7 +29,11 @@
 //    (B, S, H, D) activations of the model are used without a transpose;
 //  * P is rounded to bf16 for the P·V product (the TPU kernel kept it in
 //    fp32); the card tolerance in kernels/common.py states what that costs.
-//  * causal q tiles are scheduled heaviest first.
+//  * causal q tiles are scheduled heaviest first;
+//  * for training, the row log-sum-exp of the scaled scores is written to
+//    lse (B, Hq, S) fp32 when the caller passes a buffer (the backward in
+//    flash_attention_bwd.cu rebuilds P from it); it is m and l, which the
+//    block holds at the end anyway.  Serving passes none.
 // Later work: wgmma + TMA with a warp-specialised producer, and sharing each
 // K/V tile across the q heads of a group.
 #include "common.cuh"
@@ -78,7 +82,7 @@ __global__ void __launch_bounds__(NTHREADS)
                      int group, int S, ll q_sb, ll q_sh, ll q_ss, ll k_sb,
                      ll k_sh, ll k_ss, ll v_sb, ll v_sh, ll v_ss, ll o_sb,
                      ll o_sh, ll o_ss, float scale_log2, int causal,
-                     int window) {
+                     int window, float* __restrict__ lse) {
   constexpr int LD = Tile<D>::LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -233,6 +237,10 @@ __global__ void __launch_bounds__(NTHREADS)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = l > 0.f ? 1.f / l : 0.f;
+    const int row = qrow0 + 8 * r;
+    if (lse != nullptr && t4 == 0 && row < S)   // natural log: (m + log2 l)·ln 2
+      lse[((ll)b * gridDim.y + h) * S + row] =
+          (m_r[r] + log2f(l)) * 0.6931471805599453f;
   }
   bf16* og = o + b * o_sb + h * o_sh;
 #pragma unroll
@@ -251,7 +259,7 @@ __global__ void __launch_bounds__(NTHREADS)
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Hq, int group, int S, const ll* st,
-                   float scale_log2, int causal, int window,
+                   float scale_log2, int causal, int window, float* lse,
                    cudaStream_t stream) {
   constexpr int bytes = Tile<D>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -262,21 +270,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), group, S, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], scale_log2, causal, window);
+      st[11], scale_log2, causal, window, lse);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (B, Hq, S, D), k/v: (B, Hkv, S, D), o: (B, Hq, S, D), all bf16 with unit
-// stride on D and the given (batch, head, seq) strides.  Returns 0 or a CUDA
-// error code; -1 for arguments the kernel does not take.
+// stride on D and the given (batch, head, seq) strides; lse: (B, Hq, S) fp32,
+// contiguous, or null.  Returns 0 or a CUDA error code; -1 for arguments the
+// kernel does not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Hq, int Hkv, int S,
                                    int D, ll q_sb, ll q_sh, ll q_ss, ll k_sb,
                                    ll k_sh, ll k_ss, ll v_sb, ll v_sh, ll v_ss,
                                    ll o_sb, ll o_sh, ll o_ss, float scale,
-                                   int causal, int window, void* stream) {
+                                   int causal, int window, void* lse,
+                                   void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0) return -1;
   const ll st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                      v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
@@ -284,6 +294,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 128) return -1;  // the one head dim of the ported models
   const cudaError_t err = launch<128>(q, k, v, o, B, Hq, Hq / Hkv, S, st,
-                                      scale_log2, causal, window, s);
+                                      scale_log2, causal, window,
+                                      static_cast<float*>(lse), s);
   return static_cast<int>(err);
 }

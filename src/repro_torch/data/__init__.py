@@ -1,0 +1,6 @@
+"""repro_torch.data — the step-indexed LM token loader (a copy of
+``repro.data.lm``)."""
+
+from .lm import DataConfig, Prefetcher, global_batch_at, shard_batch_at
+
+__all__ = ["DataConfig", "global_batch_at", "shard_batch_at", "Prefetcher"]

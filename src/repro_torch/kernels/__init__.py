@@ -10,8 +10,10 @@ Each kernel keeps the trio of ``repro.kernels``:
                   kernel is held against on the card.
 """
 
+from .cross_entropy.ops import fused_cross_entropy
 from .decode_attention.ops import decode_attention
 from .flash_attention.ops import flash_attention
 from .rmsnorm.ops import rmsnorm
 
-__all__ = ["rmsnorm", "flash_attention", "decode_attention"]
+__all__ = ["rmsnorm", "flash_attention", "decode_attention",
+           "fused_cross_entropy"]

@@ -85,7 +85,8 @@ def stream_ptr(device: torch.device) -> int:
 # ---------------------------------------------------------------------------
 
 LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "cross_entropy": 0,
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
 def count_launch(name: str) -> None:
@@ -115,6 +116,26 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     "rmsnorm/cpu_fp32": (1e-5, 0.0),
     "flash_attention/cpu_fp32": (1e-4, 0.0),
     "decode_attention/cpu_fp32": (1e-4, 0.0),
+    # The gradients against jax.grad of the JAX package's oracles.  dx of
+    # rmsnorm subtracts two terms of similar size (dy·w·rstd and the
+    # projection on x), so it keeps a little less than the forward.  The
+    # attention gradients sum P·dO and dS·K / dS^T·Q over up to a few
+    # hundred rows in another order.
+    "rmsnorm_bwd/cpu_fp32": (1e-5, 1e-5),
+    "flash_attention_bwd/cpu_fp32": (1e-4, 1e-4),
+    # lse and the label logit sum D products in fp32 in another order (by
+    # 2048-column blocks in the Pallas kernel, 8192-column chunks in the
+    # chunked forward, one product here); |lse| ~ log V ~ 6-12.
+    "cross_entropy/cpu_fp32": (1e-5, 1e-6),
+    # The CE gradient: dx sums V terms of (p - onehot)·w, dw sums T terms
+    # of x·(p - onehot); both are chunked the same way as the JAX backward.
+    "cross_entropy_bwd/cpu_fp32": (1e-6, 1e-5),
+    # Whole model at the reduced config (2 layers, d 128, vocab 512): the
+    # loss and every gradient leaf against jax.value_and_grad, and the
+    # params after one AdamW step (see tests/test_torch_train.py for the
+    # first-step sign rule).
+    "model_loss/cpu_fp32": (1e-5, 1e-5),
+    "model_grad/cpu_fp32": (5e-6, 1e-5),
     # Card, bfloat16 in and out, kernel against its plain version on the
     # same inputs.  Both compute y in fp32 and round once; the fp32 sums run
     # in another order, so a value next to a rounding boundary can round the
@@ -129,11 +150,48 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # Decode keeps p in fp32 (as the TPU kernel does): only the fp32 sum
     # order and the output's one bf16 rounding remain.
     "decode_attention/card_bf16": (1e-2, 2.0 ** -7),
+    # CE forward: the products of bf16 values are exact in fp32 on both
+    # sides (mma.sync bf16 -> fp32 here, an fp32 product with TF32 off in
+    # the plain version); only the order of the D = 3584 fp32 sums and of
+    # the online logsumexp differs.  lse ~ 12, logits ~ N(0, 1).
+    "cross_entropy/card_bf16": (1e-4, 1e-5),
+    # rmsnorm backward: dx in bf16 from the same fp32 arithmetic as the plain
+    # version (one bf16 rounding, one ulp at a boundary); dw in fp32 sums
+    # 8192 rows in another order (per-program partials, then a second pass).
+    "rmsnorm_bwd/card_bf16": (1e-3, 2.0 ** -7),
+    "rmsnorm_bwd_dw/card_bf16": (1e-3, 1e-4),
+    # Flash backward: P and dS are rounded to bf16 for the tensor-core
+    # products, as the plain version rounds them (2^-8 relative each), at
+    # the same points; dP = dO·V^T and the row sums Delta are fp32 in another
+    # order, which moves dS next to a rounding boundary by one bf16 ulp.
+    # dq, dk, dv round once more to bf16.  The elementwise check bounds the
+    # error of the largest entries only: at the train step's shape (causal,
+    # S 2048) a typical |dq| is ~0.05, so 2e-2 would pass a small error
+    # made everywhere.  REL_L2 below holds the whole tensor.
+    "flash_attention_bwd/card_bf16": (2e-2, 2.0 ** -6),
+}
+
+# ‖got − want‖₂ / ‖want‖₂ over the whole tensor, on top of the elementwise
+# check, where an error spread over all entries could hide under its atol.
+REL_L2: dict[str, float] = {
+    # Flash backward, each of dq, dk, dv: P, dS and the outputs are rounded
+    # to bf16 at the same points on both sides, and differ only where an
+    # fp32 sum in another order rounds the other way.  The sound kernel
+    # reads at most 3.3e-4 on the H100 (dv at B 4, S 2048); the limit is
+    # ~6 times that.  Dropping Delta = rowsum(dO∘O) (chip_smoke.py plants
+    # it by passing o = 0) reads 0.46 for dq and dk.
+    "flash_attention_bwd/card_bf16": 2e-3,
 }
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max())
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """‖got − want‖₂ / ‖want‖₂, in fp32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
 def within(got: torch.Tensor, want: torch.Tensor, key: str) -> bool:
@@ -228,8 +286,25 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64,                    # k strides
         i64, i64, i64,                    # v strides
         i64, i64, i64,                    # o strides
-        f, i, i, p]                       # scale, causal, window, stream
+        f, i, i,                          # scale, causal, window
+        p, p]                             # lse (B, Hq, S) fp32 or NULL, stream
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_bwd.argtypes = [
+        p, p, p, p, p, p,                 # q, k, v, o, do, lse
+        p, p, p, p,                       # dq, dk, dv, delta scratch
+        i, i, i, i, i,                    # B, Hq, Hkv, S, D
+        *([i64] * 24),                    # (b, h, s) strides: q k v o do dq dk dv
+        f, i, i, p]                       # scale, causal, window, stream
+    lib.flash_attention_bwd.restype = i
+    lib.cross_entropy_fwd.argtypes = [
+        p, p, p,                          # x (T, D), w (D, V), labels (T,)
+        p, p,                             # lse, label logit (T,) fp32
+        p, p, p,                          # partial m, l, label logit scratch
+        i, i, i, i, i,                    # T, D, V, n_valid, n_split
+        p]                                # stream
+    lib.cross_entropy_fwd.restype = i
+    lib.cross_entropy_split.argtypes = []
+    lib.cross_entropy_split.restype = i
     lib.decode_attention_fwd.argtypes = [
         p, p, p, p,                       # q, k, v, lengths
         p, p, p,                          # out, m_out, l_out (m, l: or NULL)

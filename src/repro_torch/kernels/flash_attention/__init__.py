@@ -1,3 +1,3 @@
-from .ops import flash_attention
+from .ops import flash_attention, flash_attention_bwd
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attention_bwd"]

@@ -1,9 +1,14 @@
-"""Launch of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Launch of the CUDA flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and its backward (``csrc/flash_attention_bwd.cu``).
 
-Replaces ``src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas``;
-the source's header says what bounds the kernel on the H100 and how its
-design answers that.  This module checks what the kernel takes, allocates the
-output, launches on PyTorch's current stream and counts the launch.
+The forward replaces
+``src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas``; the
+backward has no Pallas counterpart (the JAX package cannot differentiate
+through that kernel) and computes the gradient of its ``attention_ref``.
+The sources' headers say what bounds each kernel on the H100 and how its
+design answers that.  This module checks what the kernels take, allocates
+outputs and scratch, launches on PyTorch's current stream and counts each
+launch.
 """
 
 from __future__ import annotations
@@ -53,17 +58,68 @@ def flash_launch_args(q, k, v, out, *, causal: bool, window: int,
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         scale: float | None = None) -> torch.Tensor:
+                         scale: float | None = None,
+                         return_lse: bool = False):
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D); bf16 on one CUDA device, any
     (batch, head, seq) strides with a unit head-dim stride.  The output has
     q's shape and, where q is dense, q's strides: for q viewed from a
-    (B, S, Hq, D) tensor, out.transpose(1, 2) is contiguous."""
+    (B, S, Hq, D) tensor, out.transpose(1, 2) is contiguous.  With
+    ``return_lse`` also the row log-sum-exp (B, Hq, S) fp32."""
     out = torch.empty_like(q)
     args = flash_launch_args(q, k, v, out, causal=causal, window=window,
                              scale=scale)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if return_lse else None)
     status = library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
-        stream_ptr(q.device))
+        lse.data_ptr() if return_lse else None, stream_ptr(q.device))
     check_status("flash_attention", status)
     count_launch("flash_attention")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _strided_ok(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernel can read it through its strides (unit head-dim
+    stride, 16-byte aligned rows), else a contiguous copy.  The upstream
+    gradient of the model's ``o.transpose(1, 2).reshape(...)`` arrives as a
+    strided view and is read as it is."""
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+            or t.data_ptr() % 16:
+        return t.contiguous()
+    return t
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0, scale: float | None = None):
+    """The gradient of flash attention: (dq, dk, dv), each with the shape,
+    dtype and (where dense) strides of q, k, v.  ``o`` and ``lse`` are the
+    forward's output and row log-sum-exp; ``do`` the upstream gradient."""
+    do = _strided_ok(do)
+    args = flash_launch_args(q, k, v, o, causal=causal, window=window,
+                             scale=scale)
+    # do must suit the kernel as the output does (shape, bf16, strides)
+    flash_launch_args(q, k, v, do, causal=causal, window=window, scale=scale)
+    B, Hq, S = q.shape[:3]
+    if lse.shape != (B, Hq, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous ({B}, {Hq}, {S}) fp32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        if any(s % 8 for s in t.stride()[:3]) or t.stride(-1) != 1:
+            raise ValueError(f"{name} strides {t.stride()} do not suit the "
+                             "kernel")
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    B_, Hq_, Hkv, S_, D = args[:5]
+    strides = (*args[5:14], *args[14:17])        # q, k, v, o
+    strides += (*do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+                *dv.stride()[:3])
+    scale_v, causal_i, window_i = args[17:]
+    status = library().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B_, Hq_, Hkv, S_, D, *strides,
+        scale_v, causal_i, window_i, stream_ptr(q.device))
+    check_status("flash_attention_bwd", status)
+    count_launch("flash_attention_bwd")
+    return dq, dk, dv

@@ -1,3 +1,3 @@
-from .ops import rmsnorm
+from .ops import rmsnorm, rmsnorm_bwd
 
-__all__ = ["rmsnorm"]
+__all__ = ["rmsnorm", "rmsnorm_bwd"]

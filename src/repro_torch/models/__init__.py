@@ -7,7 +7,7 @@ machinery, as in ``repro.models``.
 from .config import ModelConfig
 from .convert import params_from_numpy
 from .model import (decode_step, forward, init_decode_state, init_params,
-                    prefill)
+                    loss_fn, prefill)
 
-__all__ = ["ModelConfig", "init_params", "forward", "prefill", "decode_step",
-           "init_decode_state", "params_from_numpy"]
+__all__ = ["ModelConfig", "init_params", "forward", "loss_fn", "prefill",
+           "decode_step", "init_decode_state", "params_from_numpy"]

@@ -139,4 +139,8 @@ def mlp_block(params, x, cfg: ModelConfig, act: Optional[str] = None):
 # ---------------------------------------------------------------------------
 
 def embed(params, tokens, cfg: ModelConfig):
-    return params["tok"][tokens].to(dtype_of(cfg))
+    # F.embedding rather than tok[tokens]: the same rows, and its backward
+    # on CUDA sums each row's gradients in a fixed order (a sort, then a
+    # segmented sum), so a training run repeats bit for bit (the checkpoint
+    # resume test relies on it)
+    return F.embedding(tokens, params["tok"]).to(dtype_of(cfg))

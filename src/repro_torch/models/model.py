@@ -3,10 +3,12 @@
 
 Parameters are a dict tree shaped like the JAX package's: per-layer weights
 stacked on a leading layer axis, weights in the (in, out) layout.  Python
-loops over the layers take the place of ``lax.scan``; layer ``i`` uses views
-``[i]`` of the stacked tensors.  The hybrid (SSD), ssm (SSD) and moe (grouped
-matmul) families, and the vlm/audio frontends, come with later slices of the
-port and raise here.
+loops over the layers take the place of ``lax.scan``; the per-layer views
+come from one ``torch.unbind`` of each stacked tensor.  With ``cfg.remat``
+and a gradient wanted, each layer runs under ``torch.utils.checkpoint``
+(``jax.checkpoint`` in the JAX package).  The hybrid (SSD), ssm (SSD) and moe
+(grouped matmul) families, and the vlm/audio frontends, come with later
+slices of the port and raise here.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels import fused_cross_entropy
 from ..kernels.common import resolve_device
 from .config import ModelConfig
 from .layers import (attention_block, attention_decode, dtype_of, embed,
@@ -36,11 +40,20 @@ def _check_family(cfg: ModelConfig) -> None:
             f"comes with {_LATER[cfg.family]} (see ROADMAP.md)")
 
 
-def _layer(tree, i: int):
-    """The views of layer ``i`` of a stacked parameter or cache tree."""
+def _layers(tree, n: int) -> list:
+    """The per-layer views of a stacked parameter tree, from one
+    ``torch.unbind`` of each stacked tensor.  Selecting ``tree[i]`` for
+    each layer instead would give each layer its own ``SelectBackward``,
+    and each of those allocates a zero gradient the size of the whole stack
+    (for ``w_up`` of qwen2-7b at 4 layers, 543 MB a layer); the backward of
+    one unbind stacks the layers' gradients once."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    views = torch.unbind(tree, 0)
+    if len(views) != n:
+        raise ValueError(f"stacked tensor has {len(views)} layers, not {n}")
+    return list(views)
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +139,21 @@ def _attn_mlp_block(lp, x, cfg: ModelConfig, positions):
     return x, (k, v)
 
 
+def _remat_layer(lp, x, cfg: ModelConfig, positions):
+    """One layer that keeps only its input for the backward and runs its
+    forward again there (layer-granular remat, JAX's ``remat_policy
+    "full"``).  Under it each layer's 2 rmsnorm and 1 flash-attention
+    forwards launch twice a step.  The k/v it would hand to prefill are
+    dropped: remat applies only when they are not collected."""
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported; the "
+            "'dots' policy (save the matmul outputs) is queued in ROADMAP.md")
+    x, _ = checkpoint(_attn_mlp_block, lp, x, cfg, positions,
+                      use_reentrant=False)
+    return x
+
+
 def forward(params, inputs: dict, cfg: ModelConfig, collect: bool = False):
     """inputs: {"tokens": (B,S)}.  Returns (hidden (B,S,D), states): with
     ``collect`` the per-layer (k, v), each (B, S, Hkv, dh), else None."""
@@ -135,14 +163,28 @@ def forward(params, inputs: dict, cfg: ModelConfig, collect: bool = False):
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
+    remat = cfg.remat and not collect and torch.is_grad_enabled()
     kvs = []
-    for i in range(cfg.n_layers):
-        x, kv = _attn_mlp_block(_layer(params["layers"], i), x, cfg,
-                                positions)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        if remat:
+            x = _remat_layer(lp, x, cfg, positions)
+            continue
+        x, kv = _attn_mlp_block(lp, x, cfg, positions)
         if collect:
             kvs.append(kv)
     x = norm(params["final_norm"], x, cfg.norm_eps)
     return x, (kvs if collect else None)
+
+
+def loss_fn(params, inputs: dict, cfg: ModelConfig):
+    """Causal-LM loss (labels = inputs shifted by the data pipeline;
+    negative labels are padding)."""
+    hidden, _ = forward(params, inputs, cfg)
+    labels = inputs["labels"]
+    valid = labels >= 0
+    labels = labels.clamp_min(0)
+    return fused_cross_entropy(hidden, params["lm_head"], labels,
+                               valid=valid, n_valid=cfg.vocab)
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +217,7 @@ def decode_step(params, state: dict, tokens, cfg: ModelConfig):
     x = embed(params["embed"], tokens, cfg)
     cache_len = state["len"]
     kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         a, _, _ = attention_decode(
             lp["attn"], norm(lp["attn_norm"], x, cfg.norm_eps), cfg,
             kc_all[i], vc_all[i], cache_len)

@@ -8,24 +8,47 @@ checks and stride handling, which are plain Python, are tested too.
 
 Tolerances (``repro_torch.kernels.common.TOLERANCES``, float32): the same
 arithmetic summed in another order — 1e-5 for rmsnorm's one mean of
-squares, 1e-4 for attention's softmax and two products.
+squares, 1e-4 for attention's softmax and two products; the gradients and
+the cross entropy have their own entries there, each with its reason.
+
+The gradients are held against ``jax.vjp`` / ``jax.grad`` of the JAX
+package's functions.  For rmsnorm and flash attention that is the plain
+``ref.py`` oracle: the JAX package cannot differentiate through its Pallas
+kernels of the two (``pallas_call`` has no reverse-mode rule), so its oracle
+is the function they compute.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.cross_entropy.kernel import ce_forward_pallas
+from repro.kernels.cross_entropy.ops import _forward_chunked
+from repro.kernels.cross_entropy.ops import \
+    fused_cross_entropy as jax_fused_cross_entropy
+from repro.kernels.cross_entropy.ref import \
+    cross_entropy_ref as jax_cross_entropy_ref
 from repro.kernels.decode_attention.kernel import decode_attention_pallas
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.rmsnorm.kernel import rmsnorm_pallas
 from repro.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
-from repro_torch.kernels.common import TOLERANCES, launches
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 fused_cross_entropy, rmsnorm)
+from repro_torch.kernels.common import REL_L2, TOLERANCES, launches, rel_l2
+from repro_torch.kernels.cross_entropy.kernel import ce_launch_args
+from repro_torch.kernels.cross_entropy.ops import ce_forward
+from repro_torch.kernels.cross_entropy.ref import (ce_backward_chunked,
+                                                   cross_entropy_ref)
 from repro_torch.kernels.decode_attention.kernel import decode_launch_args
 from repro_torch.kernels.flash_attention.kernel import flash_launch_args
+from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+from repro_torch.kernels.flash_attention.ref import \
+    attention_ref as t_attention_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
 
 RNG = np.random.default_rng(0)
 
@@ -204,3 +227,232 @@ def test_wrappers_raise_off_cpu_and_cuda_and_count_no_cpu_launch():
         flash_attention(qm, qm, qm)
     with pytest.raises(ValueError):
         decode_attention(qm[:, :, 0], qm.transpose(1, 2), qm.transpose(1, 2))
+    with pytest.raises(ValueError):
+        fused_cross_entropy(meta, torch.empty(128, 8, device="meta"),
+                            torch.zeros(2, dtype=torch.int32, device="meta"))
+
+
+def test_cpu_gradients_count_no_launch():
+    """The training wrappers on the CPU (forward and backward of rmsnorm,
+    flash attention and the cross entropy) run their plain versions: no
+    counter of any kernel moves."""
+    before = launches()
+    assert {"cross_entropy", "flash_attention_bwd",
+            "rmsnorm_bwd"} <= set(before)
+    x = torch.randn(2, 5, 64, requires_grad=True)
+    w = torch.ones(64, requires_grad=True)
+    q = torch.randn(1, 4, 5, 32, requires_grad=True)
+    kv = torch.randn(1, 2, 5, 32, requires_grad=True)
+    y = rmsnorm(x, w)
+    o = flash_attention(q, kv, kv)
+    loss = fused_cross_entropy(y, torch.randn(64, 40),
+                               torch.zeros(2, 5, dtype=torch.int32))
+    (loss + o.sum()).backward()
+    assert x.grad is not None and q.grad is not None and kv.grad is not None
+    assert launches() == before
+
+
+# ---------------------------------------------------------------------------
+# gradients: rmsnorm and flash attention against jax.vjp of the oracles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 37, 256), (6, 3584)])
+def test_rmsnorm_grad_matches_jax(shape):
+    x = _np(*shape)
+    w = 1.0 + _np(shape[-1], scale=0.1)
+    dy = _np(*shape)
+    _, vjp = jax.vjp(lambda x, w: rmsnorm_ref(x, w, eps=1e-5),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(dy))
+    key = "rmsnorm_bwd/cpu_fp32"
+    # the plain backward itself
+    dx, dw = rmsnorm_bwd(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(dy), eps=1e-5)
+    assert dx.dtype == torch.float32 and dw.dtype == torch.float32
+    _close(dx, jdx, key)
+    _close(dw, jdw, key)
+    # and through autograd (the Function the model calls)
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    rmsnorm(tx, tw, eps=1e-5).backward(torch.from_numpy(dy))
+    _close(tx.grad, jdx, key)
+    _close(tw.grad, jdw, key)
+
+
+GRAD_CASES = [
+    # (B, Hq, Hkv, S, D, causal, window)
+    (2, 4, 2, 45, 32, True, 0),         # GQA 4/2, causal
+    (1, 7, 1, 70, 32, True, 0),         # GQA 7/1 (qwen2-7b's group)
+    (1, 4, 2, 60, 32, True, 16),        # windowed
+    (2, 4, 2, 33, 16, False, 0),        # not causal
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window", GRAD_CASES)
+def test_flash_attention_grad_matches_jax(B, Hq, Hkv, S, D, causal, window):
+    q, k, v = _np(B, S, Hq, D), _np(B, S, Hkv, D), _np(B, S, Hkv, D)
+    do = _np(B, S, Hq, D)
+    j = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))
+    _, vjp = jax.vjp(lambda q, k, v: attention_ref(q, k, v, causal=causal,
+                                                   window=window),
+                     j(q), j(k), j(v))
+    want = vjp(j(do))
+    key = "flash_attention_bwd/cpu_fp32"
+    # through autograd, on the model's (B, S, H, D) layout seen as
+    # (B, H, S, D) views
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    views = [t.transpose(1, 2) for t in leaves]
+    o = flash_attention(*views, causal=causal, window=window)
+    o.backward(torch.from_numpy(do).transpose(1, 2))
+    for t, w_ in zip(leaves, want):
+        _close(t.grad.transpose(1, 2), w_, key)
+    # the plain backward from the forward's saved o and lse
+    o, lse = t_attention_ref(*[t.detach() for t in views], causal=causal,
+                             window=window, return_lse=True)
+    assert lse.shape == (B, Hq, S) and lse.dtype == torch.float32
+    got = flash_attention_bwd(*[t.detach() for t in views], o, lse,
+                              torch.from_numpy(do).transpose(1, 2),
+                              causal=causal, window=window)
+    for g, w_ in zip(got, want):
+        _close(g, w_, key)
+
+
+@pytest.mark.parametrize("Hq,Hkv,S,causal,window", [
+    (7, 1, 256, True, 0), (4, 2, 300, True, 64), (4, 2, 200, False, 0)])
+def test_flash_bwd_rel_l2_limit_rejects_dropped_delta(
+        Hq, Hkv, S, causal, window):
+    """The card's whole-tensor check (REL_L2) at head dim 128 in bf16:
+    dropping Delta = rowsum(dO∘O), planted as o = 0 as chip_smoke.py does,
+    moves dq and dk far past its limit and leaves dv as it was."""
+    limit = REL_L2["flash_attention_bwd/card_bf16"]
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16).transpose(1, 2)
+    q, k, v = bf(_np(1, S, Hq, 128)), bf(_np(1, S, Hkv, 128)), \
+        bf(_np(1, S, Hkv, 128))
+    do = bf(_np(1, S, Hq, 128))
+    opts = dict(causal=causal, window=window)
+    o, lse = t_attention_ref(q, k, v, return_lse=True, **opts)
+    sound = flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    dropped = flash_attention_bwd(q, k, v, torch.zeros_like(o), lse, do,
+                                  **opts)
+    assert rel_l2(dropped[0], sound[0]) > 10 * limit
+    assert rel_l2(dropped[1], sound[1]) > 10 * limit
+    assert torch.equal(dropped[2], sound[2])
+
+
+def test_attention_lse_is_the_row_logsumexp():
+    q, k = _np(1, 2, 9, 16), _np(1, 1, 9, 16)
+    s = np.einsum("bhqd,bhkd->bhqk", q, np.repeat(k, 2, axis=1)) * 16 ** -0.5
+    s = np.where(np.tril(np.ones((9, 9), bool)), s, -np.inf)
+    want = np.log(np.exp(s).sum(-1))
+    _, lse = t_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(k), return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# fused LM-head cross entropy
+# ---------------------------------------------------------------------------
+
+def _ce_inputs(T, D, V, n_labels=None, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(T, D)) * 0.5).astype(np.float32)
+    w = (rng.normal(size=(D, V)) * 0.1).astype(np.float32)
+    lab = rng.integers(0, n_labels or V, T).astype(np.int32)
+    return x, w, lab
+
+
+@pytest.mark.parametrize("T,D,V", [(128, 64, 1000), (64, 32, 513),
+                                   (100, 32, 4096)])
+def test_ce_forward_matches_pallas_and_chunked(T, D, V):
+    """n_valid == V: the port's forward against the Pallas kernel in
+    interpret mode (the branch the JAX package takes on a TPU) and against
+    the chunked forward (the branch below it)."""
+    x, w, lab = _ce_inputs(T, D, V)
+    lse, ll = ce_forward(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(lab))
+    key = "cross_entropy/cpu_fp32"
+    lp, llp = ce_forward_pallas(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(lab), interpret=True,
+                                block_t=64, block_v=256)
+    _close(lse, lp, key)
+    _close(ll, llp, key)
+    lc, llc = _forward_chunked(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(lab), V)
+    _close(lse, lc, key)
+    _close(ll, llc, key)
+    loss = cross_entropy_ref(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(lab))
+    _close(loss, jax_cross_entropy_ref(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(lab)), key)
+
+
+@pytest.mark.parametrize("T,D,V,n_valid", [(64, 32, 256, 200),
+                                           (50, 32, 9000, 8500)])
+def test_ce_forward_padded_head_masks_exactly(T, D, V, n_valid):
+    """n_valid < V with the padding columns poisoned: against JAX's chunked
+    forward and against the oracle on the valid columns alone."""
+    x, w, lab = _ce_inputs(T, D, V, n_labels=n_valid)
+    w[:, n_valid:] = 100.0
+    lse, ll = ce_forward(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(lab), n_valid=n_valid)
+    key = "cross_entropy/cpu_fp32"
+    lc, llc = _forward_chunked(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(lab), n_valid)
+    _close(lse, lc, key)
+    _close(ll, llc, key)
+    loss = fused_cross_entropy(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.from_numpy(lab), n_valid=n_valid)
+    _close(loss, jax_cross_entropy_ref(jnp.asarray(x),
+                                       jnp.asarray(w[:, :n_valid]),
+                                       jnp.asarray(lab)), key)
+
+
+@pytest.mark.parametrize("T,D,V,n_valid", [(64, 32, 500, 500),
+                                           (40, 32, 9000, 8700)])
+def test_ce_grad_matches_jax(T, D, V, n_valid):
+    """dx and dw of the port's autograd.Function against jax.grad of the JAX
+    package's fused_cross_entropy, with some tokens masked out; the second
+    case spans two 8192-column chunks and a padded head."""
+    x, w, lab = _ce_inputs(T, D, V, n_labels=n_valid)
+    valid = np.random.default_rng(1).random(T) > 0.2
+    gx, gw = jax.grad(
+        lambda x, w: 3.0 * jax_fused_cross_entropy(
+            x, w, jnp.asarray(lab), valid=jnp.asarray(valid),
+            n_valid=n_valid), argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    loss = fused_cross_entropy(tx, tw, torch.from_numpy(lab),
+                               valid=torch.from_numpy(valid),
+                               n_valid=n_valid)
+    (3.0 * loss).backward()
+    key = "cross_entropy_bwd/cpu_fp32"
+    _close(tx.grad, gx, key)
+    _close(tw.grad, gw, key)
+    # the plain backward on its own: dtype kept, columns past n_valid zero
+    lse, _ = ce_forward(tx.detach(), tw.detach(), torch.from_numpy(lab),
+                        n_valid)
+    dx, dw = ce_backward_chunked(
+        tx.detach().to(torch.bfloat16), tw.detach().to(torch.bfloat16),
+        torch.from_numpy(lab), torch.from_numpy(valid), lse,
+        torch.tensor(3.0), n_valid)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert not dw[:, n_valid:].any()
+
+
+def test_ce_launch_args_and_refusals():
+    T, D, V = 8192, 3584, 152064
+    x = torch.zeros(T, D, dtype=torch.bfloat16)
+    w = torch.zeros(D, V, dtype=torch.bfloat16)
+    lab = torch.zeros(T, dtype=torch.int32)
+    # the training path's shape: 74 full 2048-column splits and a tail
+    assert ce_launch_args(x, w, lab, V, 2048) == (T, D, V, V, 75)
+    with pytest.raises(ValueError):                      # int64 labels
+        ce_launch_args(x, w, lab.long(), V, 2048)
+    with pytest.raises(TypeError):                       # fp32
+        ce_launch_args(x.float(), w.float(), lab, V, 2048)
+    with pytest.raises(ValueError):                      # V % 8
+        ce_launch_args(x, w[:, :1001], lab, 1001, 2048)
+    with pytest.raises(ValueError):                      # n_valid > V
+        ce_launch_args(x, w, lab, V + 1, 2048)
+    with pytest.raises(ValueError):                      # not contiguous
+        ce_launch_args(x[:, :1024], w[:1024], lab, V, 2048)
