@@ -20,7 +20,12 @@ Phases, each of which must pass:
 5. serve   — ``serve_demo("qwen2-7b", use_reduced=False, ...)``: 16 requests
              in two waves of 8 lanes, 1024-token prompts, 64 new tokens;
              the launch counts of every kernel must match the path exactly.
-6. train   — qwen2-7b at its published widths, cut to 4 layers (the only
+6. consistency_hybrid, serve_hybrid — phases 4 and 5 for zamba2-1.2b at
+             its published width and depth (38 Mamba2 layers on the SSD
+             kernel, the shared attention block at head dim 64 six times);
+             the consistency check runs at 8 layers too, where the
+             random-init model does not amplify rounding as it does at 38.
+7. train   — qwen2-7b at its published widths, cut to 4 layers (the only
              cut: 28 layers need 122 GB of training state), through
              ``init_params``, ``adamw`` and ``make_train_step``: 4 steps on
              one repeated batch of 2 microbatches of 4 x 2048 tokens from
@@ -55,7 +60,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out"
 ARCH = "qwen2-7b"
-PHASES = ("device", "build", "kernels", "consistency", "serve", "train")
+HYBRID_ARCH = "zamba2-1.2b"
+PHASES = ("device", "build", "kernels", "consistency", "serve",
+          "consistency_hybrid", "serve_hybrid", "train")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -200,7 +207,11 @@ def kernel_phase(torch, timer, report):
             (2, 28, 4, 1000, 128, True, 256),     # windowed
             (1, 14, 2, 300, 128, False, 0),       # not causal
             (1, 14, 2, 300, 128, True, 1),        # window 1: the diagonal
-            (2, 14, 2, 1, 128, True, 0)):         # one token
+            (2, 14, 2, 1, 128, True, 0),          # one token
+            (8, 32, 32, 1024, 64, True, 0),       # zamba2's prefill, D 64
+            (2, 32, 32, 1001, 64, True, 0),       # ragged S, D 64
+            (1, 32, 32, 77, 64, True, 0),         # below one tile, D 64
+            (3, 4, 2, 300, 64, False, 0)):        # GQA, not causal, D 64
         q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
         case = (f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} "
                 f"{'causal' if causal else 'full'} w{window}")
@@ -225,6 +236,20 @@ def kernel_phase(torch, timer, report):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))})
+    # zamba2's shared attention block: 32 q heads over 32 kv heads of 64
+    B, Hq, Hkv, S, D = 8, 32, 32, 1024, 64
+    q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
+    b_ms, b_by = bound(B * S * D * 2 * (2 * Hq + 2 * Hkv),
+                       4 * B * Hq * D * pairs, PEAK_BF16)
+    rows[-1]["d64"] = {
+        "shape": f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} causal",
+        "ms": timer.ms(lambda: flash_attention(q, k, v, causal=True)),
+        "plain_ms": timer.ms(lambda: attention_ref(q, k, v, causal=True),
+                             iters=3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))}
+    del q, k, v
 
     # ---- decode attention ------------------------------------------------
     errs = []
@@ -253,32 +278,191 @@ def kernel_phase(torch, timer, report):
                     fail(f"decode_attention {name} disagrees (rel {rel})")
         else:
             errs.append(check("decode_attention", case, got, want))
-    B, S, Hq, Hkv, D = 8, 2048, 28, 4, 128
-    q = randn(B, 1, Hq, D)[:, 0]
-    k, v = randn(B, S, Hkv, D), randn(B, S, Hkv, D)
-    lengths = lens_path
-    n_keys = int(lengths.sum())
-    b_ms, b_by = bound(n_keys * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2 + 4 * B,
-                       4 * n_keys * Hq * D, PEAK_FP32)
-    mask = (torch.arange(S, device="cuda")[None, :] <
-            lengths[:, None])[:, None, None, :]          # (B, 1, 1, S)
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    # zamba2's shared block: 32 q heads over 32 kv heads of 64
+    for (B, S, lens) in ((8, 2048, lens_path),
+                         (8, 1000, [1, 1000, 127, 128, 129, 999, 500, 2])):
+        lengths = (lens if torch.is_tensor(lens) else
+                   torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        q = randn(B, 1, 32, 64)[:, 0]
+        k, v = randn(B, S, 32, 64), randn(B, S, 32, 64)
+        case = f"B{B} S{S} D64 lengths {lengths.min().item()}-" \
+               f"{lengths.max().item()}"
+        errs.append(check("decode_attention", case,
+                          decode_attention(q, k, v, lengths),
+                          decode_attention_ref(q, k, v, lengths)))
+
+    def decode_timings(B, S, Hq, Hkv, D, lengths):
+        q = randn(B, 1, Hq, D)[:, 0]
+        k, v = randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        n_keys = int(lengths.sum())
+        b_ms, b_by = bound(n_keys * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2
+                           + 4 * B, 4 * n_keys * Hq * D, PEAK_FP32)
+        mask = (torch.arange(S, device="cuda")[None, :] <
+                lengths[:, None])[:, None, None, :]      # (B, 1, 1, S)
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        return {
+            "ms": timer.ms(lambda: decode_attention(q, k, v, lengths)),
+            "plain_ms": timer.ms(lambda: decode_attention_ref(q, k, v,
+                                                              lengths)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True))}
+
     rows.append({
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:82",
         "max_abs_err": max(errs),
-        "ms": timer.ms(lambda: decode_attention(q, k, v, lengths)),
-        "plain_ms": timer.ms(lambda: decode_attention_ref(q, k, v, lengths)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True))})
+        **decode_timings(8, 2048, 28, 4, 128, lens_path),
+        "d64": {"shape": "B8 S2048 Hq32 Hkv32 D64, lengths 1025-1088",
+                **decode_timings(8, 2048, 32, 32, 64, lens_path)}})
+    rows += ssd_rows(torch, timer, randn, check, report)
     rows += train_kernel_rows(torch, timer, randn, check, gen, report)
     for r in rows:
-        log(f"  {r['name']:19s} kernel {r['ms']:.4f} ms  plain "
-            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for label, t in ((r["name"], r), (r["name"] + " D64", r.get("d64"))):
+            if t is None:
+                continue
+            lib = ("none" if t["library_ms"] is None else
+                   f"{t['library_ms']:.4f} ms")
+            log(f"  {label:23s} kernel {t['ms']:.4f} ms  plain "
+                f"{t['plain_ms']:.4f} ms  library {lib}  bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return rows
+
+
+SSD_L = 128            # the kernel's chunk length
+
+
+def ssd_case(torch, randn, B, H, S, gates):
+    """Inputs of the SSD kernel as the Mamba2 block hands them over: bf16 c
+    and b of shape (B, S, 64) seen as (B, H, S, 64) with a head stride of 0,
+    x a (B, H, S, 64) view of a (B, S, H, 64) tensor, fp32 gates as
+    (B, H, S) views of (B, S, H) tensors.  ``gates``: "path" is the model's
+    at init (a_log = 0, dt_bias = 0, dt ~ N(0, 1): gate = softplus(dt),
+    log_a = -gate, l falls by ~100 a chunk); "slow" keeps |log_a| ~ 0.01 so
+    the carried state matters; "overflow" has log_a <= -1, so l falls by
+    more than 128 within every chunk."""
+    import torch.nn.functional as F
+    c, b = randn(B, S, 64), randn(B, S, 64)
+    x = randn(B, S, H, 64).transpose(1, 2)
+    dt = randn(B, S, H, dtype=torch.float32)
+    gate = F.softplus(dt)
+    if gates == "path":
+        log_a = -gate
+    elif gates == "slow":
+        log_a = -0.01 * dt.abs()
+    else:
+        log_a = -1.0 - 0.5 * dt.abs()
+    return (c[:, None].expand(B, H, S, 64), b[:, None].expand(B, H, S, 64),
+            x, log_a.transpose(1, 2), gate.transpose(1, 2))
+
+
+def ssd_rows(torch, timer, randn, check, report):
+    """The SSD kernel against the sequential plain recurrence: y elementwise
+    and by rel L2, s_final by rel L2; a planted fault; times and bound at the
+    prefill path's shape."""
+    from repro_torch.kernels.common import REL_L2, rel_l2
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    state_key = "ssd_state/card_fp32"
+
+    def check_state(case, got, want):
+        rel = rel_l2(got, want)
+        ok = rel <= REL_L2[state_key]
+        log(f"  {'ssd_scan':19s} {case + ' s_final':44s} rel_l2={rel:.3e} "
+            f"(limit {REL_L2[state_key]:g}) {'ok' if ok else 'OUT OF TOLERANCE'}")
+        report.setdefault("rel_l2", {})[f"ssd_scan {case} s_final"] = rel
+        if not ok:
+            fail(f"ssd_scan {case}: s_final disagrees with the plain version")
+
+    errs = []
+    for (B, H, S, gates) in (
+            (8, 64, 1024, "path"),       # the prefill path's shape
+            (3, 64, 1000, "path"),       # ragged S; 192 blocks, not k·132
+            (2, 5, 200, "slow"),         # ragged S, the state carries
+            (1, 7, 1001, "overflow"),    # l falls by > 128 in every chunk
+            (1, 4, 128, "slow"),         # exactly one chunk
+            (2, 3, 1, "slow")):          # one row
+        inputs = ssd_case(torch, randn, B, H, S, gates)
+        la = inputs[3]
+        n = -(-S // SSD_L) * SSD_L
+        drop = torch.nn.functional.pad(la, (0, n - S)).reshape(
+            B, H, -1, SSD_L).sum(-1).neg().max().item()
+        y, s = ssd_scan(*inputs)
+        want_y, want_s = ssd_ref(*inputs)
+        case = f"B{B} H{H} S{S} {gates} (l falls <= {drop:.0f} a chunk)"
+        if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+            fail(f"ssd_scan {case}: non-finite output")
+        errs.append(check("ssd", case, y, want_y))
+        check_state(case, s, want_s)
+        if gates == "overflow" and drop <= 88:
+            fail("the overflow case does not make l fall by more than 88")
+        del inputs, y, s, want_y, want_s
+
+    B, H, S = 8, 64, 1024
+    inputs = ssd_case(torch, randn, B, H, S, "path")
+    ssd_planted_fault(torch, report, inputs, ssd_case(
+        torch, randn, 2, 5, 1000, "slow"))
+    L, N, P = SSD_L, 64, 64
+    n_chunks = -(-S // L)
+    flops = B * H * n_chunks * (2 * L * L * N + 2 * L * L * P + 4 * L * N * P)
+    bytes_moved = (2 * B * S * H * P * 2 + 2 * B * H * S * 4
+                   + 2 * B * S * N * 2 + B * H * N * P * 4)
+    b_ms, b_by = bound(bytes_moved, flops, PEAK_BF16)
+    row = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd/kernel.py:92",
+           "max_abs_err": max(errs),
+           "ms": timer.ms(lambda: ssd_scan(*inputs)),
+           "plain_ms": timer.ms(lambda: ssd_ref(*inputs), iters=2,
+                                warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None,       # no one PyTorch call computes the scan
+           "flop": flops, "bytes": bytes_moved}
+    del inputs
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def ssd_planted_fault(torch, report, *cases):
+    """The SSD check must reject a wrong kernel.  Launched on each 128-row
+    chunk alone (views of the inputs), the kernel starts every chunk from a
+    zero state: it runs as if its inter-chunk term were dropped, with no
+    edit to its source.  y, and s_final where the state carries, must fail
+    the check against the sound plain version."""
+    from repro_torch.kernels.common import REL_L2, TOLERANCES, rel_l2, within
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    out = {}
+    for inputs in cases:
+        B, H, S = inputs[2].shape[:3]
+        want_y, want_s = ssd_ref(*inputs)
+        parts = [ssd_scan(*[t[:, :, i:i + SSD_L] for t in inputs])
+                 for i in range(0, S, SSD_L)]
+        y = torch.cat([p[0] for p in parts], dim=2)
+        res = {"y_rel_l2": rel_l2(y, want_y),
+               "y_elementwise_ok": within(y, want_y, "ssd/card_bf16"),
+               "s_final_rel_l2": rel_l2(parts[-1][1], want_s)}
+        name = f"B{B} H{H} S{S}"
+        out[name] = res
+        log(f"    planted fault (inter-chunk term dropped) {name}: y rel_l2="
+            f"{res['y_rel_l2']:.3e} (limit {REL_L2['ssd/card_bf16']:g}), "
+            f"elementwise check "
+            f"{'passes' if res['y_elementwise_ok'] else 'fails'} (tolerance "
+            f"{TOLERANCES['ssd/card_bf16']}), s_final rel_l2="
+            f"{res['s_final_rel_l2']:.3e} (limit "
+            f"{REL_L2['ssd_state/card_fp32']:g})")
+        if not (res["y_rel_l2"] > REL_L2["ssd/card_bf16"]
+                and not res["y_elementwise_ok"]):
+            fail("the SSD check does not reject a kernel that drops the "
+                 "inter-chunk term")
+    report["ssd_planted_fault"] = out
+    # the last case carries its state across chunks
+    if not res["s_final_rel_l2"] > REL_L2["ssd_state/card_fp32"]:
+        fail("the SSD state check does not reject a kernel that drops the "
+             "inter-chunk term")
 
 
 def train_kernel_rows(torch, timer, randn, check, gen, report):
@@ -468,11 +652,27 @@ def planted_fault(torch, report, q, k, v, o, lse, do):
 # ---------------------------------------------------------------------------
 
 
-def consistency_phase(torch, np, report):
+# prefill 1000 + decode 1 against forward 1001, rel L2 of the logits, by
+# (arch, layers; None = the published depth).  Each limit is set from the
+# bf16 noise floor that the run reports beside it: the same forward with
+# the input embeddings perturbed by ~1/2 ulp.  On the H100: qwen2-7b reads
+# 1.75e-2 against a floor of 2.14e-2; zamba2-1.2b 0.146 against 0.846 at
+# 38 layers (random-init zamba2 amplifies a perturbation of its input with
+# depth) and 1.61e-2 against 7.81e-2 at 8 layers.
+# The hybrid limits lie at or below half the floor and at about twice the
+# reading.
+CONSISTENCY_LIMIT = {(ARCH, None): 2e-2, (HYBRID_ARCH, None): 0.3,
+                     (HYBRID_ARCH, 8): 4e-2}
+
+
+def consistency_phase(torch, np, report, arch=ARCH, layers=None):
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, forward, init_params, prefill
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    limit = CONSISTENCY_LIMIT[arch, layers]
     with torch.inference_mode():
         params = init_params(cfg, torch.Generator(
             device="cuda").manual_seed(1), device="cuda")
@@ -503,16 +703,18 @@ def consistency_phase(torch, np, report):
         pert = (hidden[:, -1] @ params["lm_head"]).float()
         floor = float((pert - full).norm() / full.norm())
     log(f"  prefill {S} + decode 1 vs forward {S + 1}: rel L2 {rel:.4e} "
-        f"(limit 2e-2), argmax equal {same} (top-2 margin {margin:.4f})")
+        f"(limit {limit:g}), argmax equal {same} (top-2 margin "
+        f"{margin:.4f})")
     log(f"  forward vs forward with input embeddings perturbed by ~1/2 ulp:"
         f" rel L2 {floor:.4e}")
-    report["consistency"] = {"rel_l2": rel, "argmax_equal": same,
-                             "top2_margin": margin,
-                             "half_ulp_input_rel_l2": floor}
+    label = arch if layers is None else f"{arch} {layers} layers"
+    report["consistency" if arch == ARCH else f"consistency {label}"] = {
+        "rel_l2": rel, "limit": limit, "argmax_equal": same,
+        "top2_margin": margin, "half_ulp_input_rel_l2": floor}
     del params, state, hidden
     torch.cuda.empty_cache()
-    if not (rel <= 2e-2 and same):
-        fail("decode disagrees with forward at full width")
+    if not (rel <= limit and same):
+        fail(f"{label}: decode disagrees with forward at full width")
 
 
 # ---------------------------------------------------------------------------
@@ -521,16 +723,26 @@ def consistency_phase(torch, np, report):
 
 EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
             "decode_attention": 28 * 128, "cross_entropy": 0,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan": 0}
+# zamba2-1.2b: 38 Mamba2 layers in 6 groups of 6 and a tail of 2, the shared
+# block after each group.  A pass runs 51 rmsnorms (one per Mamba2 layer,
+# two per shared block, the final one); a prefill wave 6 flash and 38 SSD
+# launches, a decode step 6 decode-attention launches (its SSD step is plain
+# torch, as in the JAX package).  Two waves and 128 decode steps.
+HYBRID_EXPECTED = {"rmsnorm": (38 + 2 * 6 + 1) * (2 + 128),
+                   "flash_attention": 6 * 2, "decode_attention": 6 * 128,
+                   "ssd_scan": 38 * 2, "cross_entropy": 0,
+                   "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 
-def serve_phase(torch, report):
+def serve_phase(torch, report, arch=ARCH, expected=EXPECTED):
     from repro_torch.kernels.common import launches, reset_launches
     from repro_torch.launch.serve import serve_demo
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    out = serve_demo(ARCH, use_reduced=False, n_requests=16, n_lanes=8,
+    out = serve_demo(arch, use_reduced=False, n_requests=16, n_lanes=8,
                      prompt_len=1024, max_new=64, max_len=2048,
                      device="cuda")
     counts = launches()
@@ -542,12 +754,13 @@ def serve_phase(torch, report):
         f"  decode ms per step {out['decode_s'] / max(steps, 1) * 1e3:.3f}  "
         f"tok/s {out['tok_per_s']:.1f}  wall {out['wall_s']:.3f} s")
     log(f"  peak memory {peak / 2**30:.2f} GiB  launches {counts}")
-    report["serve"] = {**out, "peak_bytes": peak, "launches": counts}
+    report["serve" if arch == ARCH else f"serve {arch}"] = {
+        **out, "peak_bytes": peak, "launches": counts}
     if out["requests"] != 16 or out["tokens"] != 1024 or steps != 128:
         fail(f"served {out['requests']} requests / {out['tokens']} tokens / "
              f"{steps} steps; expected 16 / 1024 / 128")
-    if counts != EXPECTED:
-        fail(f"launch counts {counts}, expected {EXPECTED}")
+    if counts != expected:
+        fail(f"launch counts {counts}, expected {expected}")
     return counts
 
 
@@ -575,6 +788,7 @@ TRAIN_EXPECTED = {
     "flash_attention_bwd": TRAIN_MB * TRAIN_LAYERS,
     "cross_entropy": TRAIN_MB,
     "decode_attention": 0,
+    "ssd_scan": 0,
 }
 # a small config the kernels take (bf16, head dim 128) for the TrainLoop
 LOOP_OVERRIDES = dict(dtype="bfloat16", d_model=256, n_heads=2,
@@ -790,7 +1004,8 @@ def _kernel_table(prof, n_calls: int):
 
 OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "decode_merge_kernel", "_rms_bwd_rows", "_dw_sum", "delta_kernel",
-        "dkdv_kernel", "dq_kernel", "ce_split_kernel", "ce_merge_kernel")
+        "dkdv_kernel", "dq_kernel", "ce_split_kernel", "ce_merge_kernel",
+        "ssd_scan_kernel")
 
 
 # kernel families by name, for the breakdown of a profile
@@ -869,24 +1084,19 @@ def profile_train_step(torch, report):
                           nk, rows, report)
 
 
-def profile_phase(torch, np, report, phases):
+def profile_serving(torch, np, report, arch):
+    """One prefill wave (B=8, S=1024) and 8 decode steps at full width under
+    torch.profiler, after a warm wave and 3 warm steps; for qwen2-7b also
+    the host cost of one call of a few kinds."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, prefill
     from repro_torch.serve.step import make_decode_step
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     lines = []
-    if "train" in phases:
-        lines += profile_train_step(torch, report)
-    if "serve" not in phases:
-        for line in lines:
-            log("  " + line)
-        with open(OUT / "profile.txt", "w") as f:
-            f.write("\n".join(lines) + "\n")
-        return
     with torch.inference_mode():
         params = init_params(cfg, torch.Generator(
             device="cuda").manual_seed(0), device="cuda")
@@ -914,37 +1124,51 @@ def profile_phase(torch, np, report, phases):
                 nxt.cpu()                                      # as serving
             wall_d = (time.perf_counter() - t0) / n
         rows_d, busy_d, nk_d = _kernel_table(prof, n)
-        # host cost of one call (enqueue only), at the decode shapes
-        from repro_torch.kernels import decode_attention, rmsnorm
-        xd = torch.randn(8, 1, cfg.d_model, device="cuda",
-                         dtype=torch.bfloat16)
-        wn = params["final_norm"]["w"]
-        kc, vc = state["kv"]["k"][0], state["kv"]["v"][0]
-        qd = torch.randn(8, 28, 128, device="cuda", dtype=torch.bfloat16)
-        lens = state["len"].clamp(max=2047) + 1
-        wq = params["layers"]["attn"]["wq"][0]
         host = {}
-        for label, fn in (("rmsnorm (Triton)", lambda: rmsnorm(xd, wn)),
-                          ("decode_attention (ctypes)",
-                           lambda: decode_attention(qd, kc, vc, lens)),
-                          ("x @ wq (cuBLAS)", lambda: xd @ wq),
-                          ("x + x (elementwise)", lambda: xd + xd)):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
+        if arch == ARCH:
+            # host cost of one call (enqueue only), at the decode shapes
+            from repro_torch.kernels import decode_attention, rmsnorm
+            xd = torch.randn(8, 1, cfg.d_model, device="cuda",
+                             dtype=torch.bfloat16)
+            wn = params["final_norm"]["w"]
+            kc, vc = state["kv"]["k"][0], state["kv"]["v"][0]
+            qd = torch.randn(8, 28, 128, device="cuda", dtype=torch.bfloat16)
+            lens = state["len"].clamp(max=2047) + 1
+            wq = params["layers"]["attn"]["wq"][0]
+            for label, fn in (("rmsnorm (Triton)", lambda: rmsnorm(xd, wn)),
+                              ("decode_attention (ctypes)",
+                               lambda: decode_attention(qd, kc, vc, lens)),
+                              ("x @ wq (cuBLAS)", lambda: xd @ wq),
+                              ("x + x (elementwise)", lambda: xd + xd)):
                 fn()
-            host[label] = (time.perf_counter() - t0) / 200 * 1e6
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                host[label] = (time.perf_counter() - t0) / 200 * 1e6
+                torch.cuda.synchronize()
     del params, state
     torch.cuda.empty_cache()
-    lines.append("host cost per call (enqueue, us): " + ", ".join(
-        f"{k} {v:.1f}" for k, v in host.items()))
-    report.setdefault("profile", {})["host_us_per_call"] = host
+    if host:
+        lines.append("host cost per call (enqueue, us): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in host.items()))
+        report.setdefault("profile", {})["host_us_per_call"] = host
     for label, wall, busy, nk, rows in (
-            ("prefill B=8 S=1024", wall_p, busy_p, nk_p, rows_p),
-            ("decode step B=8 len~1030", wall_d, busy_d, nk_d, rows_d)):
+            (f"{arch} prefill B=8 S=1024", wall_p, busy_p, nk_p, rows_p),
+            (f"{arch} decode step B=8 len~1030", wall_d, busy_d, nk_d,
+             rows_d)):
         lines += _profile_lines(label, wall, busy, nk, rows, report)
+    return lines
+
+
+def profile_phase(torch, np, report, phases):
+    lines = []
+    if "train" in phases:
+        lines += profile_train_step(torch, report)
+    if "serve" in phases:
+        lines += profile_serving(torch, np, report, ARCH)
+    if "serve_hybrid" in phases:
+        lines += profile_serving(torch, np, report, HYBRID_ARCH)
     for line in lines:
         log("  " + line)
     with open(OUT / "profile.txt", "w") as f:
@@ -957,7 +1181,8 @@ def main() -> None:
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one prefill and a few decode steps "
-                    "at full width (torch.profiler) after the phases")
+                    "of each served model, and a train step, at full width "
+                    "(torch.profiler) after the phases")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1031,11 +1256,24 @@ def main() -> None:
     if "serve" in phases:
         log("[serve] serve_demo qwen2-7b full width")
         by_path["serve"] = serve_phase(torch, report)
+    if "consistency_hybrid" in phases:
+        log(f"[consistency_hybrid] full-width {HYBRID_ARCH}, B=2")
+        consistency_phase(torch, np, report, HYBRID_ARCH)
+        # random-init zamba2 is chaotic at 38 layers (the half-ulp floor is
+        # ~0.85), which leaves that check little room; at 8 layers (one
+        # group of 6, the shared block, a tail of 2) it is not
+        log(f"  the same at 8 layers (one group, the shared block, the "
+            f"tail):")
+        consistency_phase(torch, np, report, HYBRID_ARCH, layers=8)
+    if "serve_hybrid" in phases:
+        log(f"[serve_hybrid] serve_demo {HYBRID_ARCH} full width")
+        by_path["serve_hybrid"] = serve_phase(torch, report, HYBRID_ARCH,
+                                              HYBRID_EXPECTED)
     if "train" in phases:
         log("[train] make_train_step qwen2-7b full width, 4 layers")
         by_path["train"] = train_phase(torch, np, report)
     if args.profile:
-        log("[profile] full-width qwen2-7b, torch.profiler")
+        log("[profile] full width, torch.profiler")
         profile_phase(torch, np, report, phases)
 
     for r in rows:

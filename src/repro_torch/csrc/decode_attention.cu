@@ -23,6 +23,10 @@
 //  * blocks whose chunk starts at or past lengths[b] exit at once, and keys
 //    at or past lengths[b] are never read (the TPU kernel skipped whole
 //    blocks past the length, kernel.py:49);
+//  * head dims 128 (qwen2-7b) and 64 (zamba2-1.2b's shared attention, 32 q
+//    heads over 32 kv heads, G = 1): D/8 threads share a key row, so at 64
+//    a pass covers 16 rows instead of 8 and the reduction scratch keeps its
+//    size;
 //  * with lengths[b] == 0 the merge has no chunk and writes 0 (the JAX
 //    reference gives NaN there); no caller passes 0.
 // Later work: more loads in flight per thread (cp.async ring) and a fused
@@ -50,6 +54,7 @@ __global__ void __launch_bounds__(NTHREADS) decode_split_kernel(
     float scale) {
   constexpr int TPR = D / 8;             // threads on one key row
   constexpr int RPP = NTHREADS / TPR;    // key rows per pass
+  static_assert(TPR >= MAX_G, "thread g of a key row stores head g's score");
   __shared__ float sS[MAX_G][CHUNK];
   __shared__ float sM[MAX_G], sL[MAX_G];
   __shared__ __align__(16) float sRed[RPP][MAX_G * D];
@@ -259,9 +264,15 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   float* po = static_cast<float*>(part_o);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
-  if (D != 128) return -1;  // the one head dim of the ported models
-  const cudaError_t err = launch_split<128>(q, k, v, lens, po, pm, pl, B, Hkv,
-                                            G, S, n_split, st, scale, s);
+  cudaError_t err;
+  if (D == 128)        // qwen2-7b
+    err = launch_split<128>(q, k, v, lens, po, pm, pl, B, Hkv, G, S, n_split,
+                            st, scale, s);
+  else if (D == 64)    // zamba2-1.2b's shared attention block
+    err = launch_split<64>(q, k, v, lens, po, pm, pl, B, Hkv, G, S, n_split,
+                           st, scale, s);
+  else
+    return -1;         // the head dims of the ported models only
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_merge_kernel<<<dim3(Hq, B), D, 0, s>>>(
       po, pm, pl, lens, static_cast<bf16*>(out), static_cast<float*>(m_out),

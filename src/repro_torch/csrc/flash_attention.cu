@@ -30,6 +30,9 @@
 //  * P is rounded to bf16 for the P·V product (the TPU kernel kept it in
 //    fp32); the card tolerance in kernels/common.py states what that costs.
 //  * causal q tiles are scheduled heaviest first;
+//  * head dims 128 (qwen2-7b) and 64 (zamba2-1.2b's shared attention block):
+//    the tiles stay 64 x 64 and the loops over D shorten; at 64 the block
+//    needs 27 KB of shared memory instead of 54 KB;
 //  * for training, the row log-sum-exp of the scaled scores is written to
 //    lse (B, Hq, S) fp32 when the caller passes a buffer (the backward in
 //    flash_attention_bwd.cu rebuilds P from it); it is m and l, which the
@@ -292,9 +295,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                      v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   const float scale_log2 = scale * 1.4426950408889634f;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 128) return -1;  // the one head dim of the ported models
-  const cudaError_t err = launch<128>(q, k, v, o, B, Hq, Hq / Hkv, S, st,
-                                      scale_log2, causal, window,
-                                      static_cast<float*>(lse), s);
+  float* lse_f = static_cast<float*>(lse);
+  cudaError_t err;
+  if (D == 128)        // qwen2-7b
+    err = launch<128>(q, k, v, o, B, Hq, Hq / Hkv, S, st, scale_log2, causal,
+                      window, lse_f, s);
+  else if (D == 64)    // zamba2-1.2b's shared attention block
+    err = launch<64>(q, k, v, o, B, Hq, Hq / Hkv, S, st, scale_log2, causal,
+                     window, lse_f, s);
+  else
+    return -1;         // the head dims of the ported models only
   return static_cast<int>(err);
 }

@@ -14,6 +14,7 @@ from .cross_entropy.ops import fused_cross_entropy
 from .decode_attention.ops import decode_attention
 from .flash_attention.ops import flash_attention
 from .rmsnorm.ops import rmsnorm
+from .ssd.ops import ssd_scan
 
 __all__ = ["rmsnorm", "flash_attention", "decode_attention",
-           "fused_cross_entropy"]
+           "fused_cross_entropy", "ssd_scan"]

@@ -86,7 +86,8 @@ def stream_ptr(device: torch.device) -> int:
 
 LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0, "cross_entropy": 0,
-                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                            "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                            "ssd_scan": 0}
 
 
 def count_launch(name: str) -> None:
@@ -136,6 +137,19 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # first-step sign rule).
     "model_loss/cpu_fp32": (1e-5, 1e-5),
     "model_grad/cpu_fp32": (5e-6, 1e-5),
+    # SSD scan: the plain step-by-step fp32 recurrence against JAX's
+    # (the same arithmetic), against the Pallas kernel in interpret mode and
+    # JAX's padded ssd_scan (the chunked form: exp of cumulative-sum
+    # differences).  Entries |y| up to ~25 differ by at most 6e-6, s_final
+    # (|s| ~ 2) by 8e-7.
+    "ssd/cpu_fp32": (2e-5, 1e-5),
+    # One Mamba2 layer (in_proj, conv, gates, scan, skip, gate, out_proj)
+    # and the reduced hybrid model (5 Mamba2 layers, the shared block twice,
+    # d 128) against the JAX package's, fp32, another summation order:
+    # at most 4.3e-6 (layer, |out| up to 19) and 3.6e-5 (model, logits and
+    # states up to 16).
+    "ssd/mamba_cpu_fp32": (1e-5, 1e-5),
+    "ssd/hybrid_cpu_fp32": (1e-4, 1e-4),
     # Card, bfloat16 in and out, kernel against its plain version on the
     # same inputs.  Both compute y in fp32 and round once; the fp32 sums run
     # in another order, so a value next to a rounding boundary can round the
@@ -169,6 +183,13 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # S 2048) a typical |dq| is ~0.05, so 2e-2 would pass a small error
     # made everywhere.  REL_L2 below holds the whole tensor.
     "flash_attention_bwd/card_bf16": (2e-2, 2.0 ** -6),
+    # SSD scan, y in bf16: the kernel multiplies its fp32 operands as bf16
+    # high part + remainder (16 bits of mantissa), the plain version in fp32,
+    # so y differs before its one bf16 rounding by ~2^-17 of the sum of the
+    # magnitudes of its terms, and rounds the other way next to a boundary:
+    # one bf16 ulp.  On the H100 the largest error is one ulp (1.0 at
+    # |y| >= 128).  REL_L2 below holds the whole tensor.
+    "ssd/card_bf16": (1e-2, 2.0 ** -7),
 }
 
 # ‖got − want‖₂ / ‖want‖₂ over the whole tensor, on top of the elementwise
@@ -181,6 +202,15 @@ REL_L2: dict[str, float] = {
     # ~6 times that.  Dropping Delta = rowsum(dO∘O) (chip_smoke.py plants
     # it by passing o = 0) reads 0.46 for dq and dk.
     "flash_attention_bwd/card_bf16": 2e-3,
+    # SSD scan: y (bf16) and s_final (fp32) against the plain sequential
+    # fp32 recurrence.  The sound kernel reads at most 1.11e-4 for y (the
+    # prefill shape) and 1.03e-5 for s_final (l falling by 188 a chunk) on
+    # the H100; each limit is ~9 times that.  Running each 128-row chunk
+    # from a zero state (the inter-chunk term dropped, chip_smoke.py's
+    # planted fault) reads 4.9e-2 for y at the prefill shape's fast decay,
+    # and 0.63 for y and 0.42 for s_final where the state carries.
+    "ssd/card_bf16": 1e-3,
+    "ssd_state/card_fp32": 1e-4,
 }
 
 
@@ -315,6 +345,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64,                    # v strides (b, s, h)
         f, p]                             # scale, stream
     lib.decode_attention_fwd.restype = i
+    lib.ssd_scan_fwd.argtypes = [
+        p, p, p, p, p,                    # c, b, x, log_a, gate
+        p, p,                             # y, s_final (B, H, N, P) fp32
+        i, i, i, i, i,                    # B, H, S, N, P
+        *([i64] * 18),                    # (b, h, s) strides: c b x y la g
+        p]                                # stream
+    lib.ssd_scan_fwd.restype = i
     lib.decode_attention_chunk.argtypes = []
     lib.decode_attention_chunk.restype = i
     lib.repro_cuda_error_string.argtypes = [i]

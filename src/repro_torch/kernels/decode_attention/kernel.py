@@ -13,7 +13,7 @@ import torch
 
 from ..common import check_status, count_launch, library, stream_ptr
 
-HEAD_DIMS = (128,)
+HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
 
 

@@ -17,7 +17,10 @@ import torch
 
 from ..common import check_status, count_launch, library, stream_ptr
 
-HEAD_DIMS = (128,)
+HEAD_DIMS = (64, 128)
+# The backward is built for qwen2-7b's head dim only: hybrid training, which
+# needs 64, is queued in ROADMAP.md.
+BWD_HEAD_DIMS = (128,)
 
 
 def flash_launch_args(q, k, v, out, *, causal: bool, window: int,
@@ -89,12 +92,15 @@ def _strided_ok(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
-                             window: int = 0, scale: float | None = None):
-    """The gradient of flash attention: (dq, dk, dv), each with the shape,
-    dtype and (where dense) strides of q, k, v.  ``o`` and ``lse`` are the
-    forward's output and row log-sum-exp; ``do`` the upstream gradient."""
-    do = _strided_ok(do)
+def flash_bwd_launch_args(q, k, v, o, lse, do, dq, dk, dv, *,
+                          causal: bool, window: int,
+                          scale: float | None) -> tuple:
+    """Check the backward's inputs and its outputs dq, dk, dv for the kernel
+    and return the C call's scalar arguments: (B, Hq, Hkv, S, D, 24
+    strides, scale, causal, window)."""
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward kernel takes head dims "
+                         f"{BWD_HEAD_DIMS}, not {q.shape[-1]}")
     args = flash_launch_args(q, k, v, o, causal=causal, window=window,
                              scale=scale)
     # do must suit the kernel as the output does (shape, bf16, strides)
@@ -104,22 +110,34 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous ({B}, {Hq}, {S}) fp32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+    for name, t, like in (("dq", dq, q), ("dk", dk, k), ("dv", dv, v)):
+        if t.shape != like.shape or t.dtype != like.dtype:
+            raise ValueError(f"{name} must have the shape and dtype of its "
+                             "input")
         if any(s % 8 for s in t.stride()[:3]) or t.stride(-1) != 1:
             raise ValueError(f"{name} strides {t.stride()} do not suit the "
                              "kernel")
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    B_, Hq_, Hkv, S_, D = args[:5]
     strides = (*args[5:14], *args[14:17])        # q, k, v, o
     strides += (*do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
                 *dv.stride()[:3])
-    scale_v, causal_i, window_i = args[17:]
+    return (*args[:5], *strides, *args[17:])
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0, scale: float | None = None):
+    """The gradient of flash attention: (dq, dk, dv), each with the shape,
+    dtype and (where dense) strides of q, k, v.  ``o`` and ``lse`` are the
+    forward's output and row log-sum-exp; ``do`` the upstream gradient."""
+    do = _strided_ok(do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    args = flash_bwd_launch_args(q, k, v, o, lse, do, dq, dk, dv,
+                                 causal=causal, window=window, scale=scale)
+    B, Hq, S = q.shape[:3]
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     status = library().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), B_, Hq_, Hkv, S_, D, *strides,
-        scale_v, causal_i, window_i, stream_ptr(q.device))
+        dv.data_ptr(), delta.data_ptr(), *args, stream_ptr(q.device))
     check_status("flash_attention_bwd", status)
     count_launch("flash_attention_bwd")
     return dq, dk, dv

@@ -13,6 +13,7 @@ import torch
 
 from ..kernels.common import resolve_device
 from .config import ModelConfig
+from .model import hybrid_layout
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -25,7 +26,9 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Numpy (or array-like) parameter tree → the same tree of tensors on
-    ``device``, dtypes kept.  Checks the layer axis against ``cfg``."""
+    ``device``, dtypes kept.  Checks the layer axes against ``cfg``: L for
+    the dense family's ``layers``; (G, per) for the hybrid family's
+    ``groups`` and T for its ``tail`` (:func:`hybrid_layout`)."""
     device = resolve_device(device)
     layers = tree.get("layers")
     if layers is not None:
@@ -33,6 +36,16 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         if n != cfg.n_layers:
             raise ValueError(f"tree has {n} stacked layers, {cfg.name} has "
                              f"{cfg.n_layers}")
+    if cfg.family == "hybrid":
+        n_groups, per, tail = hybrid_layout(cfg)
+        got = np.shape(tree["groups"]["w_in"])[:2]
+        if got != (n_groups, per):
+            raise ValueError(f"tree has Mamba groups {got}, {cfg.name} has "
+                             f"({n_groups}, {per})")
+        got_t = np.shape(tree["tail"]["w_in"])[0] if "tail" in tree else 0
+        if got_t != tail:
+            raise ValueError(f"tree has {got_t} tail Mamba layers, "
+                             f"{cfg.name} has {tail}")
 
     def conv(node):
         if isinstance(node, dict):

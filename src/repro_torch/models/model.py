@@ -1,14 +1,18 @@
-"""Model assembly for the dense family: params, forward, prefill and decode
-(the counterpart of ``repro.models.model``).
+"""Model assembly for the dense and hybrid families: params, forward,
+prefill and decode (the counterpart of ``repro.models.model``).
 
 Parameters are a dict tree shaped like the JAX package's: per-layer weights
 stacked on a leading layer axis, weights in the (in, out) layout.  Python
 loops over the layers take the place of ``lax.scan``; the per-layer views
 come from one ``torch.unbind`` of each stacked tensor.  With ``cfg.remat``
 and a gradient wanted, each layer runs under ``torch.utils.checkpoint``
-(``jax.checkpoint`` in the JAX package).  The hybrid (SSD), ssm (SSD) and moe
-(grouped matmul) families, and the vlm/audio frontends, come with later
-slices of the port and raise here.
+(``jax.checkpoint`` in the JAX package).
+
+The hybrid family (zamba2) is served, not trained: groups of ``attn_every``
+Mamba2 layers, each group followed by the *same* shared attention+MLP block,
+then a tail of Mamba2 layers.  The ssm (xlstm: SSD at N 512, P 513, and the
+sLSTM scan) and moe (grouped matmul) families, and the vlm/audio frontends,
+come with later slices of the port and raise here.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ from ..kernels.common import resolve_device
 from .config import ModelConfig
 from .layers import (attention_block, attention_decode, dtype_of, embed,
                      mlp_block, norm)
+from .ssm import mamba_block, mamba_decode_step
 
 _LATER = {
-    "hybrid": "the hybrid/ssm serving slice (SSD kernel)",
-    "ssm": "the hybrid/ssm serving slice (SSD kernel)",
+    "ssm": "the xlstm slice (SSD kernel tiled over N 512 / P 513, sLSTM "
+           "scan)",
     "moe": "the MoE slice (grouped-matmul kernel)",
     "vlm": "a later slice (precomputed-embedding frontends)",
     "audio": "a later slice (precomputed-embedding frontends)",
@@ -34,7 +39,7 @@ _LATER = {
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; it "
             f"comes with {_LATER[cfg.family]} (see ROADMAP.md)")
@@ -56,6 +61,22 @@ def _layers(tree, n: int) -> list:
     return list(views)
 
 
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(groups, Mamba layers per group, tail Mamba layers) of the hybrid
+    family: the shared attention block follows each group."""
+    per = cfg.attn_every
+    n_groups = cfg.n_layers // per
+    return n_groups, per, cfg.n_layers - n_groups * per
+
+
+def _mamba_layers(params, cfg: ModelConfig) -> tuple[list, list]:
+    """The hybrid family's Mamba layers in order: (one list per group,
+    unbinding the (G, per) axes of ``groups``; the tail's list)."""
+    n_groups, per, tail = hybrid_layout(cfg)
+    groups = [_layers(g, per) for g in _layers(params["groups"], n_groups)]
+    return groups, (_layers(params["tail"], tail) if tail else [])
+
+
 # ---------------------------------------------------------------------------
 # initialization
 # ---------------------------------------------------------------------------
@@ -71,55 +92,114 @@ def _dense_(out: torch.Tensor, gen: torch.Generator, scale=None):
     return out
 
 
+def _slots(t: torch.Tensor, lead: tuple) -> list:
+    """The per-layer views of a tensor with leading layer axes ``lead``
+    (one view of the whole tensor for ``lead == ()``)."""
+    return list(t.view(-1, *t.shape[len(lead):]).unbind(0)) if lead else [t]
+
+
+def _attn_layer_params(cfg: ModelConfig, lead: tuple, gen, device):
+    """Attention + MLP layer parameters stacked on the axes ``lead`` (() for
+    the hybrid family's one shared block); layer by layer, the draws go wq,
+    wk, wv, wo, w_up, w_down, w_gate."""
+    dt = dtype_of(cfg)
+    D, dh, F_ = cfg.d_model, cfg.d_head, cfg.d_ff
+
+    def empty(*shape):
+        return torch.empty(lead + shape, dtype=dt, device=device)
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    attn = {"wq": empty(D, cfg.n_heads * dh),
+            "wk": empty(D, cfg.n_kv_heads * dh),
+            "wv": empty(D, cfg.n_kv_heads * dh),
+            "wo": empty(cfg.n_heads * dh, D)}
+    if cfg.qkv_bias:
+        attn["bq"] = zeros(cfg.n_heads * dh)
+        attn["bk"] = zeros(cfg.n_kv_heads * dh)
+        attn["bv"] = zeros(cfg.n_kv_heads * dh)
+    mlp = {"w_up": empty(D, F_), "w_down": empty(F_, D)}
+    if cfg.act == "swiglu":
+        mlp["w_gate"] = empty(D, F_)
+    mats = [attn[n] for n in ("wq", "wk", "wv", "wo")] + \
+        [mlp[n] for n in ("w_up", "w_down", "w_gate") if n in mlp]
+    for layer in zip(*(_slots(t, lead) for t in mats)):
+        for t in layer:
+            _dense_(t, gen)
+    ones = zeros(D, dtype=torch.float32).fill_(1.0)
+    return {"attn_norm": {"w": ones}, "attn": attn,
+            "mlp_norm": {"w": ones.clone()}, "mlp": mlp}
+
+
+def _mamba_params(cfg: ModelConfig, lead: tuple, gen, device):
+    """Mamba2 layer parameters stacked on the axes ``lead``; layer by layer,
+    the draws go w_in, w_conv, w_out.  dt_bias and a_log are 0 and d_skip 1,
+    as in the JAX package."""
+    dt = dtype_of(cfg)
+    D, di, N, H, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.ssm_heads, cfg.conv_kernel)
+
+    def new(*shape, dtype=dt, fill=None):
+        t = torch.empty(lead + shape, dtype=dtype, device=device)
+        return t if fill is None else t.fill_(fill)
+
+    p = {"norm": {"w": new(D, dtype=torch.float32, fill=1.0)},
+         "w_in": new(D, 2 * di + 2 * N + H),
+         "w_conv": new(k, di, dtype=torch.float32),
+         "w_out": new(di, D),
+         "dt_bias": new(H, dtype=torch.float32, fill=0.0),
+         "a_log": new(H, dtype=torch.float32, fill=0.0),
+         "d_skip": new(H, dtype=torch.float32, fill=1.0)}
+    for w_in, w_conv, w_out in zip(_slots(p["w_in"], lead),
+                                   _slots(p["w_conv"], lead),
+                                   _slots(p["w_out"], lead)):
+        _dense_(w_in, gen)
+        _dense_(w_conv, gen, scale=k ** -0.5)
+        _dense_(w_out, gen)
+    return p
+
+
 def init_params(cfg: ModelConfig,
                 generator: Optional[torch.Generator] = None, *, device=None):
     """Random parameters on ``device``, drawn from ``generator`` (by
-    default a new one seeded with 0, as JAX's default key is PRNGKey(0)).  Shapes and scales follow the JAX package's
-    ``init_params``; the numbers differ (torch and JAX generators differ —
-    load JAX's parameters with :func:`repro_torch.models.convert.
-    params_from_numpy` to compare the two).  Each layer is drawn straight
-    into its slot of the stacked tensor, so the fp32 draw is one layer at a
-    time: a full-width model needs no more than its bf16 size plus one
-    layer's largest fp32 matrix."""
+    default a new one seeded with 0, as JAX's default key is PRNGKey(0)).
+    Shapes, dtypes and scales follow the JAX package's ``init_params``,
+    including the hybrid family's tree: ``groups`` (G, per, ...), ``tail``
+    (T, ...) and one ``shared_attn`` layer.  The numbers differ (torch and
+    JAX generators differ — load JAX's parameters with
+    :func:`repro_torch.models.convert.params_from_numpy` to compare the
+    two).  Each layer is drawn straight into its slot of the stacked
+    tensor, so the fp32 draw is one layer at a time: a full-width model
+    needs no more than its bf16 size plus one layer's largest fp32
+    matrix."""
     _check_family(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
     dt = dtype_of(cfg)
-    L, D, dh, F_ = cfg.n_layers, cfg.d_model, cfg.d_head, cfg.d_ff
+    D = cfg.d_model
+    if cfg.family == "dense":
+        trunk = {"layers": _attn_layer_params(cfg, (cfg.n_layers,),
+                                              generator, device)}
+    else:
+        n_groups, per, tail = hybrid_layout(cfg)
+        trunk = {"groups": _mamba_params(cfg, (n_groups, per), generator,
+                                         device)}
+        if tail:
+            trunk["tail"] = _mamba_params(cfg, (tail,), generator, device)
+        trunk["shared_attn"] = _attn_layer_params(cfg, (), generator, device)
 
-    def empty(*shape, dtype=dt):
-        return torch.empty(shape, dtype=dtype, device=device)
+    def empty(*shape):
+        return torch.empty(shape, dtype=dt, device=device)
 
-    attn = {"wq": empty(L, D, cfg.n_heads * dh),
-            "wk": empty(L, D, cfg.n_kv_heads * dh),
-            "wv": empty(L, D, cfg.n_kv_heads * dh),
-            "wo": empty(L, cfg.n_heads * dh, D)}
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((L, cfg.n_heads * dh), dtype=dt,
-                                 device=device)
-        attn["bk"] = torch.zeros((L, cfg.n_kv_heads * dh), dtype=dt,
-                                 device=device)
-        attn["bv"] = torch.zeros((L, cfg.n_kv_heads * dh), dtype=dt,
-                                 device=device)
-    mlp = {"w_up": empty(L, D, F_), "w_down": empty(L, F_, D)}
-    if cfg.act == "swiglu":
-        mlp["w_gate"] = empty(L, D, F_)
-    for i in range(L):
-        for name in ("wq", "wk", "wv", "wo"):
-            _dense_(attn[name][i], generator)
-        for name in ("w_up", "w_down", "w_gate"):
-            if name in mlp:
-                _dense_(mlp[name][i], generator)
-
-    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
     params: dict[str, Any] = {
         "embed": {"tok": _dense_(empty(cfg.vocab_padded, D), generator,
                                  scale=0.02)},
-        "layers": {"attn_norm": {"w": ones(L, D)}, "attn": attn,
-                   "mlp_norm": {"w": ones(L, D)}, "mlp": mlp},
-        "final_norm": {"w": ones(D)},
+        **trunk,
+        "final_norm": {"w": torch.ones(D, dtype=torch.float32,
+                                       device=device)},
         "lm_head": _dense_(empty(D, cfg.vocab_padded), generator,
                            scale=D ** -0.5),
     }
@@ -154,15 +234,48 @@ def _remat_layer(lp, x, cfg: ModelConfig, positions):
     return x
 
 
+def _hybrid_trunk(params, x, cfg: ModelConfig, positions, collect: bool):
+    """The hybrid family's trunk: each group of Mamba2 layers, then the
+    shared attention+MLP block (the same weights every time), then the
+    tail.  With ``collect`` also its states (see :func:`forward`)."""
+    groups, tail = _mamba_layers(params, cfg)
+    mamba_states, kvs = [], []
+
+    def mamba(lp, x):
+        h = norm(lp["norm"], x, cfg.norm_eps)
+        if collect:
+            y, st = mamba_block(lp, h, cfg, return_state=True)
+            mamba_states.append(st)
+            return x + y
+        return x + mamba_block(lp, h, cfg)
+
+    for group in groups:
+        for lp in group:
+            x = mamba(lp, x)
+        x, kv = _attn_mlp_block(params["shared_attn"], x, cfg, positions)
+        if collect:
+            kvs.append(kv)
+    for lp in tail:
+        x = mamba(lp, x)
+    return x, ({"mamba": mamba_states, "kv": kvs} if collect else None)
+
+
 def forward(params, inputs: dict, cfg: ModelConfig, collect: bool = False):
-    """inputs: {"tokens": (B,S)}.  Returns (hidden (B,S,D), states): with
-    ``collect`` the per-layer (k, v), each (B, S, Hkv, dh), else None."""
+    """inputs: {"tokens": (B,S)}.  Returns (hidden (B,S,D), states), the
+    states None unless ``collect``: for the dense family the per-layer
+    (k, v), each (B, S, Hkv, dh); for the hybrid family {"mamba": the
+    (conv_state (B, k-1, di) fp32, ssd_state (B, H, N, P) fp32) of each
+    Mamba2 layer in order, "kv": the (k, v) of each application of the
+    shared block}."""
     _check_family(cfg)
     tokens = inputs["tokens"]
     x = embed(params["embed"], tokens, cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
+    if cfg.family == "hybrid":
+        x, states = _hybrid_trunk(params, x, cfg, positions, collect)
+        return norm(params["final_norm"], x, cfg.norm_eps), states
     remat = cfg.remat and not collect and torch.is_grad_enabled()
     kvs = []
     for lp in _layers(params["layers"], cfg.n_layers):
@@ -194,50 +307,106 @@ def loss_fn(params, inputs: dict, cfg: ModelConfig):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=None, device=None):
-    """Decode state: the per-lane KV cache (L, B, S_max, Hkv, dh) and
-    lengths (B,) int32."""
+    """Decode state: the per-lane KV caches (n, B, S_max, Hkv, dh), with n
+    the layers (dense) or the applications of the shared block (hybrid),
+    and lengths (B,) int32.  The hybrid family adds a conv state
+    (L, B, k-1, di) and an SSD state (L, B, H, N, P) per Mamba2 layer, both
+    fp32."""
     _check_family(cfg)
     device = resolve_device(device)
     dt = dtype or dtype_of(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
-                   "v": torch.zeros(shape, dtype=dt, device=device)},
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    n_kv = (cfg.n_layers if cfg.family == "dense"
+            else hybrid_layout(cfg)[0])
+    shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    state = {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
+                    "v": torch.zeros(shape, dtype=dt, device=device)},
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.family == "hybrid":
+        f32 = dict(dtype=torch.float32, device=device)
+        state["conv"] = torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1,
+                                     cfg.d_inner), **f32)
+        state["ssd"] = torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                                    cfg.ssm_state, cfg.ssm_head_dim), **f32)
+    return state
+
+
+def _hybrid_decode(params, state: dict, x, cfg: ModelConfig):
+    """The hybrid trunk for one token, updating the state's caches in
+    place."""
+    groups, tail = _mamba_layers(params, cfg)
+    conv_all, ssd_all = state["conv"], state["ssd"]
+    kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
+    sa = params["shared_attn"]
+    li = 0
+
+    def mamba(lp, x, i):
+        y, cs, ss = mamba_decode_step(lp, norm(lp["norm"], x, cfg.norm_eps),
+                                      cfg, conv_all[i], ssd_all[i])
+        conv_all[i].copy_(cs)
+        ssd_all[i].copy_(ss)
+        return x + y
+
+    for g, group in enumerate(groups):
+        for lp in group:
+            x = mamba(lp, x, li)
+            li += 1
+        a, _, _ = attention_decode(
+            sa["attn"], norm(sa["attn_norm"], x, cfg.norm_eps), cfg,
+            kc_all[g], vc_all[g], state["len"])
+        x = x + a
+        x = x + mlp_block(sa["mlp"], norm(sa["mlp_norm"], x, cfg.norm_eps),
+                          cfg)
+    for lp in tail:
+        x = mamba(lp, x, li)
+        li += 1
+    return x
 
 
 def decode_step(params, state: dict, tokens, cfg: ModelConfig):
     """One decode step.  tokens: (B, 1) int.  Returns (logits
     (B, vocab_padded) fp32, new_state).
 
-    The KV caches of ``state`` are updated IN PLACE (see
-    ``layers.attention_decode``) and shared by the returned state; only
-    ``len`` is a new tensor.  A caller that needs the old cache copies it
-    first."""
+    The KV caches of ``state`` (see ``layers.attention_decode``) and, for
+    the hybrid family, its conv and SSD states are updated IN PLACE and
+    shared by the returned state; only ``len`` is a new tensor.  (The JAX
+    package returns new arrays, and its new conv state has the model's
+    dtype; here the fp32 buffer keeps the same values.)  A caller that needs
+    the old state copies it first."""
     _check_family(cfg)
     x = embed(params["embed"], tokens, cfg)
     cache_len = state["len"]
-    kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
-    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
-        a, _, _ = attention_decode(
-            lp["attn"], norm(lp["attn_norm"], x, cfg.norm_eps), cfg,
-            kc_all[i], vc_all[i], cache_len)
-        x = x + a
-        x = x + mlp_block(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps),
-                          cfg)
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(params, state, x, cfg)
+    else:
+        kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
+        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+            a, _, _ = attention_decode(
+                lp["attn"], norm(lp["attn_norm"], x, cfg.norm_eps), cfg,
+                kc_all[i], vc_all[i], cache_len)
+            x = x + a
+            x = x + mlp_block(lp["mlp"],
+                              norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
     x = norm(params["final_norm"], x, cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
-    return logits, {"kv": state["kv"], "len": cache_len + 1}
+    return logits, {**state, "len": cache_len + 1}
 
 
 def prefill(params, inputs: dict, cfg: ModelConfig, max_len: int):
-    """Run the full prompt, returning (last_logits, decode state): the
-    per-layer K/V of the trunk written into a ``max_len`` cache."""
+    """Run the full prompt, returning (last_logits, decode state): the K/V
+    of the trunk written into a ``max_len`` cache and, for the hybrid
+    family, the conv and SSD states of each Mamba2 layer."""
     tokens = inputs["tokens"]
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
-    hidden, kvs = forward(params, inputs, cfg, collect=True)
+    hidden, states = forward(params, inputs, cfg, collect=True)
     state = init_decode_state(cfg, B, max_len, device=tokens.device)
+    kvs = states
+    if cfg.family == "hybrid":
+        for i, (conv, ssd) in enumerate(states["mamba"]):
+            state["conv"][i].copy_(conv)
+            state["ssd"][i].copy_(ssd)
+        kvs = states["kv"]
     for i, (k, v) in enumerate(kvs):
         state["kv"]["k"][i, :, :S] = k        # in place into the new cache
         state["kv"]["v"][i, :, :S] = v

@@ -34,21 +34,30 @@ from repro.kernels.decode_attention.kernel import decode_attention_pallas
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.common import force_backend
 from repro.kernels.rmsnorm.kernel import rmsnorm_pallas
 from repro.kernels.rmsnorm.ref import rmsnorm_ref
+from repro.kernels.ssd.kernel import ssd_scan_pallas
+from repro.kernels.ssd.ops import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd.ops import ssd_step as jax_ssd_step
+from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref
 from repro_torch.kernels import (decode_attention, flash_attention,
-                                 fused_cross_entropy, rmsnorm)
+                                 fused_cross_entropy, rmsnorm, ssd_scan)
 from repro_torch.kernels.common import REL_L2, TOLERANCES, launches, rel_l2
 from repro_torch.kernels.cross_entropy.kernel import ce_launch_args
 from repro_torch.kernels.cross_entropy.ops import ce_forward
 from repro_torch.kernels.cross_entropy.ref import (ce_backward_chunked,
                                                    cross_entropy_ref)
 from repro_torch.kernels.decode_attention.kernel import decode_launch_args
-from repro_torch.kernels.flash_attention.kernel import flash_launch_args
+from repro_torch.kernels.flash_attention.kernel import (flash_bwd_launch_args,
+                                                        flash_launch_args)
 from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref as t_attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
+from repro_torch.kernels.ssd.kernel import ssd_launch_args
+from repro_torch.kernels.ssd.ops import ssd_step
+from repro_torch.kernels.ssd.ref import ssd_ref
 
 RNG = np.random.default_rng(0)
 
@@ -456,3 +465,204 @@ def test_ce_launch_args_and_refusals():
         ce_launch_args(x, w, lab, V + 1, 2048)
     with pytest.raises(ValueError):                      # not contiguous
         ce_launch_args(x[:, :1024], w[:1024], lab, V, 2048)
+
+
+# ---------------------------------------------------------------------------
+# head dim 64 (zamba2's shared attention block)
+# ---------------------------------------------------------------------------
+
+def test_flash_and_decode_take_head_dim_64_and_the_backward_does_not():
+    B, S, H, D = 2, 77, 4, 64
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    out = torch.empty_like(q)
+    args = flash_launch_args(q, q, q, out, causal=True, window=0, scale=None)
+    assert args[:5] == (B, H, H, S, D)
+    assert args[-3] == pytest.approx(D ** -0.5)
+    kv = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    lengths = torch.full((B,), S, dtype=torch.int32)
+    dargs = decode_launch_args(q[:, :, 0], kv, kv, lengths, scale=None,
+                               chunk=128)
+    assert dargs[:6] == (B, H, H, S, D, 1)
+    # the backward stays at 128: hybrid training is queued in ROADMAP.md
+    lse = torch.zeros(B, H, S)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    with pytest.raises(ValueError, match="backward"):
+        flash_bwd_launch_args(q, q, q, out, lse, q, *grads, causal=True,
+                              window=0, scale=None)
+    q128 = torch.zeros(B, S, H, 128, dtype=torch.bfloat16).transpose(1, 2)
+    bargs = flash_bwd_launch_args(
+        q128, q128, q128, torch.empty_like(q128), lse, q128,
+        *[torch.empty_like(q128) for _ in range(3)], causal=True, window=0,
+        scale=None)
+    assert bargs[:5] == (B, H, H, S, 128) and len(bargs) == 5 + 24 + 3
+
+
+# ---------------------------------------------------------------------------
+# ssd scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(B, H, S, N, P):
+    """tests/test_kernels.py's distributions: |log_a| ~ 0.1, gate ~ 0.5."""
+    return (_np(B, H, S, N), _np(B, H, S, N, scale=0.3), _np(B, H, S, P),
+            -np.abs(_np(B, H, S, scale=0.1)), np.abs(_np(B, H, S, scale=0.5)))
+
+
+@pytest.mark.parametrize("B,H,S,N,P,chunk", [
+    (1, 2, 256, 16, 32, 64), (2, 1, 128, 8, 16, 32), (1, 3, 192, 64, 64, 64),
+])
+def test_ssd_scan_matches_jax_ref_and_pallas(B, H, S, N, P, chunk):
+    args = _ssd_inputs(B, H, S, N, P)
+    y, s = ssd_scan(*map(torch.from_numpy, args))
+    assert y.shape == (B, H, S, P) and s.shape == (B, H, N, P)
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    key = "ssd/cpu_fp32"
+    jargs = list(map(jnp.asarray, args))
+    for want_y, want_s in (jax_ssd_ref(*jargs),
+                           ssd_scan_pallas(*jargs, interpret=True,
+                                           chunk=chunk)):
+        _close(y, want_y, key)
+        _close(s, want_s, key)
+
+
+def test_ssd_scan_ragged_matches_jax_padded_scan():
+    """At S = 200 JAX's ssd_scan pads to 256 with zeros and runs the Pallas
+    kernel (interpret mode); the port's plain version needs no padding."""
+    args = _ssd_inputs(2, 3, 200, 16, 32)
+    force_backend("pallas-interpret")
+    try:
+        want_y, want_s = jax_ssd_scan(*map(jnp.asarray, args))
+    finally:
+        force_backend(None)
+    y, s = ssd_scan(*map(torch.from_numpy, args))
+    assert want_y.shape == y.shape == (2, 3, 200, 32)
+    _close(y, want_y, "ssd/cpu_fp32")
+    _close(s, want_s, "ssd/cpu_fp32")
+
+
+def test_ssd_ref_with_initial_state_matches_jax():
+    args = _ssd_inputs(2, 3, 70, 16, 32)
+    s0 = _np(2, 3, 16, 32)
+    y, s = ssd_ref(*map(torch.from_numpy, args), s0=torch.from_numpy(s0))
+    want_y, want_s = jax_ssd_ref(*map(jnp.asarray, args),
+                                 s0=jnp.asarray(s0))
+    _close(y, want_y, "ssd/cpu_fp32")
+    _close(s, want_s, "ssd/cpu_fp32")
+    y0, _ = ssd_ref(*map(torch.from_numpy, args))
+    assert not np.allclose(y.numpy(), y0.numpy())      # s0 entered
+
+
+def test_ssd_step_matches_jax_step_by_step_and_the_scan():
+    B, H, S, N, P = 2, 3, 16, 8, 8
+    c, b, x, la, g = _ssd_inputs(B, H, S, N, P)
+    key = "ssd/cpu_fp32"
+    s = torch.from_numpy(_np(B, H, N, P))
+    js = jnp.asarray(s.numpy())
+    s_start = s.clone()
+    ys = []
+    for t in range(S):
+        sl = [a[:, :, t] for a in (c, b, x, la, g)]
+        y, s_new = ssd_step(s, *map(torch.from_numpy, sl))
+        if t == 0:
+            assert torch.equal(s, s_start)      # the input state is kept
+        s = s_new
+        jy, js = jax_ssd_step(js, *map(jnp.asarray, sl))
+        _close(y, jy, key)
+        _close(s, js, key)
+        ys.append(y)
+    want_y, want_s = ssd_ref(*map(torch.from_numpy, (c, b, x, la, g)),
+                             s0=s_start)
+    np.testing.assert_array_equal(torch.stack(ys, 2).numpy(), want_y.numpy())
+    np.testing.assert_array_equal(s.numpy(), want_s.numpy())
+
+
+def test_ssd_bf16_keeps_dtype_fp32_state():
+    args = _ssd_inputs(1, 2, 40, 64, 64)
+    t = [torch.from_numpy(a) for a in args]
+    for i in range(3):
+        t[i] = t[i].to(torch.bfloat16)
+    y, s = ssd_scan(*t)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    want_y, want_s = ssd_ref(*[a.float() for a in t[:3]], *t[3:])
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  want_y.to(torch.bfloat16).float().numpy())
+    np.testing.assert_array_equal(s.numpy(), want_s.numpy())
+
+
+def test_ssd_launch_args_read_model_layout_through_strides():
+    """The Mamba2 block's views: x and y through the strides of their
+    (B, S, H, P) layout, b and c shared by all heads (head stride 0) as
+    views of the one projection, the gates as (B, H, S) views of (B, S, H)
+    tensors."""
+    B, S, H, N, P = 2, 200, 8, 64, 64
+    proj = torch.zeros(B, S, 2 * H * P + 2 * N + H, dtype=torch.bfloat16)
+    xs, _, b, c, _ = torch.split(proj, [H * P, H * P, N, N, H], dim=-1)
+    xh = xs.contiguous().view(B, S, H, P).transpose(1, 2)
+    bh, ch = (t[:, None].expand(B, H, S, N) for t in (b, c))
+    gates = torch.zeros(B, S, H).transpose(1, 2)
+    y = torch.empty_like(xh)
+    assert y.transpose(1, 2).is_contiguous()   # the reshape back is free
+    args = ssd_launch_args(ch, bh, xh, gates, gates, y)
+    width = proj.shape[-1]
+    assert args[:5] == (B, H, S, N, P)
+    assert args[5:8] == (S * width, 0, width)             # c (b, h, s)
+    assert args[8:11] == (S * width, 0, width)            # b
+    assert args[11:14] == (S * H * P, P, H * P)           # x
+    assert args[14:17] == (S * H * P, P, H * P)           # y
+    assert args[17:20] == (S * H, 1, H)                   # log_a
+    assert args[20:23] == (S * H, 1, H)                   # gate
+
+
+@pytest.mark.parametrize("bad", ["state", "head_dim", "fp32", "gate_dtype",
+                                 "stride", "shape"])
+def test_ssd_launch_args_refuse_what_the_kernel_does_not_take(bad):
+    B, H, S, N, P = 1, 2, 64, 64, 64
+    bf = torch.bfloat16
+    c = torch.zeros(B, H, S, N, dtype=bf)
+    x = torch.zeros(B, H, S, P, dtype=bf)
+    la = torch.zeros(B, H, S)
+    if bad == "state":                                    # xlstm's N 512
+        c = torch.zeros(B, H, S, 512, dtype=bf)
+    elif bad == "head_dim":                               # and P 513
+        x = torch.zeros(B, H, S, 513, dtype=bf)
+    elif bad == "fp32":
+        c = c.float()
+    elif bad == "gate_dtype":
+        la = la.to(bf)
+    elif bad == "stride":
+        x = torch.zeros(B, H, S, P + 4, dtype=bf)[..., :P]
+    elif bad == "shape":
+        la = torch.zeros(B, H, S + 1)
+    match = "ROADMAP" if bad in ("state", "head_dim") else None
+    with pytest.raises((ValueError, TypeError), match=match):
+        ssd_launch_args(c, c, x, la, la if bad != "shape" else la[..., :S],
+                        torch.empty_like(x))
+
+
+def test_ssd_scan_raises_off_cpu_and_cuda_and_counts_no_cpu_launch():
+    before = launches()
+    args = [torch.from_numpy(a) for a in _ssd_inputs(1, 2, 8, 4, 4)]
+    ssd_scan(*args)
+    assert launches() == before          # the plain version is no launch
+    meta = [torch.empty(a.shape, device="meta") for a in args]
+    with pytest.raises(ValueError):
+        ssd_scan(*meta)
+    with pytest.raises(ValueError):      # tensors on two devices
+        ssd_scan(*args[:4], meta[4])
+
+
+def test_ssd_rel_l2_limit_rejects_dropped_inter_chunk_term():
+    """The card's whole-tensor check (REL_L2) at zamba2's N = P = 64 in
+    bf16: running each 128-row chunk from a zero state, which is the kernel
+    with its inter-chunk term dropped and the fault chip_smoke.py plants,
+    moves y and s_final far past their limits."""
+    B, H, S, N, P = 1, 2, 512, 64, 64
+    c, b, x, la, g = _ssd_inputs(B, H, S, N, P)
+    la = la / 10            # l falls by ~1 a chunk: the state carries
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    t = (bf(c), bf(b), bf(x), torch.from_numpy(la), torch.from_numpy(g))
+    y, s = ssd_ref(*t)
+    parts = [ssd_ref(*[a[:, :, i:i + 128] for a in t])
+             for i in range(0, S, 128)]
+    y_bad = torch.cat([p[0] for p in parts], dim=2)
+    assert rel_l2(y_bad, y) > 10 * REL_L2["ssd/card_bf16"]
+    assert rel_l2(parts[-1][1], s) > 10 * REL_L2["ssd_state/card_fp32"]
