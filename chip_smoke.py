@@ -25,7 +25,19 @@ Phases, each of which must pass:
              kernel, the shared attention block at head dim 64 six times);
              the consistency check runs at 8 layers too, where the
              random-init model does not amplify rounding as it does at 38.
-7. train   — qwen2-7b at its published widths, cut to 4 layers (the only
+7. consistency_moe, serve_moe — phases 4 and 5 for granite-moe-3b-a800m at
+             its published width and depth (32 layers, each a routed FFN of
+             40 experts padded to 48, top-8, on the grouped-matmul kernel;
+             attention at head dim 64, 24 q heads over 8 kv heads).  First
+             one MoE FFN call of the published config on the card against
+             the same call on the CPU in fp32, at a decode step's and a
+             prefill wave's size, each with assignments dropped: both must
+             keep and drop the same assignments.  The consistency check runs
+             at B = 1, where a decode step drops no assignment, and records
+             every layer's largest expert load against its capacity; serving
+             reports the share of assignments dropped in prefill and decode,
+             read in a second, untimed run of the same requests.
+8. train   — qwen2-7b at its published widths, cut to 4 layers (the only
              cut: 28 layers need 122 GB of training state), through
              ``init_params``, ``adamw`` and ``make_train_step``: 4 steps on
              one repeated batch of 2 microbatches of 4 x 2048 tokens from
@@ -61,8 +73,10 @@ SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out"
 ARCH = "qwen2-7b"
 HYBRID_ARCH = "zamba2-1.2b"
+MOE_ARCH = "granite-moe-3b-a800m"
 PHASES = ("device", "build", "kernels", "consistency", "serve",
-          "consistency_hybrid", "serve_hybrid", "train")
+          "consistency_hybrid", "serve_hybrid", "consistency_moe",
+          "serve_moe", "train")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -171,7 +185,12 @@ def kernel_phase(torch, timer, report):
 
     # ---- rmsnorm ---------------------------------------------------------
     errs = []
+    # the served models' widths: qwen2-7b 3584, zamba2-1.2b 2048,
+    # granite-moe-3b-a800m 1536, each at a prefill wave's 8 x 1024 rows and
+    # a decode step's 8
     for shape, dtype in (((8192, 3584), bf16), ((8, 3584), bf16),
+                         ((8192, 2048), bf16), ((8, 2048), bf16),
+                         ((8192, 1536), bf16), ((8, 1536), bf16),
                          ((2000, 3584), bf16), ((77, 1000), bf16),
                          ((300, 3584), torch.float32)):
         x = randn(*shape, dtype=dtype)
@@ -211,7 +230,9 @@ def kernel_phase(torch, timer, report):
             (8, 32, 32, 1024, 64, True, 0),       # zamba2's prefill, D 64
             (2, 32, 32, 1001, 64, True, 0),       # ragged S, D 64
             (1, 32, 32, 77, 64, True, 0),         # below one tile, D 64
-            (3, 4, 2, 300, 64, False, 0)):        # GQA, not causal, D 64
+            (3, 4, 2, 300, 64, False, 0),         # GQA, not causal, D 64
+            (8, 24, 8, 1024, 64, True, 0),        # granite's prefill, group 3
+            (2, 24, 8, 1001, 64, True, 0)):       # ragged S, group 3
         q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
         case = (f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} "
                 f"{'causal' if causal else 'full'} w{window}")
@@ -249,6 +270,19 @@ def kernel_phase(torch, timer, report):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True))}
+    # granite-moe-3b-a800m: 24 q heads over 8 kv heads of 64 (group 3)
+    B, Hq, Hkv, S, D = 8, 24, 8, 1024, 64
+    q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
+    b_ms, b_by = bound(B * S * D * 2 * (2 * Hq + 2 * Hkv),
+                       4 * B * Hq * D * pairs, PEAK_BF16)
+    rows[-1]["granite"] = {
+        "shape": f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} causal",
+        "ms": timer.ms(lambda: flash_attention(q, k, v, causal=True)),
+        "plain_ms": timer.ms(lambda: attention_ref(q, k, v, causal=True),
+                             iters=3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))}
     del q, k, v
 
     # ---- decode attention ------------------------------------------------
@@ -278,15 +312,19 @@ def kernel_phase(torch, timer, report):
                     fail(f"decode_attention {name} disagrees (rel {rel})")
         else:
             errs.append(check("decode_attention", case, got, want))
-    # zamba2's shared block: 32 q heads over 32 kv heads of 64
-    for (B, S, lens) in ((8, 2048, lens_path),
-                         (8, 1000, [1, 1000, 127, 128, 129, 999, 500, 2])):
+    # zamba2's shared block: 32 q heads over 32 kv heads of 64; granite:
+    # 24 over 8 (group 3)
+    for (B, S, Hq, Hkv, lens) in (
+            (8, 2048, 32, 32, lens_path),
+            (8, 1000, 32, 32, [1, 1000, 127, 128, 129, 999, 500, 2]),
+            (8, 2048, 24, 8, lens_path),
+            (8, 1000, 24, 8, [1, 1000, 127, 128, 129, 999, 500, 2])):
         lengths = (lens if torch.is_tensor(lens) else
                    torch.tensor(lens, dtype=torch.int32, device="cuda"))
-        q = randn(B, 1, 32, 64)[:, 0]
-        k, v = randn(B, S, 32, 64), randn(B, S, 32, 64)
-        case = f"B{B} S{S} D64 lengths {lengths.min().item()}-" \
-               f"{lengths.max().item()}"
+        q = randn(B, 1, Hq, 64)[:, 0]
+        k, v = randn(B, S, Hkv, 64), randn(B, S, Hkv, 64)
+        case = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D64 lengths " \
+               f"{lengths.min().item()}-{lengths.max().item()}"
         errs.append(check("decode_attention", case,
                           decode_attention(q, k, v, lengths),
                           decode_attention_ref(q, k, v, lengths)))
@@ -315,16 +353,20 @@ def kernel_phase(torch, timer, report):
         "max_abs_err": max(errs),
         **decode_timings(8, 2048, 28, 4, 128, lens_path),
         "d64": {"shape": "B8 S2048 Hq32 Hkv32 D64, lengths 1025-1088",
-                **decode_timings(8, 2048, 32, 32, 64, lens_path)}})
+                **decode_timings(8, 2048, 32, 32, 64, lens_path)},
+        "granite": {"shape": "B8 S2048 Hq24 Hkv8 D64, lengths 1025-1088",
+                    **decode_timings(8, 2048, 24, 8, 64, lens_path)}})
     rows += ssd_rows(torch, timer, randn, check, report)
+    rows += moe_gmm_rows(torch, timer, randn, check, report)
     rows += train_kernel_rows(torch, timer, randn, check, gen, report)
     for r in rows:
-        for label, t in ((r["name"], r), (r["name"] + " D64", r.get("d64"))):
-            if t is None:
-                continue
+        subs = [(f"{r['name']} {k}", t) for k, t in
+                {**r.get("shapes", {}), "D64": r.get("d64"),
+                 "granite": r.get("granite")}.items() if t is not None]
+        for label, t in [(r["name"], r)] + subs:
             lib = ("none" if t["library_ms"] is None else
                    f"{t['library_ms']:.4f} ms")
-            log(f"  {label:23s} kernel {t['ms']:.4f} ms  plain "
+            log(f"  {label:35s} kernel {t['ms']:.4f} ms  plain "
                 f"{t['plain_ms']:.4f} ms  library {lib}  bound "
                 f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return rows
@@ -463,6 +505,118 @@ def ssd_planted_fault(torch, report, *cases):
     if not res["s_final_rel_l2"] > REL_L2["ssd_state/card_fp32"]:
         fail("the SSD state check does not reject a kernel that drops the "
              "inter-chunk term")
+
+
+# granite-moe-3b-a800m's expert products: 48 experts (40 padded), d_model
+# 1536, expert width 512; C rows an expert (2048 in a prefill wave of 8 x
+# 1024 tokens, 2 in a decode step of 8 lanes)
+GMM_E, GMM_D, GMM_F = 48, 1536, 512
+GMM_SHAPES = {"prefill gate/up": (2048, GMM_D, GMM_F),
+              "prefill down": (2048, GMM_F, GMM_D),
+              "decode gate/up": (2, GMM_D, GMM_F),
+              "decode down": (2, GMM_F, GMM_D)}
+
+
+def moe_gmm_rows(torch, timer, randn, check, report):
+    """The grouped matmul against the plain loop over the experts' rows: at
+    the serve path's four shapes (equal groups), and at ragged ones (empty
+    experts, sizes that are not tile multiples, rows past the last group);
+    a planted fault; times, bound and torch.bmm at each path shape."""
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+
+    import numpy as np
+
+    def sizes_of(lst):
+        return torch.tensor(lst, dtype=torch.int32, device="cuda")
+
+    errs = []
+    cases = [(f"{name}: T {GMM_E * c} = {GMM_E} x {c}, D {d}, F {f}",
+              GMM_E * c, d, f, [c] * GMM_E)
+             for name, (c, d, f) in GMM_SHAPES.items()]
+    cases += [
+        ("ragged: 130 rows over 5 experts", 130, GMM_D, GMM_F,
+         [31, 0, 47, 1, 51]),
+        ("empty experts [0, 100, 0, 28]", 128, 64, 64, [0, 100, 0, 28]),
+        ("rows past the groups: 72 of 200", 200, GMM_D, GMM_F,
+         [0, 100, 0, 28]),
+        ("48 experts, 1000 rows drawn", 1000, GMM_D, GMM_F,
+         np.random.default_rng(0).multinomial(1000, [1 / GMM_E] * GMM_E)
+         .tolist())]
+    for case, T, d, f, sizes in cases:
+        x, w = randn(T, d), (randn(len(sizes), d, f) * d ** -0.5).to(
+            torch.bfloat16)
+        g = sizes_of(sizes)
+        got = moe_gmm(x, w, g)
+        errs.append(check("moe_gmm", case, got, moe_gmm_ref(x, w, g)))
+        if sum(sizes) < T and got[sum(sizes):].any():
+            fail(f"moe_gmm {case}: rows past the groups are not zero")
+        del x, w, got
+    moe_gmm_planted_fault(torch, randn, report)
+
+    shapes = {}
+    for name, (c, d, f) in GMM_SHAPES.items():
+        T = GMM_E * c
+        x, w = randn(T, d), (randn(GMM_E, d, f) * d ** -0.5).to(
+            torch.bfloat16)
+        g = sizes_of([c] * GMM_E)
+        xb = x.view(GMM_E, c, d)
+        b_ms, b_by = bound(T * d * 2 + GMM_E * d * f * 2 + T * f * 2
+                           + GMM_E * 4, 2 * T * d * f, PEAK_BF16)
+        shapes[name] = {
+            "shape": f"T {T} = {GMM_E} x {c}, D {d}, F {f}",
+            "ms": timer.ms(lambda: moe_gmm(x, w, g)),
+            "plain_ms": timer.ms(lambda: moe_gmm_ref(x, w, g), iters=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(lambda: torch.bmm(xb, w))}
+        del x, w, xb
+    torch.cuda.empty_cache()
+    main = shapes.pop("prefill gate/up")
+    return [{"name": "moe_gmm", "route": "cuda",
+             "source": "src/repro_torch/csrc/moe_gmm.cu",
+             "replaces": "src/repro/kernels/moe_gmm/kernel.py:61",
+             "max_abs_err": max(errs), **main, "shapes": shapes}]
+
+
+def moe_gmm_planted_fault(torch, randn, report):
+    """The grouped matmul's check must reject a wrong kernel.  Launched with
+    the offsets shifted by one row (expert e's last row handed to expert
+    e + 1), the kernel computes that row with its neighbour's weights, with
+    no edit to its source; the result must fail the check against the
+    sound plain version."""
+    from repro_torch.kernels.common import REL_L2, TOLERANCES, rel_l2, within
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+
+    key = "moe_gmm/card_bf16"
+    atol, rtol = TOLERANCES[key]
+    out = {}
+    for name, c in (("prefill", 2048), ("decode", 2)):
+        T = GMM_E * c
+        x = randn(T, GMM_D)
+        w = (randn(GMM_E, GMM_D, GMM_F) * GMM_D ** -0.5).to(torch.bfloat16)
+        sizes = torch.full((GMM_E,), c, dtype=torch.int32, device="cuda")
+        shifted = sizes.clone()
+        shifted[0] -= 1
+        shifted[1] += 1
+        want = moe_gmm_ref(x, w, sizes)
+        got = moe_gmm(x, w, shifted)
+        off = (got.float() - want.float()).abs() > atol + rtol * \
+            want.float().abs()
+        res = {"elementwise_ok": within(got, want, key),
+               "rel_l2": rel_l2(got, want),
+               "rows_off": int(off.any(-1).sum())}
+        out[name] = res
+        log(f"    planted fault (offsets shifted by one row) {name} T {T}: "
+            f"rel_l2={res['rel_l2']:.3e} (limit {REL_L2[key]:g}), "
+            f"elementwise check "
+            f"{'passes' if res['elementwise_ok'] else 'fails'}, "
+            f"{res['rows_off']} row(s) out of tolerance")
+        if res["elementwise_ok"] or res["rel_l2"] <= REL_L2[key]:
+            fail("the moe_gmm check does not reject a kernel that hands a "
+                 "row to its neighbour's expert")
+        del x, w, want, got
+    report["moe_gmm_planted_fault"] = out
 
 
 def train_kernel_rows(torch, timer, randn, check, gen, report):
@@ -660,9 +814,11 @@ def planted_fault(torch, report, q, k, v, o, lse, do):
 # 38 layers (random-init zamba2 amplifies a perturbation of its input with
 # depth) and 1.61e-2 against 7.81e-2 at 8 layers.
 # The hybrid limits lie at or below half the floor and at about twice the
-# reading.
+# reading.  granite-moe-3b-a800m, held with drop-free routing (see
+# consistency_moe_phase), reads 8.55e-3 against a floor of 1.14e-2; its
+# limit sits just below the floor, as qwen2-7b's does.
 CONSISTENCY_LIMIT = {(ARCH, None): 2e-2, (HYBRID_ARCH, None): 0.3,
-                     (HYBRID_ARCH, 8): 4e-2}
+                     (HYBRID_ARCH, 8): 4e-2, (MOE_ARCH, None): 1.1e-2}
 
 
 def consistency_phase(torch, np, report, arch=ARCH, layers=None):
@@ -717,13 +873,270 @@ def consistency_phase(torch, np, report, arch=ARCH, layers=None):
         fail(f"{label}: decode disagrees with forward at full width")
 
 
+# the MoE FFN calls of granite's serve path held card against CPU: a decode
+# step of 8 lanes (T 8, C 2) and a prefill wave of 8 x 1024 tokens (T 8192,
+# C 2048).  The last number is the weight of a component every token of the
+# call shares: it skews the routing, as the model's hidden states do, so
+# that some experts overflow C 2048.
+MOE_FFN_CALLS = (("decode", 8, 1, 0.0), ("prefill", 8, 1024, 0.3))
+
+
+def moe_ffn_check(torch, report):
+    """One full-width MoE FFN call of granite's published config on the card
+    (bf16, the moe_gmm kernel) against the same call on the CPU (the plain
+    moe_gmm in fp32, on the same bf16 values), at the serve path's decode
+    and prefill sizes, each with assignments dropped.  Both sides must keep
+    and drop the same (token, expert) assignments.  The tokens are drawn in
+    multiples of 2^-3 and the router in multiples of 2^-17, so each router
+    logit is a sum of exact products that fp32 holds exactly: both devices
+    compute the same logits in any summation order (checked), and a top-k
+    near-tie cannot flip on one side only."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import (REL_L2, TOLERANCES, max_abs_err,
+                                            rel_l2, within)
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH)
+    D, E, Fe, k = (cfg.d_model, cfg.n_experts_padded, cfg.d_ff_expert,
+                   cfg.top_k)
+    key = "moe/card_bf16"
+    atol, rtol = TOLERANCES[key]
+    gen = torch.Generator().manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    router = torch.round(randn(D, E) * D ** -0.5 * 2 ** 17) * 2 ** -17
+    p_cpu = {"router": router,
+             "w_gate": (randn(E, D, Fe) * D ** -0.5).bfloat16().float(),
+             "w_up": (randn(E, D, Fe) * D ** -0.5).bfloat16().float(),
+             "w_down": (randn(E, Fe, D) * Fe ** -0.5).bfloat16().float()}
+    p_card = {n: v.cuda() if n == "router" else v.bfloat16().cuda()
+              for n, v in p_cpu.items()}
+
+    def assignments(st):
+        pair = (st["order"] // k) * E + st["expert"]
+        return (torch.sort(pair[st["keep"]]).values.cpu(),
+                torch.sort(pair[~st["keep"]]).values.cpu())
+
+    out = {}
+    for name, B, S, shared in MOE_FFN_CALLS:
+        u = randn(1, 1, D)
+        x = torch.round((shared * u + (1 - shared ** 2) ** 0.5
+                         * randn(B, S, D)) * 8) / 8     # exact in bf16
+        ys, routes, logits = {}, {}, {}
+        with torch.inference_mode():
+            for side, p, xs in (("card", p_card, x.cuda().bfloat16()),
+                                ("cpu", p_cpu, x)):
+                moe.ROUTING_STATS = []
+                try:
+                    ys[side] = moe.moe_ffn(p, xs, cfg).float().cpu()
+                    st = moe.ROUTING_STATS[0]
+                finally:
+                    moe.ROUTING_STATS = None
+                routes[side] = assignments(st)
+                logits[side] = (xs.reshape(-1, D).float()
+                                @ p["router"]).cpu()
+        top = logits["cpu"][:, :cfg.n_experts].topk(k + 1, dim=-1).values
+        margin = float((top[:, k - 1] - top[:, k]).min())
+        same_logits = torch.equal(logits["card"], logits["cpu"])
+        same_routes = all(torch.equal(a, b) for a, b in
+                          zip(routes["card"], routes["cpu"]))
+        n_drop = routes["cpu"][1].numel()
+        err, rel = max_abs_err(ys["card"], ys["cpu"]), rel_l2(ys["card"],
+                                                              ys["cpu"])
+        ok = within(ys["card"], ys["cpu"], key) and rel <= REL_L2[key]
+        out[name] = {"tokens": B * S, "capacity": moe.capacity(cfg, B * S),
+                     "assigned": B * S * k, "dropped": n_drop,
+                     "same_logits": same_logits,
+                     "smallest_top_k_margin": margin,
+                     "same_assignments": same_routes, "max_abs_err": err,
+                     "rel_l2": rel}
+        log(f"  moe_ffn {name}: T {B * S}, C {out[name]['capacity']}, "
+            f"{n_drop} of {B * S * k} assignments dropped; card and CPU "
+            f"logits equal {same_logits} (smallest k-th margin {margin:.3e}),"
+            f" same kept and dropped assignments {same_routes}; card bf16 vs "
+            f"CPU fp32 max_abs_err={err:.3e} (tolerance {atol:g} + "
+            f"{rtol:.4g}*|ref|) rel_l2={rel:.3e} (limit {REL_L2[key]:g}) "
+            f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not (same_logits and margin > 0):
+            fail(f"moe_ffn {name}: the router logits are not the same on "
+                 "both devices or tie at the k-th place")
+        if not same_routes or n_drop == 0:
+            fail(f"moe_ffn {name}: the card and the CPU keep different "
+                 "assignments, or none was dropped")
+        if not ok:
+            fail(f"moe_ffn {name}: the card disagrees with the CPU")
+        del ys, logits, x
+    report["moe_ffn card vs cpu"] = out
+    del p_card
+    torch.cuda.empty_cache()
+
+
+def routing_counts(torch, stats):
+    """Per MoE call recorded in ``moe.ROUTING_STATS``: tokens, capacity,
+    the largest expert load, assignments and dropped assignments."""
+    out = []
+    for st in stats:
+        load = torch.bincount(st["expert"])
+        out.append({"tokens": st["tokens"], "capacity": st["capacity"],
+                    "max_load": int(load.max()),
+                    "assigned": st["keep"].numel(),
+                    "dropped": int((~st["keep"]).sum())})
+    return out
+
+
+def same_routing(torch, fwd, pre, S, k) -> bool:
+    """B = 1: the forward over S + 1 tokens keeps, among the first S
+    tokens, exactly the (token, expert) assignments the prefill over S
+    keeps, and keeps every assignment of token S (as the decode step does),
+    in every layer."""
+    for f, p in zip(fwd, pre):
+        def kept(st, n_tok):
+            tok = st["order"] // k
+            sel = st["keep"] & (tok < n_tok)
+            return torch.sort(tok[sel] * 4096 + st["expert"][sel]).values
+        if not torch.equal(kept(f, S), kept(p, S)):
+            return False
+        if not bool(f["keep"][f["order"] // k == S].all()):
+            return False
+    return True
+
+
+# prompts tried, longest first, for the MoE consistency check: it is held
+# at the first where the two runs keep the same assignments (see
+# consistency_moe_phase)
+MOE_PROMPTS = (1000, 100, 10, 1)
+
+
+def consistency_moe_phase(torch, np, report):
+    """Full-width granite-moe-3b-a800m at B = 1: prefill S + decode 1 against
+    forward S + 1.  A decode step of one token (C = 1) drops nothing, but
+    each run routes its prompt under its own capacity (C = 250 for 1000
+    tokens, 251 for 1001), so the two compute the same function only where
+    they keep the same assignments.  Each prompt of MOE_PROMPTS is run with
+    the routing recorded (the largest expert load against C in every layer
+    of both runs); the check is held at the first whose routing agrees.
+    Where none does, it is held with top_k = n_experts, the drop-free
+    routing of the JAX package's own consistency test
+    (tests/test_models.py), at the published widths and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, forward, init_params, moe,
+                                    prefill)
+
+    cfg = get_config(MOE_ARCH)
+    out = {"tried": []}
+    with torch.inference_mode():
+        params = init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(1), device="cuda")
+        rng = np.random.default_rng(1)
+        toks_all = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (1, MOE_PROMPTS[0] + 1)).astype(np.int64)).cuda()
+
+        def run(c, S):
+            toks = toks_all[:, :S + 1]
+            runs = {}
+            for name in ("forward", "prefill", "decode"):
+                moe.ROUTING_STATS = []
+                if name == "forward":
+                    hidden, _ = forward(params, {"tokens": toks}, c)
+                    full = (hidden[:, -1] @ params["lm_head"]).float()
+                    del hidden
+                elif name == "prefill":
+                    _, state = prefill(params, {"tokens": toks[:, :S]}, c,
+                                       max_len=S + 8)
+                else:
+                    dec, _ = decode_step(params, state, toks[:, S:S + 1], c)
+                runs[name] = moe.ROUTING_STATS
+            moe.ROUTING_STATS = None
+            return full, dec, runs
+
+        def reading(full, dec):
+            rel = float((dec - full).norm() / full.norm())
+            same = bool((dec.argmax(-1) == full.argmax(-1)).all())
+            top2 = full.topk(2, dim=-1).values
+            return rel, same, float((top2[:, 0] - top2[:, 1]).min())
+
+        held = None
+        for S in MOE_PROMPTS:
+            full, dec, runs = run(cfg, S)
+            counts = {n: routing_counts(torch, st) for n, st in runs.items()}
+            agree = same_routing(torch, runs["forward"], runs["prefill"], S,
+                                 cfg.top_k)
+            rel, same, margin = reading(full, dec)
+            entry = {"prompt": S, "routing_agrees": agree, "rel_l2": rel,
+                     "argmax_equal": same, "top2_margin": margin,
+                     **{f"{n}_capacity": c[0]["capacity"]
+                        for n, c in counts.items()},
+                     **{f"{n}_max_load": [x["max_load"] for x in c]
+                        for n, c in counts.items()},
+                     **{f"{n}_dropped": sum(x["dropped"] for x in c)
+                        for n, c in counts.items()}}
+            out["tried"].append(entry)
+            log(f"  prompt {S}: C forward {entry['forward_capacity']}, "
+                f"prefill {entry['prefill_capacity']}, decode "
+                f"{entry['decode_capacity']}; largest load forward "
+                f"{max(entry['forward_max_load'])}, prefill "
+                f"{max(entry['prefill_max_load'])}; dropped forward "
+                f"{entry['forward_dropped']}, prefill "
+                f"{entry['prefill_dropped']}, decode "
+                f"{entry['decode_dropped']}; same assignments {agree}; "
+                f"rel L2 {rel:.4e}, argmax equal {same}")
+            if entry["decode_dropped"]:
+                fail("a decode step of one token dropped an assignment")
+            if agree:
+                held = ("published routing", cfg, S, rel, same, margin)
+                break
+        if held is None:
+            S = MOE_PROMPTS[0]
+            c = dataclasses.replace(cfg, top_k=cfg.n_experts)
+            log(f"  no prompt of {MOE_PROMPTS} keeps the same assignments in "
+                f"both runs: held with top_k = n_experts = {c.top_k} "
+                f"(drop-free), prompt {S}")
+            full, dec, runs = run(c, S)
+            dropped = sum(x["dropped"] for st in runs.values()
+                          for x in routing_counts(torch, st))
+            if dropped:
+                fail(f"top_k = n_experts dropped {dropped} assignments")
+            held = (f"top_k = n_experts = {c.top_k}", c, S,
+                    *reading(full, dec))
+        label, c, S, rel, same, margin = held
+        # the bf16 noise floor: the same forward with the embedding table
+        # perturbed by about half an ulp (its routing may differ too)
+        toks = toks_all[:, :S + 1]
+        hidden, _ = forward(params, {"tokens": toks}, c)
+        full = (hidden[:, -1] @ params["lm_head"]).float()
+        tok = params["embed"]["tok"]
+        noise = torch.randn(tok.shape, generator=torch.Generator(
+            device="cuda").manual_seed(2), device="cuda")
+        params["embed"]["tok"] = (tok.float() * (1 + 2 ** -9 * noise)).to(
+            tok.dtype)
+        del noise, hidden
+        hidden, _ = forward(params, {"tokens": toks}, c)
+        pert = (hidden[:, -1] @ params["lm_head"]).float()
+        floor = float((pert - full).norm() / full.norm())
+    limit = CONSISTENCY_LIMIT[MOE_ARCH, None]
+    log(f"  held ({label}, prompt {S}): rel L2 {rel:.4e} (limit {limit:g}), "
+        f"argmax equal {same} (top-2 margin {margin:.4f}); half-ulp input "
+        f"floor {floor:.4e}")
+    out.update({"held": label, "prompt": S, "rel_l2": rel, "limit": limit,
+                "argmax_equal": same, "top2_margin": margin,
+                "half_ulp_input_rel_l2": floor})
+    report[f"consistency {MOE_ARCH}"] = out
+    del params, hidden
+    torch.cuda.empty_cache()
+    if not (rel <= limit and same):
+        fail(f"{MOE_ARCH}: decode disagrees with forward at full width")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serving, full width
 # ---------------------------------------------------------------------------
 
 EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
             "decode_attention": 28 * 128, "cross_entropy": 0,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
+            "moe_gmm": 0}
 # zamba2-1.2b: 38 Mamba2 layers in 6 groups of 6 and a tail of 2, the shared
 # block after each group.  A pass runs 51 rmsnorms (one per Mamba2 layer,
 # two per shared block, the final one); a prefill wave 6 flash and 38 SSD
@@ -732,21 +1145,43 @@ EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
 HYBRID_EXPECTED = {"rmsnorm": (38 + 2 * 6 + 1) * (2 + 128),
                    "flash_attention": 6 * 2, "decode_attention": 6 * 128,
                    "ssd_scan": 38 * 2, "cross_entropy": 0,
-                   "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+                   "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0}
+# granite-moe-3b-a800m: 32 layers, each 2 rmsnorms and 3 grouped matmuls (the
+# experts' gate, up and down products), and the final norm: a pass (a
+# prefill wave or a decode step) is 65 rmsnorm and 96 moe_gmm launches.
+MOE_EXPECTED = {"rmsnorm": (2 * 32 + 1) * (2 + 128), "flash_attention": 32 * 2,
+                "decode_attention": 32 * 128, "moe_gmm": 96 * (2 + 128),
+                "ssd_scan": 0, "cross_entropy": 0, "flash_attention_bwd": 0,
+                "rmsnorm_bwd": 0}
 
 
 def serve_phase(torch, report, arch=ARCH, expected=EXPECTED):
     from repro_torch.kernels.common import launches, reset_launches
     from repro_torch.launch.serve import serve_demo
+    from repro_torch.models import moe
+
+    def serve():
+        return serve_demo(arch, use_reduced=False, n_requests=16, n_lanes=8,
+                          prompt_len=1024, max_new=64, max_len=2048,
+                          device="cuda")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    out = serve_demo(arch, use_reduced=False, n_requests=16, n_lanes=8,
-                     prompt_len=1024, max_new=64, max_len=2048,
-                     device="cuda")
+    out = serve()
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
+    routing = None
+    if arch == MOE_ARCH:
+        # the routing is recorded in a second run of the same requests
+        # (the same seed, so the same routing), outside the timed and
+        # counted one: the record keeps every call's routing tensors alive
+        moe.ROUTING_STATS = []
+        try:
+            serve()
+            routing = moe.ROUTING_STATS
+        finally:
+            moe.ROUTING_STATS = None
     steps = out["decode_steps"]
     log(f"  requests {out['requests']}  tokens {out['tokens']}  decode "
         f"steps {steps}")
@@ -754,8 +1189,26 @@ def serve_phase(torch, report, arch=ARCH, expected=EXPECTED):
         f"  decode ms per step {out['decode_s'] / max(steps, 1) * 1e3:.3f}  "
         f"tok/s {out['tok_per_s']:.1f}  wall {out['wall_s']:.3f} s")
     log(f"  peak memory {peak / 2**30:.2f} GiB  launches {counts}")
+    drops = {}
+    if routing is not None:
+        # the share of expert assignments dropped (past an expert's
+        # capacity), in the prefill waves (C 2048) and the decode steps (C 2)
+        counts_by = routing_counts(torch, routing)
+        for name, T in (("prefill", 8 * 1024), ("decode", 8)):
+            calls = [c for c in counts_by if c["tokens"] == T]
+            n = sum(c["assigned"] for c in calls)
+            d = sum(c["dropped"] for c in calls)
+            drops[name] = {"calls": len(calls), "capacity":
+                           calls[0]["capacity"], "assigned": n,
+                           "dropped": d, "share": d / n,
+                           "max_load": max(c["max_load"] for c in calls)}
+            log(f"  {name}: {len(calls)} MoE calls at C "
+                f"{calls[0]['capacity']}, {d} of {n} assignments dropped "
+                f"(share {d / n:.4f}), largest expert load "
+                f"{drops[name]['max_load']}")
+        del routing
     report["serve" if arch == ARCH else f"serve {arch}"] = {
-        **out, "peak_bytes": peak, "launches": counts}
+        **out, "peak_bytes": peak, "launches": counts, "dropped": drops}
     if out["requests"] != 16 or out["tokens"] != 1024 or steps != 128:
         fail(f"served {out['requests']} requests / {out['tokens']} tokens / "
              f"{steps} steps; expected 16 / 1024 / 128")
@@ -789,6 +1242,7 @@ TRAIN_EXPECTED = {
     "cross_entropy": TRAIN_MB,
     "decode_attention": 0,
     "ssd_scan": 0,
+    "moe_gmm": 0,
 }
 # a small config the kernels take (bf16, head dim 128) for the TrainLoop
 LOOP_OVERRIDES = dict(dtype="bfloat16", d_model=256, n_heads=2,
@@ -1005,12 +1459,13 @@ def _kernel_table(prof, n_calls: int):
 OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "decode_merge_kernel", "_rms_bwd_rows", "_dw_sum", "delta_kernel",
         "dkdv_kernel", "dq_kernel", "ce_split_kernel", "ce_merge_kernel",
-        "ssd_scan_kernel")
+        "ssd_scan_kernel", "moe_gmm_kernel")
 
 
 # kernel families by name, for the breakdown of a profile
 FAMILIES = (
-    ("fp32 GEMMs (the CE backward's products)", ("f32f32", "sgemm")),
+    ("fp32 GEMMs (the CE backward's products; the MoE router)",
+     ("f32f32", "sgemm")),
     ("bf16 GEMMs (cuBLAS)", ("nvjet", "splitKreduce")),
     ("ported kernels", OURS),
     ("elementwise, copies and the rest", ("",)),
@@ -1169,6 +1624,8 @@ def profile_phase(torch, np, report, phases):
         lines += profile_serving(torch, np, report, ARCH)
     if "serve_hybrid" in phases:
         lines += profile_serving(torch, np, report, HYBRID_ARCH)
+    if "serve_moe" in phases:
+        lines += profile_serving(torch, np, report, MOE_ARCH)
     for line in lines:
         log("  " + line)
     with open(OUT / "profile.txt", "w") as f:
@@ -1227,7 +1684,7 @@ def main() -> None:
     report["torch"] = torch.__version__
 
     # ---- 2: build --------------------------------------------------------
-    if set(phases) & {"build", "kernels", "serve", "train"}:
+    if set(phases) - {"device"}:
         from repro_torch.kernels.common import build_library, library
         from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_bwd_triton,
                                                         rmsnorm_triton)
@@ -1245,33 +1702,54 @@ def main() -> None:
             f"{report['build_s']:.1f} s; Triton rmsnorm forward and backward "
             f"compiled in {report['triton_compile_s']:.1f} s")
 
+    phase_s = report["phase_s"] = {}
+
+    def timed(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"  ({name}: {phase_s[name]:.1f} s)")
+        return out
+
     rows = []
     if "kernels" in phases:
         log("[kernels] kernel vs plain version on the card (bf16)")
-        rows = kernel_phase(torch, Timer(torch), report)
+        rows = timed("kernels", kernel_phase, torch, Timer(torch), report)
     if "consistency" in phases:
         log("[consistency] full-width qwen2-7b, B=2")
-        consistency_phase(torch, np, report)
+        timed("consistency", consistency_phase, torch, np, report)
     by_path = {}
     if "serve" in phases:
         log("[serve] serve_demo qwen2-7b full width")
-        by_path["serve"] = serve_phase(torch, report)
+        by_path["serve"] = timed("serve", serve_phase, torch, report)
     if "consistency_hybrid" in phases:
         log(f"[consistency_hybrid] full-width {HYBRID_ARCH}, B=2")
-        consistency_phase(torch, np, report, HYBRID_ARCH)
+        timed("consistency_hybrid", consistency_phase, torch, np, report,
+              HYBRID_ARCH)
         # random-init zamba2 is chaotic at 38 layers (the half-ulp floor is
         # ~0.85), which leaves that check little room; at 8 layers (one
         # group of 6, the shared block, a tail of 2) it is not
         log(f"  the same at 8 layers (one group, the shared block, the "
             f"tail):")
-        consistency_phase(torch, np, report, HYBRID_ARCH, layers=8)
+        timed("consistency_hybrid 8 layers", consistency_phase, torch, np,
+              report, HYBRID_ARCH, 8)
     if "serve_hybrid" in phases:
         log(f"[serve_hybrid] serve_demo {HYBRID_ARCH} full width")
-        by_path["serve_hybrid"] = serve_phase(torch, report, HYBRID_ARCH,
-                                              HYBRID_EXPECTED)
+        by_path["serve_hybrid"] = timed("serve_hybrid", serve_phase, torch,
+                                        report, HYBRID_ARCH, HYBRID_EXPECTED)
+    if "consistency_moe" in phases:
+        log(f"[consistency_moe] {MOE_ARCH}: one MoE FFN call, card "
+            f"against CPU")
+        timed("moe_ffn", moe_ffn_check, torch, report)
+        log(f"  full-width {MOE_ARCH}, B=1")
+        timed("consistency_moe", consistency_moe_phase, torch, np, report)
+    if "serve_moe" in phases:
+        log(f"[serve_moe] serve_demo {MOE_ARCH} full width")
+        by_path["serve_moe"] = timed("serve_moe", serve_phase, torch, report,
+                                     MOE_ARCH, MOE_EXPECTED)
     if "train" in phases:
         log("[train] make_train_step qwen2-7b full width, 4 layers")
-        by_path["train"] = train_phase(torch, np, report)
+        by_path["train"] = timed("train", train_phase, torch, np, report)
     if args.profile:
         log("[profile] full width, torch.profiler")
         profile_phase(torch, np, report, phases)

@@ -1,5 +1,5 @@
 """granite-moe-3b-a800m [moe] — 40 experts top-8, 512-wide expert FFNs
-[hf:ibm-granite/granite-3.0-1b-a400m-base; hf].
+[hf:ibm-granite/granite-3.0-3b-a800m-base; hf].
 
 40 experts are padded to 48 so expert parallelism divides the 16-way model
 axis (router never selects padding — see ModelConfig.n_experts_padded)."""

@@ -13,8 +13,9 @@ Each kernel keeps the trio of ``repro.kernels``:
 from .cross_entropy.ops import fused_cross_entropy
 from .decode_attention.ops import decode_attention
 from .flash_attention.ops import flash_attention
+from .moe_gmm.ops import moe_gmm
 from .rmsnorm.ops import rmsnorm
 from .ssd.ops import ssd_scan
 
 __all__ = ["rmsnorm", "flash_attention", "decode_attention",
-           "fused_cross_entropy", "ssd_scan"]
+           "fused_cross_entropy", "ssd_scan", "moe_gmm"]

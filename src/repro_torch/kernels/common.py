@@ -87,7 +87,7 @@ def stream_ptr(device: torch.device) -> int:
 LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0, "cross_entropy": 0,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0, "moe_gmm": 0}
 
 
 def count_launch(name: str) -> None:
@@ -150,6 +150,28 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # states up to 16).
     "ssd/mamba_cpu_fp32": (1e-5, 1e-5),
     "ssd/hybrid_cpu_fp32": (1e-4, 1e-4),
+    # Grouped matmul, plain version against the JAX package's moe_gmm_ref,
+    # its Pallas kernel in interpret mode and its equal-groups einsum: fp32
+    # products of the same values summed over D <= 64 in another order (at
+    # most 5.7e-6 at |out| up to 34); in bf16 the same fp32 sums rounded
+    # once, so a sum next to a rounding boundary may round the other way,
+    # one bf16 ulp (none did: 0 at every shape).
+    "moe_gmm/cpu_fp32": (1e-5, 1e-5),
+    "moe_gmm/cpu_bf16": (1e-5, 2.0 ** -7),
+    # One MoE FFN (router, top-k, dispatch, three grouped products, combine)
+    # and the reduced granite model (2 layers, 8 experts padded to 16, top-2,
+    # d 128) against the JAX package's, fp32, another summation order: at
+    # most 1.1e-6 (FFN) and 4.0e-6 (model, logits and caches up to 3.8).
+    # The routing is the same: the FFN tests assert that the k-th and
+    # (k+1)-th router logits of every token differ by more than the two
+    # packages' logits do.  bf16 rounds the dispatch buffer, the products
+    # and the output at the same points on both sides; the fp32 sums before
+    # each rounding differ in order, so a value may round the other way
+    # (2^-8 relative) and carry into the next product: at most 1.6e-2 at
+    # |out| up to 3.4.
+    "moe/cpu_fp32": (1e-5, 1e-5),
+    "moe/cpu_bf16": (2e-2, 2.0 ** -6),
+    "moe/model_cpu_fp32": (2e-5, 1e-5),
     # Card, bfloat16 in and out, kernel against its plain version on the
     # same inputs.  Both compute y in fp32 and round once; the fp32 sums run
     # in another order, so a value next to a rounding boundary can round the
@@ -190,6 +212,21 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # one bf16 ulp.  On the H100 the largest error is one ulp (1.0 at
     # |y| >= 128).  REL_L2 below holds the whole tensor.
     "ssd/card_bf16": (1e-2, 2.0 ** -7),
+    # Grouped matmul: products of bf16 values are exact in fp32 on both
+    # sides (mma.sync here, an fp32 product with TF32 off in the plain
+    # version); the D fp32 sums run in another order, so an output next to
+    # a rounding boundary rounds the other way: one bf16 ulp (on the H100 at
+    # most 3.1e-2, at |y| in [4, 8)).  REL_L2 below holds the whole tensor.
+    "moe_gmm/card_bf16": (1e-3, 2.0 ** -7),
+    # One full-width MoE FFN call on the card (bf16: the dispatch buffer,
+    # the three grouped products and silu(gate)*up each rounded to bf16)
+    # against the same call on the CPU in fp32 on the same bf16 values, with
+    # the same routing.  On the H100 the card reads rel L2 4.26e-3 and at
+    # most 9.9e-3 at |y| up to 2.1 (the prefill call; the decode call 4.13e-3
+    # and 5.0e-3), as the CPU's own bf16 path does: the same roundings.  atol
+    # is twice the largest reading; a token routed or combined wrongly is
+    # off by O(|y|) ~ 0.3.
+    "moe/card_bf16": (2e-2, 2.0 ** -6),
 }
 
 # ‖got − want‖₂ / ‖want‖₂ over the whole tensor, on top of the elementwise
@@ -211,6 +248,16 @@ REL_L2: dict[str, float] = {
     # and 0.63 for y and 0.42 for s_final where the state carries.
     "ssd/card_bf16": 1e-3,
     "ssd_state/card_fp32": 1e-4,
+    # Grouped matmul: the same bf16 roundings on both sides except where an
+    # fp32 sum in another order crosses a rounding boundary.  The sound
+    # kernel reads at most 8.73e-5 on the H100 (prefill gate/up); the limit
+    # is ~11 times that.  One row handed to its neighbour's expert
+    # (chip_smoke.py's planted fault) reads 4.3e-3 among 98,304 rows and
+    # 0.14 among 96.
+    "moe_gmm/card_bf16": 1e-3,
+    # One MoE FFN call, card against CPU fp32 (TOLERANCES above): ~2.3
+    # times the largest reading, 4.26e-3.
+    "moe/card_bf16": 1e-2,
 }
 
 
@@ -352,6 +399,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         *([i64] * 18),                    # (b, h, s) strides: c b x y la g
         p]                                # stream
     lib.ssd_scan_fwd.restype = i
+    lib.moe_gmm_fwd.argtypes = [
+        p, p, p, p,                       # x, w, group_sizes, out
+        i, i, i, i,                       # T, D, F, E
+        p]                                # stream
+    lib.moe_gmm_fwd.restype = i
     lib.decode_attention_chunk.argtypes = []
     lib.decode_attention_chunk.restype = i
     lib.repro_cuda_error_string.argtypes = [i]

@@ -27,8 +27,9 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Numpy (or array-like) parameter tree → the same tree of tensors on
     ``device``, dtypes kept.  Checks the layer axes against ``cfg``: L for
-    the dense family's ``layers``; (G, per) for the hybrid family's
-    ``groups`` and T for its ``tail`` (:func:`hybrid_layout`)."""
+    the dense and moe families' ``layers``, and E_padded for the moe
+    family's expert axis; (G, per) for the hybrid family's ``groups`` and T
+    for its ``tail`` (:func:`hybrid_layout`)."""
     device = resolve_device(device)
     layers = tree.get("layers")
     if layers is not None:
@@ -36,6 +37,12 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         if n != cfg.n_layers:
             raise ValueError(f"tree has {n} stacked layers, {cfg.name} has "
                              f"{cfg.n_layers}")
+    if cfg.family == "moe":
+        got = np.shape(tree["layers"]["moe"]["w_gate"])[:2]
+        if got != (cfg.n_layers, cfg.n_experts_padded):
+            raise ValueError(f"tree has (layers, experts) {got}, {cfg.name} "
+                             f"has ({cfg.n_layers}, "
+                             f"{cfg.n_experts_padded})")
     if cfg.family == "hybrid":
         n_groups, per, tail = hybrid_layout(cfg)
         got = np.shape(tree["groups"]["w_in"])[:2]

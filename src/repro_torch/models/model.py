@@ -1,4 +1,4 @@
-"""Model assembly for the dense and hybrid families: params, forward,
+"""Model assembly for the dense, moe and hybrid families: params, forward,
 prefill and decode (the counterpart of ``repro.models.model``).
 
 Parameters are a dict tree shaped like the JAX package's: per-layer weights
@@ -8,11 +8,13 @@ come from one ``torch.unbind`` of each stacked tensor.  With ``cfg.remat``
 and a gradient wanted, each layer runs under ``torch.utils.checkpoint``
 (``jax.checkpoint`` in the JAX package).
 
-The hybrid family (zamba2) is served, not trained: groups of ``attn_every``
-Mamba2 layers, each group followed by the *same* shared attention+MLP block,
-then a tail of Mamba2 layers.  The ssm (xlstm: SSD at N 512, P 513, and the
-sLSTM scan) and moe (grouped matmul) families, and the vlm/audio frontends,
-come with later slices of the port and raise here.
+The moe family (granite, arctic) is the dense layer stack with a routed
+expert FFN (``models/moe.py``) in place of the MLP; it is served, not
+trained.  The hybrid family (zamba2) is served, not trained: groups of
+``attn_every`` Mamba2 layers, each group followed by the *same* shared
+attention+MLP block, then a tail of Mamba2 layers.  The ssm family (xlstm:
+SSD at N 512, P 513, and the sLSTM scan) and the vlm/audio frontends come
+with later slices of the port and raise here.
 """
 
 from __future__ import annotations
@@ -27,19 +29,19 @@ from ..kernels.common import resolve_device
 from .config import ModelConfig
 from .layers import (attention_block, attention_decode, dtype_of, embed,
                      mlp_block, norm)
+from .moe import moe_ffn
 from .ssm import mamba_block, mamba_decode_step
 
 _LATER = {
     "ssm": "the xlstm slice (SSD kernel tiled over N 512 / P 513, sLSTM "
            "scan)",
-    "moe": "the MoE slice (grouped-matmul kernel)",
     "vlm": "a later slice (precomputed-embedding frontends)",
     "audio": "a later slice (precomputed-embedding frontends)",
 }
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; it "
             f"comes with {_LATER[cfg.family]} (see ROADMAP.md)")
@@ -99,17 +101,27 @@ def _slots(t: torch.Tensor, lead: tuple) -> list:
 
 
 def _attn_layer_params(cfg: ModelConfig, lead: tuple, gen, device):
-    """Attention + MLP layer parameters stacked on the axes ``lead`` (() for
-    the hybrid family's one shared block); layer by layer, the draws go wq,
-    wk, wv, wo, w_up, w_down, w_gate."""
+    """Attention + FFN layer parameters stacked on the axes ``lead`` (() for
+    the hybrid family's one shared block).  The FFN is an MLP or, for the
+    moe family, the router (fp32) and the experts' swiglu weights, with
+    arctic's dense MLP beside them.  Layer by layer, the draws go wq, wk,
+    wv, wo, then the MLP's w_up, w_down, w_gate, or the router, w_gate,
+    w_up, w_down and the dense MLP's, at the JAX package's scales."""
     dt = dtype_of(cfg)
     D, dh, F_ = cfg.d_model, cfg.d_head, cfg.d_ff
 
-    def empty(*shape):
-        return torch.empty(lead + shape, dtype=dt, device=device)
+    def empty(*shape, dtype=dt):
+        return torch.empty(lead + shape, dtype=dtype, device=device)
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+    def mlp():
+        p = {"w_up": empty(D, F_), "w_down": empty(F_, D)}
+        if cfg.act == "swiglu":
+            p["w_gate"] = empty(D, F_)
+        return p, [(p[n], None) for n in ("w_up", "w_down", "w_gate")
+                   if n in p]
 
     attn = {"wq": empty(D, cfg.n_heads * dh),
             "wk": empty(D, cfg.n_kv_heads * dh),
@@ -119,17 +131,29 @@ def _attn_layer_params(cfg: ModelConfig, lead: tuple, gen, device):
         attn["bq"] = zeros(cfg.n_heads * dh)
         attn["bk"] = zeros(cfg.n_kv_heads * dh)
         attn["bv"] = zeros(cfg.n_kv_heads * dh)
-    mlp = {"w_up": empty(D, F_), "w_down": empty(F_, D)}
-    if cfg.act == "swiglu":
-        mlp["w_gate"] = empty(D, F_)
-    mats = [attn[n] for n in ("wq", "wk", "wv", "wo")] + \
-        [mlp[n] for n in ("w_up", "w_down", "w_gate") if n in mlp]
-    for layer in zip(*(_slots(t, lead) for t in mats)):
-        for t in layer:
-            _dense_(t, gen)
+    # (tensor, scale) in draw order; scale None: in**-0.5 of a layer's slot
+    draws = [(attn[n], None) for n in ("wq", "wk", "wv", "wo")]
+    if cfg.family == "moe":
+        E, Fe = cfg.n_experts_padded, cfg.d_ff_expert
+        moe = {"router": empty(D, E, dtype=torch.float32),
+               "w_gate": empty(E, D, Fe), "w_up": empty(E, D, Fe),
+               "w_down": empty(E, Fe, D)}
+        draws += [(moe["router"], None), (moe["w_gate"], D ** -0.5),
+                  (moe["w_up"], D ** -0.5), (moe["w_down"], Fe ** -0.5)]
+        if cfg.moe_dense_residual:
+            moe["dense"], more = mlp()
+            draws += more
+        ffn = {"moe": moe}
+    else:
+        mlp_p, more = mlp()
+        ffn = {"mlp": mlp_p}
+        draws += more
+    for layer in zip(*(_slots(t, lead) for t, _ in draws)):
+        for t, (_, scale) in zip(layer, draws):
+            _dense_(t, gen, scale)
     ones = zeros(D, dtype=torch.float32).fill_(1.0)
     return {"attn_norm": {"w": ones}, "attn": attn,
-            "mlp_norm": {"w": ones.clone()}, "mlp": mlp}
+            "mlp_norm": {"w": ones.clone()}, **ffn}
 
 
 def _mamba_params(cfg: ModelConfig, lead: tuple, gen, device):
@@ -180,7 +204,7 @@ def init_params(cfg: ModelConfig,
         generator.manual_seed(0)
     dt = dtype_of(cfg)
     D = cfg.d_model
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         trunk = {"layers": _attn_layer_params(cfg, (cfg.n_layers,),
                                               generator, device)}
     else:
@@ -211,11 +235,20 @@ def init_params(cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(lp, x, cfg: ModelConfig):
+    """The layer's FFN on its normed input: the routed experts for the moe
+    family, else the MLP."""
+    h = norm(lp["mlp_norm"], x, cfg.norm_eps)
+    if cfg.family == "moe":
+        return moe_ffn(lp["moe"], h, cfg)
+    return mlp_block(lp["mlp"], h, cfg)
+
+
 def _attn_mlp_block(lp, x, cfg: ModelConfig, positions):
     h, k, v = attention_block(lp["attn"], norm(lp["attn_norm"], x,
                                                cfg.norm_eps), cfg, positions)
     x = x + h
-    x = x + mlp_block(lp["mlp"], norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+    x = x + _ffn(lp, x, cfg)
     return x, (k, v)
 
 
@@ -262,8 +295,8 @@ def _hybrid_trunk(params, x, cfg: ModelConfig, positions, collect: bool):
 
 def forward(params, inputs: dict, cfg: ModelConfig, collect: bool = False):
     """inputs: {"tokens": (B,S)}.  Returns (hidden (B,S,D), states), the
-    states None unless ``collect``: for the dense family the per-layer
-    (k, v), each (B, S, Hkv, dh); for the hybrid family {"mamba": the
+    states None unless ``collect``: for the dense and moe families the
+    per-layer (k, v), each (B, S, Hkv, dh); for the hybrid family {"mamba": the
     (conv_state (B, k-1, di) fp32, ssd_state (B, H, N, P) fp32) of each
     Mamba2 layer in order, "kv": the (k, v) of each application of the
     shared block}."""
@@ -308,15 +341,15 @@ def loss_fn(params, inputs: dict, cfg: ModelConfig):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=None, device=None):
     """Decode state: the per-lane KV caches (n, B, S_max, Hkv, dh), with n
-    the layers (dense) or the applications of the shared block (hybrid),
-    and lengths (B,) int32.  The hybrid family adds a conv state
+    the layers (dense, moe) or the applications of the shared block
+    (hybrid), and lengths (B,) int32.  The hybrid family adds a conv state
     (L, B, k-1, di) and an SSD state (L, B, H, N, P) per Mamba2 layer, both
     fp32."""
     _check_family(cfg)
     device = resolve_device(device)
     dt = dtype or dtype_of(cfg)
-    n_kv = (cfg.n_layers if cfg.family == "dense"
-            else hybrid_layout(cfg)[0])
+    n_kv = (hybrid_layout(cfg)[0] if cfg.family == "hybrid"
+            else cfg.n_layers)
     shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     state = {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
                     "v": torch.zeros(shape, dtype=dt, device=device)},
@@ -384,8 +417,7 @@ def decode_step(params, state: dict, tokens, cfg: ModelConfig):
                 lp["attn"], norm(lp["attn_norm"], x, cfg.norm_eps), cfg,
                 kc_all[i], vc_all[i], cache_len)
             x = x + a
-            x = x + mlp_block(lp["mlp"],
-                              norm(lp["mlp_norm"], x, cfg.norm_eps), cfg)
+            x = x + _ffn(lp, x, cfg)
     x = norm(params["final_norm"], x, cfg.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
     return logits, {**state, "len": cache_len + 1}
