@@ -37,7 +37,12 @@ Phases, each of which must pass:
              every layer's largest expert load against its capacity; serving
              reports the share of assignments dropped in prefill and decode,
              read in a second, untimed run of the same requests.
-8. train   — qwen2-7b at its published widths, cut to 4 layers (the only
+8. consistency_ssm, serve_ssm — phases 4 and 5 for xlstm-1.3b at its
+             published width and depth (48 blocks: 6 segments of 7 mLSTM
+             blocks on the wide SSD kernel, N 512 and P 513, and one sLSTM
+             block, a sequential loop in plain torch); ``--profile`` adds the
+             sLSTM blocks' share of a prefill wave.
+9. train   — qwen2-7b at its published widths, cut to 4 layers (the only
              cut: 28 layers need 122 GB of training state), through
              ``init_params``, ``adamw`` and ``make_train_step``: 4 steps on
              one repeated batch of 2 microbatches of 4 x 2048 tokens from
@@ -74,9 +79,10 @@ OUT = ROOT / "chiprun_out"
 ARCH = "qwen2-7b"
 HYBRID_ARCH = "zamba2-1.2b"
 MOE_ARCH = "granite-moe-3b-a800m"
+SSM_ARCH = "xlstm-1.3b"
 PHASES = ("device", "build", "kernels", "consistency", "serve",
           "consistency_hybrid", "serve_hybrid", "consistency_moe",
-          "serve_moe", "train")
+          "serve_moe", "consistency_ssm", "serve_ssm", "train")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -399,80 +405,103 @@ def ssd_case(torch, randn, B, H, S, gates):
             x, log_a.transpose(1, 2), gate.transpose(1, 2))
 
 
+# Each SSD kernel, its cases (B, H, S, gates) and its planted-fault cases.
+# zamba2's (N 64, P 64): the prefill path's shape, a ragged S at 192 blocks
+# (not k·132), ragged S with the state carrying, l falling by > 128 in
+# every chunk, exactly one chunk, one row.  xlstm's (N 512, P 513): the
+# prefill path's shape, the consistency prompt's ragged S, ragged S with
+# the state carrying, one row.
+SSD_KERNELS = (
+    ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", 64, 64,
+     ((8, 64, 1024, "path"), (3, 64, 1000, "path"), (2, 5, 200, "slow"),
+      (1, 7, 1001, "overflow"), (1, 4, 128, "slow"), (2, 3, 1, "slow")),
+     (2, 5, 1000, "slow")),
+    ("ssd_scan_wide", "src/repro_torch/csrc/ssd_scan_wide.cu", 512, 513,
+     ((8, 4, 1024, "path"), (8, 4, 1000, "path"), (2, 4, 200, "slow"),
+      (2, 4, 1, "path")),
+     (2, 4, 1000, "slow")),
+)
+
+
 def ssd_rows(torch, timer, randn, check, report):
-    """The SSD kernel against the sequential plain recurrence: y elementwise
-    and by rel L2, s_final by rel L2; a planted fault; times and bound at the
-    prefill path's shape."""
-    from repro_torch.kernels.common import REL_L2, rel_l2
+    """Each SSD kernel against the sequential plain recurrence under the
+    ssd limits: y elementwise and by rel L2, s_final by rel L2; a planted
+    fault; times and bound at its prefill path's shape (the first case)."""
+    from repro_torch.kernels.common import REL_L2, launches, rel_l2
     from repro_torch.kernels.ssd.ops import ssd_scan
     from repro_torch.kernels.ssd.ref import ssd_ref
 
     state_key = "ssd_state/card_fp32"
+    rows = []
+    for name, source, N, P, cases, fault in SSD_KERNELS:
+        make = ssd_case if N == 64 else ssd_wide_case
+        errs = []
+        for (B, H, S, gates) in cases:
+            inputs = make(torch, randn, B, H, S, gates)
+            la = inputs[3]
+            n = -(-S // SSD_L) * SSD_L
+            drop = torch.nn.functional.pad(la, (0, n - S)).reshape(
+                B, H, -1, SSD_L).sum(-1).neg().max().item()
+            before = launches()[name]
+            y, s = ssd_scan(*inputs)
+            if launches()[name] != before + 1:
+                fail(f"ssd_scan at ({N}, {P}) did not launch {name}")
+            want_y, want_s = ssd_ref(*inputs)
+            case = (f"N{N} P{P} B{B} H{H} S{S} {gates} (l falls <= "
+                    f"{drop:.0f} a chunk)")
+            if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+                fail(f"{name} {case}: non-finite output")
+            errs.append(check("ssd", case, y, want_y))
+            rel = rel_l2(s, want_s)
+            ok = rel <= REL_L2[state_key]
+            log(f"  {name:19s} {case + ' s_final':44s} rel_l2={rel:.3e} "
+                f"(limit {REL_L2[state_key]:g}) "
+                f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+            report.setdefault("rel_l2", {})[f"{name} {case} s_final"] = rel
+            if not ok:
+                fail(f"{name} {case}: s_final disagrees with the plain "
+                     "version")
+            if gates == "overflow" and drop <= 88:
+                fail("the overflow case does not make l fall by more than "
+                     "88")
+            del inputs, y, s, want_y, want_s
 
-    def check_state(case, got, want):
-        rel = rel_l2(got, want)
-        ok = rel <= REL_L2[state_key]
-        log(f"  {'ssd_scan':19s} {case + ' s_final':44s} rel_l2={rel:.3e} "
-            f"(limit {REL_L2[state_key]:g}) {'ok' if ok else 'OUT OF TOLERANCE'}")
-        report.setdefault("rel_l2", {})[f"ssd_scan {case} s_final"] = rel
-        if not ok:
-            fail(f"ssd_scan {case}: s_final disagrees with the plain version")
-
-    errs = []
-    for (B, H, S, gates) in (
-            (8, 64, 1024, "path"),       # the prefill path's shape
-            (3, 64, 1000, "path"),       # ragged S; 192 blocks, not k·132
-            (2, 5, 200, "slow"),         # ragged S, the state carries
-            (1, 7, 1001, "overflow"),    # l falls by > 128 in every chunk
-            (1, 4, 128, "slow"),         # exactly one chunk
-            (2, 3, 1, "slow")):          # one row
-        inputs = ssd_case(torch, randn, B, H, S, gates)
-        la = inputs[3]
-        n = -(-S // SSD_L) * SSD_L
-        drop = torch.nn.functional.pad(la, (0, n - S)).reshape(
-            B, H, -1, SSD_L).sum(-1).neg().max().item()
-        y, s = ssd_scan(*inputs)
-        want_y, want_s = ssd_ref(*inputs)
-        case = f"B{B} H{H} S{S} {gates} (l falls <= {drop:.0f} a chunk)"
-        if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
-            fail(f"ssd_scan {case}: non-finite output")
-        errs.append(check("ssd", case, y, want_y))
-        check_state(case, s, want_s)
-        if gates == "overflow" and drop <= 88:
-            fail("the overflow case does not make l fall by more than 88")
-        del inputs, y, s, want_y, want_s
-
-    B, H, S = 8, 64, 1024
-    inputs = ssd_case(torch, randn, B, H, S, "path")
-    ssd_planted_fault(torch, report, inputs, ssd_case(
-        torch, randn, 2, 5, 1000, "slow"))
-    L, N, P = SSD_L, 64, 64
-    n_chunks = -(-S // L)
-    flops = B * H * n_chunks * (2 * L * L * N + 2 * L * L * P + 4 * L * N * P)
-    bytes_moved = (2 * B * S * H * P * 2 + 2 * B * H * S * 4
-                   + 2 * B * S * N * 2 + B * H * N * P * 4)
-    b_ms, b_by = bound(bytes_moved, flops, PEAK_BF16)
-    row = {"name": "ssd_scan", "route": "cuda",
-           "source": "src/repro_torch/csrc/ssd_scan.cu",
-           "replaces": "src/repro/kernels/ssd/kernel.py:92",
-           "max_abs_err": max(errs),
-           "ms": timer.ms(lambda: ssd_scan(*inputs)),
-           "plain_ms": timer.ms(lambda: ssd_ref(*inputs), iters=2,
-                                warmup=1),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None,       # no one PyTorch call computes the scan
-           "flop": flops, "bytes": bytes_moved}
-    del inputs
-    torch.cuda.empty_cache()
-    return [row]
+        B, H, S, gates = cases[0]
+        inputs = make(torch, randn, B, H, S, gates)
+        ssd_planted_fault(torch, report, name, inputs,
+                          make(torch, randn, *fault))
+        L = SSD_L
+        n_chunks = -(-S // L)
+        # the reference's four products over whole 128-row chunks
+        flops = B * H * n_chunks * (2 * L * L * N + 2 * L * L * P
+                                    + 4 * L * N * P)
+        # c and b are read once: zamba2's are shared by all heads (head
+        # stride 0), xlstm's q and k are per head
+        c_heads = H if inputs[0].stride(1) else 1
+        bytes_moved = (2 * B * S * H * P * 2 + 2 * B * H * S * 4
+                       + 2 * B * S * c_heads * N * 2 + B * H * N * P * 4)
+        b_ms, b_by = bound(bytes_moved, flops, PEAK_BF16)
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/ssd/kernel.py:92",
+            "max_abs_err": max(errs),
+            "ms": timer.ms(lambda: ssd_scan(*inputs)),
+            "plain_ms": timer.ms(lambda: ssd_ref(*inputs), iters=2,
+                                 warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,      # no one PyTorch call computes the scan
+            "flop": flops, "bytes": bytes_moved})
+        del inputs
+        torch.cuda.empty_cache()
+    return rows
 
 
-def ssd_planted_fault(torch, report, *cases):
+def ssd_planted_fault(torch, report, name, *cases):
     """The SSD check must reject a wrong kernel.  Launched on each 128-row
-    chunk alone (views of the inputs), the kernel starts every chunk from a
-    zero state: it runs as if its inter-chunk term were dropped, with no
-    edit to its source.  y, and s_final where the state carries, must fail
-    the check against the sound plain version."""
+    slice alone (views of the inputs), the kernel starts every slice from a
+    zero state: it runs as if its inter-chunk term were dropped at those
+    boundaries, with no edit to its source.  y, and s_final where the
+    state carries, must fail the check against the sound plain version."""
     from repro_torch.kernels.common import REL_L2, TOLERANCES, rel_l2, within
     from repro_torch.kernels.ssd.ops import ssd_scan
     from repro_torch.kernels.ssd.ref import ssd_ref
@@ -487,24 +516,47 @@ def ssd_planted_fault(torch, report, *cases):
         res = {"y_rel_l2": rel_l2(y, want_y),
                "y_elementwise_ok": within(y, want_y, "ssd/card_bf16"),
                "s_final_rel_l2": rel_l2(parts[-1][1], want_s)}
-        name = f"B{B} H{H} S{S}"
-        out[name] = res
-        log(f"    planted fault (inter-chunk term dropped) {name}: y rel_l2="
-            f"{res['y_rel_l2']:.3e} (limit {REL_L2['ssd/card_bf16']:g}), "
-            f"elementwise check "
+        case = f"B{B} H{H} S{S}"
+        out[case] = res
+        log(f"    planted fault (inter-chunk term dropped) {name} {case}: "
+            f"y rel_l2={res['y_rel_l2']:.3e} (limit "
+            f"{REL_L2['ssd/card_bf16']:g}), elementwise check "
             f"{'passes' if res['y_elementwise_ok'] else 'fails'} (tolerance "
             f"{TOLERANCES['ssd/card_bf16']}), s_final rel_l2="
             f"{res['s_final_rel_l2']:.3e} (limit "
             f"{REL_L2['ssd_state/card_fp32']:g})")
         if not (res["y_rel_l2"] > REL_L2["ssd/card_bf16"]
                 and not res["y_elementwise_ok"]):
-            fail("the SSD check does not reject a kernel that drops the "
+            fail(f"the SSD check does not reject a {name} that drops the "
                  "inter-chunk term")
-    report["ssd_planted_fault"] = out
+    report[f"planted_fault {name}"] = out
     # the last case carries its state across chunks
     if not res["s_final_rel_l2"] > REL_L2["ssd_state/card_fp32"]:
-        fail("the SSD state check does not reject a kernel that drops the "
-             "inter-chunk term")
+        fail(f"the SSD state check does not reject a {name} that drops "
+             "the inter-chunk term")
+
+
+def ssd_wide_case(torch, randn, B, H, S, gates="path"):
+    """Inputs of the wide SSD kernel as the mLSTM block hands them over
+    (xlstm-1.3b: 4 heads of 512): c = q·512**-0.5 and b = k, (B, H, S, 512)
+    views of (B, S, H, 512) bf16 tensors; x = v with its column of ones, a
+    (B, H, S, 513) view of a (B, S, H, 520) buffer; fp32 gates as (B, H, S)
+    views of (B, S, H) tensors.  ``gates``: "path" is the model's at init
+    (log σ(f) with the forget bias 3, σ(i), f and i ~ N(0, 1)); "slow" keeps
+    |log_a| ~ 0.01 so the carried state dominates."""
+    import torch.nn.functional as F
+    from repro_torch.models.xlstm import _ones_augmented, _q_scale
+    N = 512
+    q = randn(B, S, H, N)
+    q = q * _q_scale(N, q.dtype)
+    k, v = randn(B, S, H, N), randn(B, S, H, N)
+    f = randn(B, S, H, dtype=torch.float32)
+    i = randn(B, S, H, dtype=torch.float32)
+    log_a = (F.logsigmoid(f + 3.0) if gates == "path"
+             else -0.01 * f.abs())
+    return (q.transpose(1, 2), k.transpose(1, 2),
+            _ones_augmented(v).transpose(1, 2), log_a.transpose(1, 2),
+            torch.sigmoid(i).transpose(1, 2))
 
 
 # granite-moe-3b-a800m's expert products: 48 experts (40 padded), d_model
@@ -816,8 +868,12 @@ def planted_fault(torch, report, q, k, v, o, lse, do):
 # The hybrid limits lie at or below half the floor and at about twice the
 # reading.  granite-moe-3b-a800m, held with drop-free routing (see
 # consistency_moe_phase), reads 8.55e-3 against a floor of 1.14e-2; its
-# limit sits just below the floor, as qwen2-7b's does.
+# limit sits just below the floor, as qwen2-7b's does.  xlstm-1.3b reads
+# 9.70e-2 against a floor of 0.857 at 48 layers (random-init xlstm, too,
+# amplifies its input with depth) and 1.52e-2 against 8.14e-2 at 8 layers
+# (one segment); its limits follow the hybrid ones.
 CONSISTENCY_LIMIT = {(ARCH, None): 2e-2, (HYBRID_ARCH, None): 0.3,
+                     (SSM_ARCH, None): 0.3, (SSM_ARCH, 8): 4e-2,
                      (HYBRID_ARCH, 8): 4e-2, (MOE_ARCH, None): 1.1e-2}
 
 
@@ -843,7 +899,15 @@ def consistency_phase(torch, np, report, arch=ARCH, layers=None):
                            max_len=1024)
         dec, _ = decode_step(params, state, toks[:, S:S + 1], cfg)
         rel = float((dec - full).norm() / full.norm())
-        same = bool((dec.argmax(-1) == full.argmax(-1)).all())
+        # decode's next token must be the forward's: its argmax must be a
+        # maximiser of the forward's logits.  The logits are bf16 products
+        # (ulp 2^-5 near the top, ~4), so the forward's top two can tie
+        # exactly; torch.argmax then returns the lower index, and either
+        # tied token is the forward's next token.  Without a tie this is
+        # argmax equality.
+        fmax = full.max(-1, keepdim=True).values
+        same = bool((full.gather(-1, dec.argmax(-1, keepdim=True))
+                     == fmax).all())
         top2 = full.topk(2, dim=-1).values
         margin = float((top2[:, 0] - top2[:, 1]).min())
         # the bf16 noise floor for comparison: the same forward with the
@@ -1136,7 +1200,7 @@ def consistency_moe_phase(torch, np, report):
 EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
             "decode_attention": 28 * 128, "cross_entropy": 0,
             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
-            "moe_gmm": 0}
+            "ssd_scan_wide": 0, "moe_gmm": 0}
 # zamba2-1.2b: 38 Mamba2 layers in 6 groups of 6 and a tail of 2, the shared
 # block after each group.  A pass runs 51 rmsnorms (one per Mamba2 layer,
 # two per shared block, the final one); a prefill wave 6 flash and 38 SSD
@@ -1145,14 +1209,24 @@ EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
 HYBRID_EXPECTED = {"rmsnorm": (38 + 2 * 6 + 1) * (2 + 128),
                    "flash_attention": 6 * 2, "decode_attention": 6 * 128,
                    "ssd_scan": 38 * 2, "cross_entropy": 0,
-                   "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0}
+                   "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0,
+                   "ssd_scan_wide": 0}
 # granite-moe-3b-a800m: 32 layers, each 2 rmsnorms and 3 grouped matmuls (the
 # experts' gate, up and down products), and the final norm: a pass (a
 # prefill wave or a decode step) is 65 rmsnorm and 96 moe_gmm launches.
 MOE_EXPECTED = {"rmsnorm": (2 * 32 + 1) * (2 + 128), "flash_attention": 32 * 2,
                 "decode_attention": 32 * 128, "moe_gmm": 96 * (2 + 128),
                 "ssd_scan": 0, "cross_entropy": 0, "flash_attention_bwd": 0,
-                "rmsnorm_bwd": 0}
+                "rmsnorm_bwd": 0, "ssd_scan_wide": 0}
+# xlstm-1.3b: 6 segments of 7 mLSTM blocks and one sLSTM block.  A pass (a
+# prefill wave or a decode step) runs 49 rmsnorms (one per block, the final
+# one); a prefill wave runs the wide SSD kernel once per mLSTM block, 42; a
+# decode step none (its SSD step is plain torch, as in the JAX package), and
+# the sLSTM is plain torch.  No attention, no MLP.
+SSM_EXPECTED = {"rmsnorm": (48 + 1) * (2 + 128), "ssd_scan_wide": 42 * 2,
+                "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0,
+                "cross_entropy": 0, "flash_attention_bwd": 0,
+                "rmsnorm_bwd": 0, "moe_gmm": 0}
 
 
 def serve_phase(torch, report, arch=ARCH, expected=EXPECTED):
@@ -1242,6 +1316,7 @@ TRAIN_EXPECTED = {
     "cross_entropy": TRAIN_MB,
     "decode_attention": 0,
     "ssd_scan": 0,
+    "ssd_scan_wide": 0,
     "moe_gmm": 0,
 }
 # a small config the kernels take (bf16, head dim 128) for the TrainLoop
@@ -1459,7 +1534,7 @@ def _kernel_table(prof, n_calls: int):
 OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "decode_merge_kernel", "_rms_bwd_rows", "_dw_sum", "delta_kernel",
         "dkdv_kernel", "dq_kernel", "ce_split_kernel", "ce_merge_kernel",
-        "ssd_scan_kernel", "moe_gmm_kernel")
+        "ssd_scan_kernel", "ssd_scan_wide_kernel", "moe_gmm_kernel")
 
 
 # kernel families by name, for the breakdown of a profile
@@ -1560,6 +1635,8 @@ def profile_serving(torch, np, report, arch):
         decode = make_decode_step(cfg)
         prefill(params, {"tokens": toks}, cfg, max_len=2048)   # warm
         torch.cuda.synchronize()
+        if arch == SSM_ARCH:          # before the profiler, which slows
+            lines.append(slstm_share(torch, params, toks, cfg, report))
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             logits, state = prefill(params, {"tokens": toks}, cfg,
@@ -1616,6 +1693,43 @@ def profile_serving(torch, np, report, arch):
     return lines
 
 
+def slstm_share(torch, params, toks, cfg, report) -> str:
+    """The sLSTM blocks' share of one prefill wave, outside the profiler:
+    each sLSTM block is bracketed by synchronisations and timed on the
+    host clock (its loop of 1024 steps is host-bound), against the wave's
+    own wall time."""
+    import repro_torch.models.model as model_mod
+
+    spent = []
+    inner = model_mod.slstm_block
+
+    def timed_block(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    model_mod.slstm_block = timed_block
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_mod.prefill(params, {"tokens": toks}, cfg, max_len=2048)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        model_mod.slstm_block = inner
+    share = sum(spent) / wall
+    report.setdefault("profile", {})["slstm_prefill"] = {
+        "wall_ms": wall * 1e3, "slstm_ms": [t * 1e3 for t in spent],
+        "share": share}
+    return (f"{cfg.name} prefill B=8 S=1024 (synchronised at each sLSTM "
+            f"block): wall {wall * 1e3:.3f} ms, {len(spent)} sLSTM blocks "
+            f"{sum(spent) * 1e3:.3f} ms (each "
+            f"{[round(t * 1e3, 3) for t in spent]}), share {share:.3f}")
+
+
 def profile_phase(torch, np, report, phases):
     lines = []
     if "train" in phases:
@@ -1626,6 +1740,8 @@ def profile_phase(torch, np, report, phases):
         lines += profile_serving(torch, np, report, HYBRID_ARCH)
     if "serve_moe" in phases:
         lines += profile_serving(torch, np, report, MOE_ARCH)
+    if "serve_ssm" in phases:
+        lines += profile_serving(torch, np, report, SSM_ARCH)
     for line in lines:
         log("  " + line)
     with open(OUT / "profile.txt", "w") as f:
@@ -1747,6 +1863,17 @@ def main() -> None:
         log(f"[serve_moe] serve_demo {MOE_ARCH} full width")
         by_path["serve_moe"] = timed("serve_moe", serve_phase, torch, report,
                                      MOE_ARCH, MOE_EXPECTED)
+    if "consistency_ssm" in phases:
+        log(f"[consistency_ssm] full-width {SSM_ARCH}, B=2")
+        timed("consistency_ssm", consistency_phase, torch, np, report,
+              SSM_ARCH)
+        log("  the same at 8 layers (one segment: 7 mLSTM blocks, 1 sLSTM):")
+        timed("consistency_ssm 8 layers", consistency_phase, torch, np,
+              report, SSM_ARCH, 8)
+    if "serve_ssm" in phases:
+        log(f"[serve_ssm] serve_demo {SSM_ARCH} full width")
+        by_path["serve_ssm"] = timed("serve_ssm", serve_phase, torch, report,
+                                     SSM_ARCH, SSM_EXPECTED)
     if "train" in phases:
         log("[train] make_train_step qwen2-7b full width, 4 layers")
         by_path["train"] = timed("train", train_phase, torch, np, report)

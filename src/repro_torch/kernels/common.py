@@ -87,7 +87,8 @@ def stream_ptr(device: torch.device) -> int:
 LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0, "cross_entropy": 0,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-                            "ssd_scan": 0, "moe_gmm": 0}
+                            "ssd_scan": 0, "ssd_scan_wide": 0,
+                            "moe_gmm": 0}
 
 
 def count_launch(name: str) -> None:
@@ -150,6 +151,20 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # states up to 16).
     "ssd/mamba_cpu_fp32": (1e-5, 1e-5),
     "ssd/hybrid_cpu_fp32": (1e-4, 1e-4),
+    # The SSD scan at xlstm's N 512, P 513 (mLSTM-like gates, S 256 and a
+    # ragged 200), plain version against JAX's ref and its Pallas kernel in
+    # interpret mode: sums over 512 state rows in another order, at most
+    # 9.1e-6 at |y| up to 11.
+    "ssd_wide/cpu_fp32": (2e-5, 1e-5),
+    # One mLSTM or sLSTM block with its decode steps against the JAX
+    # package's, fp32, another summation order: at most 3.6e-6 (reduced, d
+    # 128, |out| up to 9) and 2.0e-5 at xlstm's real widths (d 2048, heads
+    # of 512: products over 2048 and 512 terms); the reduced xlstm model
+    # (4 blocks, forward, prefill and decode, logits and states up to 10)
+    # at most 1.0e-5.
+    "xlstm/block_cpu_fp32": (1e-5, 1e-5),
+    "xlstm/wide_cpu_fp32": (5e-5, 1e-5),
+    "xlstm/model_cpu_fp32": (5e-5, 1e-5),
     # Grouped matmul, plain version against the JAX package's moe_gmm_ref,
     # its Pallas kernel in interpret mode and its equal-groups einsum: fp32
     # products of the same values summed over D <= 64 in another order (at
@@ -399,6 +414,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         *([i64] * 18),                    # (b, h, s) strides: c b x y la g
         p]                                # stream
     lib.ssd_scan_fwd.restype = i
+    lib.ssd_scan_wide_fwd.argtypes = lib.ssd_scan_fwd.argtypes
+    lib.ssd_scan_wide_fwd.restype = i
     lib.moe_gmm_fwd.argtypes = [
         p, p, p, p,                       # x, w, group_sizes, out
         i, i, i, i,                       # T, D, F, E

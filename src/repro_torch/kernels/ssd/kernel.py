@@ -1,9 +1,12 @@
-"""Launch of the CUDA chunked SSD-scan kernel (``csrc/ssd_scan.cu``).
+"""Launch of the CUDA chunked SSD-scan kernels: ``csrc/ssd_scan.cu`` for
+zamba2's N = P = 64 and ``csrc/ssd_scan_wide.cu`` for xlstm's N = 512,
+P = 513 (q and k as c and b, v with a column of ones as x).
 
-Replaces ``src/repro/kernels/ssd/kernel.py:ssd_scan_pallas``; the source's
-header says what bounds the kernel on the H100 and how its design answers
-that.  This module checks what the kernel takes, allocates y and s_final,
-launches on PyTorch's current stream and counts the launch.
+Both replace ``src/repro/kernels/ssd/kernel.py:ssd_scan_pallas``; each
+source's header says what bounds it on the H100 and how its design answers
+that.  This module checks what the kernels take, picks one by (N, P),
+allocates y and s_final, launches on PyTorch's current stream and counts the
+launch under the kernel's own name.
 
 The JAX wrapper pads S to a multiple of the chunk with zeros; the kernel
 masks the ragged last chunk itself (rows past S act as log_a = 0, gate = 0),
@@ -16,8 +19,25 @@ import torch
 
 from ..common import check_status, count_launch, library, stream_ptr
 
-# (N, P) pairs the kernel is built for: zamba2's state 64 and head dim 64.
-SHAPES = ((64, 64),)
+# (N, P) → (C entry point, launch counter): zamba2's state 64 and head dim
+# 64; xlstm's d_head 512 and d_head + 1 (the normalizer's column of ones)
+KERNELS = {(64, 64): ("ssd_scan_fwd", "ssd_scan"),
+           (512, 513): ("ssd_scan_wide_fwd", "ssd_scan_wide")}
+SHAPES = tuple(KERNELS)
+
+
+def padded_like(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of x's shape, dtype and device whose dims are laid
+    out in the order of x's strides (a (B, H, S, P) view of a (B, S, H, P)
+    tensor gets the same layout) with the last dim's pitch rounded up to a
+    multiple of 8 elements, so each row starts 16-byte aligned.  For a dense
+    x with such a pitch it is ``torch.empty_like(x)``."""
+    lead = sorted(range(x.dim() - 1), key=lambda d: -x.stride(d))
+    last = x.shape[-1]
+    full = torch.empty([x.shape[d] for d in lead] + [-(-last // 8) * 8],
+                       dtype=x.dtype, device=x.device)
+    inv = [lead.index(d) for d in range(x.dim() - 1)] + [x.dim() - 1]
+    return full[..., :last].permute(inv)
 
 
 def ssd_launch_args(c, b, x, log_a, gate, y) -> tuple:
@@ -36,9 +56,8 @@ def ssd_launch_args(c, b, x, log_a, gate, y) -> tuple:
                          f"{tuple(log_a.shape)} and {tuple(gate.shape)}")
     if (N, P) not in SHAPES:
         raise ValueError(
-            f"ssd kernel takes (N, P) in {SHAPES}, not ({N}, {P}); the "
-            "kernel tiled over N and P that xlstm's (512, 513) needs is "
-            "queued in ROADMAP.md")
+            f"ssd kernels take (N, P) in {SHAPES} (zamba2, xlstm), not "
+            f"({N}, {P}); another shape needs its own tiling (ROADMAP.md)")
     if B == 0 or H == 0 or S == 0:
         raise ValueError("ssd kernel needs B, H and S > 0")
     for name, t in (("c", c), ("b", b), ("x", x), ("y", y)):
@@ -48,10 +67,15 @@ def ssd_launch_args(c, b, x, log_a, gate, y) -> tuple:
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs unit stride on its last dim")
         # cp.async / 4-byte stores need 16-byte aligned rows; a head stride
-        # of 0 (b and c shared by all heads) is allowed
+        # of 0 (b and c shared by all heads) is allowed.  A dense row of 513
+        # bf16 (1,026 bytes) is not aligned: such rows go in a buffer whose
+        # pitch is a multiple of 8 elements, passed as a [..., :513] view
         if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} rows must be 16-byte aligned "
-                             f"(strides {t.stride()})")
+            raise ValueError(
+                f"{name} rows must be 16-byte aligned (strides "
+                f"{t.stride()}): allocate them with a row pitch that is a "
+                f"multiple of 8 elements and pass a [..., :{t.shape[-1]}] "
+                "view")
     for name, t in (("log_a", log_a), ("gate", gate)):
         if t.dtype != torch.float32:
             raise TypeError(f"ssd kernel takes fp32 {name}, got {t.dtype}")
@@ -63,16 +87,18 @@ def ssd_launch_args(c, b, x, log_a, gate, y) -> tuple:
 def ssd_scan_cuda(c, b, x, log_a, gate):
     """c, b: (B, H, S, N) bf16; x: (B, H, S, P) bf16; log_a, gate: (B, H, S)
     fp32; all on one CUDA device, read through their strides (b and c may
-    have a head stride of 0).  Returns y (B, H, S, P) bf16, with x's strides
-    where x is dense, and s_final (B, H, N, P) fp32."""
-    y = torch.empty_like(x)
+    have a head stride of 0).  Returns y (B, H, S, P) bf16 in x's layout
+    with a row pitch of a multiple of 8 (:func:`padded_like`), and s_final
+    (B, H, N, P) fp32."""
+    y = padded_like(x)
     args = ssd_launch_args(c, b, x, log_a, gate, y)
     B, H, _, N, P = args[:5]
+    entry, name = KERNELS[N, P]
     s_final = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
-    status = library().ssd_scan_fwd(
+    status = getattr(library(), entry)(
         c.data_ptr(), b.data_ptr(), x.data_ptr(), log_a.data_ptr(),
         gate.data_ptr(), y.data_ptr(), s_final.data_ptr(), *args,
         stream_ptr(x.device))
-    check_status("ssd_scan", status)
-    count_launch("ssd_scan")
+    check_status(name, status)
+    count_launch(name)
     return y, s_final

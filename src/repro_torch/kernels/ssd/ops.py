@@ -1,5 +1,6 @@
 """Public SSD wrappers: ``ssd_scan`` runs the plain recurrence for a CPU
-tensor and the CUDA kernel for a CUDA tensor; ``ssd_step`` is the decode
+tensor and, for a CUDA tensor, the CUDA kernel of its (N, P) (zamba2's 64 /
+64 or xlstm's 512 / 513; any other shape raises); ``ssd_step`` is the decode
 step, plain torch ops on any device (the JAX package computes it outside any
 Pallas kernel too)."""
 

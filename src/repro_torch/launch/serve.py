@@ -5,6 +5,7 @@
     python -m repro_torch.launch.serve --arch qwen2-7b --full     # full width
     python -m repro_torch.launch.serve --arch zamba2-1.2b --full  # hybrid
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full  # moe
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --full    # ssm
 
 Runs on the CUDA device unless ``device="cpu"`` (``--device cpu``) is given;
 with no device and no CUDA it raises.

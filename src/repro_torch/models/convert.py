@@ -13,7 +13,7 @@ import torch
 
 from ..kernels.common import resolve_device
 from .config import ModelConfig
-from .model import hybrid_layout
+from .model import hybrid_layout, ssm_layout
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -29,7 +29,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
     ``device``, dtypes kept.  Checks the layer axes against ``cfg``: L for
     the dense and moe families' ``layers``, and E_padded for the moe
     family's expert axis; (G, per) for the hybrid family's ``groups`` and T
-    for its ``tail`` (:func:`hybrid_layout`)."""
+    for its ``tail`` (:func:`hybrid_layout`); (n_seg, period - 1) for the
+    ssm family's ``mlstm`` and n_seg for its ``slstm``
+    (:func:`ssm_layout`)."""
     device = resolve_device(device)
     layers = tree.get("layers")
     if layers is not None:
@@ -53,6 +55,17 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         if got_t != tail:
             raise ValueError(f"tree has {got_t} tail Mamba layers, "
                              f"{cfg.name} has {tail}")
+
+    if cfg.family == "ssm":
+        n_seg, per = ssm_layout(cfg)
+        got = np.shape(tree["mlstm"]["w_up"])[:2]
+        if got != (n_seg, per):
+            raise ValueError(f"tree has mLSTM blocks {got} (segments, per "
+                             f"segment), {cfg.name} has ({n_seg}, {per})")
+        got_s = np.shape(tree["slstm"]["w_x"])[0]
+        if got_s != n_seg:
+            raise ValueError(f"tree has {got_s} sLSTM blocks, {cfg.name} "
+                             f"has {n_seg}")
 
     def conv(node):
         if isinstance(node, dict):

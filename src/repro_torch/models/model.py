@@ -1,5 +1,5 @@
-"""Model assembly for the dense, moe and hybrid families: params, forward,
-prefill and decode (the counterpart of ``repro.models.model``).
+"""Model assembly for the dense, moe, hybrid and ssm families: params,
+forward, prefill and decode (the counterpart of ``repro.models.model``).
 
 Parameters are a dict tree shaped like the JAX package's: per-layer weights
 stacked on a leading layer axis, weights in the (in, out) layout.  Python
@@ -12,9 +12,12 @@ The moe family (granite, arctic) is the dense layer stack with a routed
 expert FFN (``models/moe.py``) in place of the MLP; it is served, not
 trained.  The hybrid family (zamba2) is served, not trained: groups of
 ``attn_every`` Mamba2 layers, each group followed by the *same* shared
-attention+MLP block, then a tail of Mamba2 layers.  The ssm family (xlstm:
-SSD at N 512, P 513, and the sLSTM scan) and the vlm/audio frontends come
-with later slices of the port and raise here.
+attention+MLP block, then a tail of Mamba2 layers.  The ssm family (xlstm)
+is served, not trained: ``n_layers / slstm_period`` segments, each
+``slstm_period - 1`` mLSTM blocks (the SSD scan at N = d_head, P = d_head +
+1) and one sLSTM block (a sequential loop in plain torch), each block
+pre-normed and residual, with no attention and no MLP.  The vlm/audio
+frontends come with a later slice and raise here.
 """
 
 from __future__ import annotations
@@ -31,20 +34,20 @@ from .layers import (attention_block, attention_decode, dtype_of, embed,
                      mlp_block, norm)
 from .moe import moe_ffn
 from .ssm import mamba_block, mamba_decode_step
+from .xlstm import (mlstm_block, mlstm_decode_step, slstm_block,
+                    slstm_decode_step, slstm_init_state)
 
 _LATER = {
-    "ssm": "the xlstm slice (SSD kernel tiled over N 512 / P 513, sLSTM "
-           "scan)",
-    "vlm": "a later slice (precomputed-embedding frontends)",
-    "audio": "a later slice (precomputed-embedding frontends)",
+    "vlm": "the precomputed-embedding frontends",
+    "audio": "the precomputed-embedding frontends",
 }
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; it "
-            f"comes with {_LATER[cfg.family]} (see ROADMAP.md)")
+            f"comes with {_LATER[cfg.family]} (see ROADMAP.md A6)")
 
 
 def _layers(tree, n: int) -> list:
@@ -69,6 +72,20 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     per = cfg.attn_every
     n_groups = cfg.n_layers // per
     return n_groups, per, cfg.n_layers - n_groups * per
+
+
+def ssm_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(segments, mLSTM blocks per segment) of the ssm family: each segment
+    ends with one sLSTM block."""
+    return cfg.n_layers // cfg.slstm_period, cfg.slstm_period - 1
+
+
+def _xlstm_layers(params, cfg: ModelConfig) -> list:
+    """The ssm family's blocks by segment: (the segment's mLSTM layers,
+    its sLSTM layer) for each segment."""
+    n_seg, per = ssm_layout(cfg)
+    mlstm = [_layers(seg, per) for seg in _layers(params["mlstm"], n_seg)]
+    return list(zip(mlstm, _layers(params["slstm"], n_seg)))
 
 
 def _mamba_layers(params, cfg: ModelConfig) -> tuple[list, list]:
@@ -184,14 +201,63 @@ def _mamba_params(cfg: ModelConfig, lead: tuple, gen, device):
     return p
 
 
+def _mlstm_params(cfg: ModelConfig, lead: tuple, gen, device):
+    """mLSTM block parameters stacked on the axes ``lead``; layer by layer,
+    the draws go w_up, w_q, w_k, w_v, w_gates (fp32), w_down.  b_gates is 0
+    for the input gates and 3 for the forget gates, as in the JAX
+    package."""
+    dt = dtype_of(cfg)
+    D, H = cfg.d_model, cfg.n_heads
+
+    def new(*shape, dtype=dt):
+        return torch.empty(lead + shape, dtype=dtype, device=device)
+
+    p = {"norm": {"w": new(D, dtype=torch.float32).fill_(1.0)},
+         "w_up": new(D, 2 * D), "w_q": new(D, D), "w_k": new(D, D),
+         "w_v": new(D, D), "w_gates": new(D, 2 * H, dtype=torch.float32),
+         "b_gates": new(2 * H, dtype=torch.float32),
+         "w_down": new(D, D)}
+    p["b_gates"][..., :H] = 0.0
+    p["b_gates"][..., H:] = 3.0
+    draws = [p[n] for n in ("w_up", "w_q", "w_k", "w_v", "w_gates",
+                            "w_down")]
+    for layer in zip(*(_slots(t, lead) for t in draws)):
+        for t in layer:
+            _dense_(t, gen)
+    return p
+
+
+def _slstm_params(cfg: ModelConfig, lead: tuple, gen, device):
+    """sLSTM block parameters stacked on the axes ``lead``; layer by layer,
+    the draws go w_x, r (fp32, per-head recurrent weights at scale
+    dh**-0.5), w_out; the bias is 0."""
+    dt = dtype_of(cfg)
+    D, H = cfg.d_model, cfg.n_heads
+    dh = D // H
+
+    def new(*shape, dtype=dt):
+        return torch.empty(lead + shape, dtype=dtype, device=device)
+
+    p = {"norm": {"w": new(D, dtype=torch.float32).fill_(1.0)},
+         "w_x": new(D, 4 * D), "r": new(H, dh, 4 * dh, dtype=torch.float32),
+         "b": new(4 * D, dtype=torch.float32).zero_(), "w_out": new(D, D)}
+    for w_x, r, w_out in zip(_slots(p["w_x"], lead), _slots(p["r"], lead),
+                             _slots(p["w_out"], lead)):
+        _dense_(w_x, gen)
+        _dense_(r, gen, scale=dh ** -0.5)
+        _dense_(w_out, gen)
+    return p
+
+
 def init_params(cfg: ModelConfig,
                 generator: Optional[torch.Generator] = None, *, device=None):
     """Random parameters on ``device``, drawn from ``generator`` (by
     default a new one seeded with 0, as JAX's default key is PRNGKey(0)).
     Shapes, dtypes and scales follow the JAX package's ``init_params``,
     including the hybrid family's tree: ``groups`` (G, per, ...), ``tail``
-    (T, ...) and one ``shared_attn`` layer.  The numbers differ (torch and
-    JAX generators differ — load JAX's parameters with
+    (T, ...) and one ``shared_attn`` layer, and the ssm family's: ``mlstm``
+    (n_seg, period - 1, ...) and ``slstm`` (n_seg, ...).  The numbers
+    differ (torch and JAX generators differ — load JAX's parameters with
     :func:`repro_torch.models.convert.params_from_numpy` to compare the
     two).  Each layer is drawn straight into its slot of the stacked
     tensor, so the fp32 draw is one layer at a time: a full-width model
@@ -207,6 +273,11 @@ def init_params(cfg: ModelConfig,
     if cfg.family in ("dense", "moe"):
         trunk = {"layers": _attn_layer_params(cfg, (cfg.n_layers,),
                                               generator, device)}
+    elif cfg.family == "ssm":
+        n_seg, per = ssm_layout(cfg)
+        trunk = {"mlstm": _mlstm_params(cfg, (n_seg, per), generator,
+                                        device),
+                 "slstm": _slstm_params(cfg, (n_seg,), generator, device)}
     else:
         n_groups, per, tail = hybrid_layout(cfg)
         trunk = {"groups": _mamba_params(cfg, (n_groups, per), generator,
@@ -293,21 +364,50 @@ def _hybrid_trunk(params, x, cfg: ModelConfig, positions, collect: bool):
     return x, ({"mamba": mamba_states, "kv": kvs} if collect else None)
 
 
+def _ssm_trunk(params, x, cfg: ModelConfig, collect: bool):
+    """The ssm family's trunk: each segment's mLSTM blocks, then its sLSTM
+    block, each pre-normed and residual.  With ``collect`` also its states
+    (see :func:`forward`)."""
+    m_states, s_states = [], []
+    for mlstm, slp in _xlstm_layers(params, cfg):
+        for lp in mlstm:
+            h = norm(lp["norm"], x, cfg.norm_eps)
+            if collect:
+                y, st = mlstm_block(lp, h, cfg, return_state=True)
+                m_states.append(st)
+            else:
+                y = mlstm_block(lp, h, cfg)
+            x = x + y
+        h = norm(slp["norm"], x, cfg.norm_eps)
+        if collect:
+            y, st = slstm_block(slp, h, cfg, return_state=True)
+            s_states.append(st)
+        else:
+            y = slstm_block(slp, h, cfg)
+        x = x + y
+    return x, ({"mlstm": m_states, "slstm": s_states} if collect else None)
+
+
 def forward(params, inputs: dict, cfg: ModelConfig, collect: bool = False):
     """inputs: {"tokens": (B,S)}.  Returns (hidden (B,S,D), states), the
     states None unless ``collect``: for the dense and moe families the
     per-layer (k, v), each (B, S, Hkv, dh); for the hybrid family {"mamba": the
     (conv_state (B, k-1, di) fp32, ssd_state (B, H, N, P) fp32) of each
     Mamba2 layer in order, "kv": the (k, v) of each application of the
-    shared block}."""
+    shared block}; for the ssm family {"mlstm": the (B, H, dh, dh + 1) fp32
+    memory of each mLSTM block in order, "slstm": the (h, c, n, m) of each
+    sLSTM block}."""
     _check_family(cfg)
     tokens = inputs["tokens"]
     x = embed(params["embed"], tokens, cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    if cfg.family == "hybrid":
-        x, states = _hybrid_trunk(params, x, cfg, positions, collect)
+    if cfg.family in ("hybrid", "ssm"):
+        if cfg.family == "hybrid":
+            x, states = _hybrid_trunk(params, x, cfg, positions, collect)
+        else:
+            x, states = _ssm_trunk(params, x, cfg, collect)
         return norm(params["final_norm"], x, cfg.norm_eps), states
     remat = cfg.remat and not collect and torch.is_grad_enabled()
     kvs = []
@@ -344,9 +444,21 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     the layers (dense, moe) or the applications of the shared block
     (hybrid), and lengths (B,) int32.  The hybrid family adds a conv state
     (L, B, k-1, di) and an SSD state (L, B, H, N, P) per Mamba2 layer, both
-    fp32."""
+    fp32.  The ssm family has no KV cache: its state is the mLSTM memories
+    (n_seg, period - 1, B, H, dh, dh + 1) and the sLSTM's (h, c, n, m), each
+    (n_seg, B, H, dh), all fp32 (m starts at -1e30), and the lengths."""
     _check_family(cfg)
     device = resolve_device(device)
+    if cfg.family == "ssm":
+        n_seg, per = ssm_layout(cfg)
+        H = cfg.n_heads
+        dh = cfg.d_model // H
+        slstm = slstm_init_state(n_seg * batch, cfg, device)
+        return {"mlstm": torch.zeros((n_seg, per, batch, H, dh, dh + 1),
+                                     dtype=torch.float32, device=device),
+                "slstm": tuple(t.view(n_seg, batch, H, dh) for t in slstm),
+                "len": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
     dt = dtype or dtype_of(cfg)
     n_kv = (hybrid_layout(cfg)[0] if cfg.family == "hybrid"
             else cfg.n_layers)
@@ -395,13 +507,32 @@ def _hybrid_decode(params, state: dict, x, cfg: ModelConfig):
     return x
 
 
+def _ssm_decode(params, state: dict, x, cfg: ModelConfig):
+    """The ssm trunk for one token, updating the state's mLSTM memories and
+    sLSTM (h, c, n, m) in place."""
+    m_all, s_all = state["mlstm"], state["slstm"]
+    for g, (mlstm, slp) in enumerate(_xlstm_layers(params, cfg)):
+        for j, lp in enumerate(mlstm):
+            y, st = mlstm_decode_step(lp, norm(lp["norm"], x, cfg.norm_eps),
+                                      cfg, m_all[g, j])
+            m_all[g, j].copy_(st)
+            x = x + y
+        y, st = slstm_decode_step(slp, norm(slp["norm"], x, cfg.norm_eps),
+                                  cfg, tuple(t[g] for t in s_all))
+        for buf, new in zip(s_all, st):
+            buf[g].copy_(new)
+        x = x + y
+    return x
+
+
 def decode_step(params, state: dict, tokens, cfg: ModelConfig):
     """One decode step.  tokens: (B, 1) int.  Returns (logits
     (B, vocab_padded) fp32, new_state).
 
-    The KV caches of ``state`` (see ``layers.attention_decode``) and, for
-    the hybrid family, its conv and SSD states are updated IN PLACE and
-    shared by the returned state; only ``len`` is a new tensor.  (The JAX
+    The KV caches of ``state`` (see ``layers.attention_decode``), for the
+    hybrid family its conv and SSD states, and for the ssm family its mLSTM
+    and sLSTM states are updated IN PLACE and shared by the returned state;
+    only ``len`` is a new tensor.  (The JAX
     package returns new arrays, and its new conv state has the model's
     dtype; here the fp32 buffer keeps the same values.)  A caller that needs
     the old state copies it first."""
@@ -410,6 +541,8 @@ def decode_step(params, state: dict, tokens, cfg: ModelConfig):
     cache_len = state["len"]
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, state, x, cfg)
+    elif cfg.family == "ssm":
+        x = _ssm_decode(params, state, x, cfg)
     else:
         kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
         for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
@@ -425,8 +558,9 @@ def decode_step(params, state: dict, tokens, cfg: ModelConfig):
 
 def prefill(params, inputs: dict, cfg: ModelConfig, max_len: int):
     """Run the full prompt, returning (last_logits, decode state): the K/V
-    of the trunk written into a ``max_len`` cache and, for the hybrid
-    family, the conv and SSD states of each Mamba2 layer."""
+    of the trunk written into a ``max_len`` cache; for the hybrid family
+    also the conv and SSD states of each Mamba2 layer; for the ssm family
+    the mLSTM and sLSTM states of each block (no cache)."""
     tokens = inputs["tokens"]
     B, S = tokens.shape
     if S > max_len:
@@ -434,7 +568,15 @@ def prefill(params, inputs: dict, cfg: ModelConfig, max_len: int):
     hidden, states = forward(params, inputs, cfg, collect=True)
     state = init_decode_state(cfg, B, max_len, device=tokens.device)
     kvs = states
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        per = ssm_layout(cfg)[1]
+        for i, st in enumerate(states["mlstm"]):
+            state["mlstm"][i // per, i % per].copy_(st)
+        for g, st in enumerate(states["slstm"]):
+            for buf, new in zip(state["slstm"], st):
+                buf[g].copy_(new)
+        kvs = []
+    elif cfg.family == "hybrid":
         for i, (conv, ssd) in enumerate(states["mamba"]):
             state["conv"][i].copy_(conv)
             state["ssd"][i].copy_(ssd)

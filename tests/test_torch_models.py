@@ -213,7 +213,7 @@ def test_decode_consistency_with_forward():
     assert torch.equal(dec.argmax(-1), full.argmax(-1))
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b"])
+@pytest.mark.parametrize("arch", ["internvl2-76b", "musicgen-medium"])
 def test_unported_families_raise(arch):
     cfg = t_reduced(t_get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -120,7 +120,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm"} <= set(names)
+assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
+        "repro_torch.models.xlstm"} <= set(names)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
