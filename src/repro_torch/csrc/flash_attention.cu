@@ -30,9 +30,14 @@
 //  * P is rounded to bf16 for the P·V product (the TPU kernel kept it in
 //    fp32); the card tolerance in kernels/common.py states what that costs.
 //  * causal q tiles are scheduled heaviest first;
-//  * head dims 128 (qwen2-7b) and 64 (zamba2-1.2b's shared attention block):
-//    the tiles stay 64 x 64 and the loops over D shorten; at 64 the block
-//    needs 27 KB of shared memory instead of 54 KB;
+//  * head dims 128 (qwen2-7b, starcoder2-15b, llama3-405b), 64 (zamba2-1.2b's
+//    shared attention block, granite-moe-3b-a800m) and 192 (nemotron-4-340b):
+//    the tiles stay 64 x 64 and the loops over D change length; the block
+//    needs 27, 54 and 77 KB of shared memory.  At 64 and 128 each warp keeps
+//    its Q fragments in registers for the whole K loop; at 192 the output
+//    accumulators alone are 96 registers a thread, so the Q fragments (48
+//    more) are read again from sQ, which stays resident anyway, at each K
+//    tile;
 //  * for training, the row log-sum-exp of the scaled scores is written to
 //    lse (B, Hq, S) fp32 when the caller passes a buffer (the backward in
 //    flash_attention_bwd.cu rebuilds P from it); it is m and l, which the
@@ -116,12 +121,15 @@ __global__ void __launch_bounds__(NTHREADS)
   repro::cp_async_wait_all();
   __syncthreads();
 
-  uint32_t qf[D / 16][4];
+  // Q fragments: in registers for the whole K loop where D <= 128, else
+  // read from sQ at each use
+  constexpr bool Q_IN_REGS = D <= 128;
+  uint32_t qf[Q_IN_REGS ? D / 16 : 1][4];
+  const bf16* q_frag = sQ + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int row = warp * 16 + (lane % 16);
-    const int col = kk * 16 + (lane / 16) * 8;
-    repro::ldmatrix_x4(qf[kk], repro::smem_u32(sQ + row * LD + col));
+    for (int kk = 0; kk < D / 16; ++kk)
+      repro::ldmatrix_x4(qf[kk], repro::smem_u32(q_frag + kk * 16));
   }
 
   float acc[D / 8][4];
@@ -145,14 +153,17 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t(&a)[4] = qf[Q_IN_REGS ? kk : 0];
+      if constexpr (!Q_IN_REGS)
+        repro::ldmatrix_x4(a, repro::smem_u32(q_frag + kk * 16));
 #pragma unroll
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t bfr[4];
         const int row = np * 16 + mr + 8 * (mi >> 1);
         const int col = kk * 16 + 8 * (mi & 1);
         repro::ldmatrix_x4(bfr, repro::smem_u32(sK + row * LD + col));
-        repro::mma_bf16_16816(s[2 * np], qf[kk], bfr[0], bfr[1]);
-        repro::mma_bf16_16816(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
+        repro::mma_bf16_16816(s[2 * np], a, bfr[0], bfr[1]);
+        repro::mma_bf16_16816(s[2 * np + 1], a, bfr[2], bfr[3]);
       }
     }
 
@@ -297,13 +308,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   cudaError_t err;
-  if (D == 128)        // qwen2-7b
+  if (D == 128)        // qwen2-7b, starcoder2-15b, llama3-405b
     err = launch<128>(q, k, v, o, B, Hq, Hq / Hkv, S, st, scale_log2, causal,
                       window, lse_f, s);
-  else if (D == 64)    // zamba2-1.2b's shared attention block
+  else if (D == 64)    // zamba2-1.2b's shared block, granite-moe-3b-a800m
     err = launch<64>(q, k, v, o, B, Hq, Hq / Hkv, S, st, scale_log2, causal,
                      window, lse_f, s);
+  else if (D == 192)   // nemotron-4-340b
+    err = launch<192>(q, k, v, o, B, Hq, Hq / Hkv, S, st, scale_log2, causal,
+                      window, lse_f, s);
   else
-    return -1;         // the head dims of the ported models only
+    return -1;         // the head dims of the repo's models only
   return static_cast<int>(err);
 }

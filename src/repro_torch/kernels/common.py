@@ -198,8 +198,10 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # p differs by up to 2^-8 relative; the output (an average of V rows,
     # |v| < 5 for unit normals) then rounds once more.
     "flash_attention/card_bf16": (2e-2, 2.0 ** -7),
-    # Decode keeps p in fp32 (as the TPU kernel does): only the fp32 sum
-    # order and the output's one bf16 rounding remain.
+    # Decode keeps q·scale to fp32's 24 bits and p to 16 (each split in
+    # bf16 parts for the tensor cores; the TPU kernel keeps both in fp32):
+    # the fp32 sum order, p's 2^-17 and the output's one bf16 rounding
+    # remain.
     "decode_attention/card_bf16": (1e-2, 2.0 ** -7),
     # CE forward: the products of bf16 values are exact in fp32 on both
     # sides (mma.sync bf16 -> fp32 here, an fp32 product with TF32 off in

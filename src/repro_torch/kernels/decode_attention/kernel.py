@@ -13,8 +13,7 @@ import torch
 
 from ..common import check_status, count_launch, library, stream_ptr
 
-HEAD_DIMS = (64, 128)
-MAX_GROUP = 8
+HEAD_DIMS = (64, 128, 192)
 
 
 def decode_launch_args(q, k, v, lengths, *, scale: float | None,
@@ -29,9 +28,9 @@ def decode_launch_args(q, k, v, lengths, *, scale: float | None,
     if (Bk, Dk) != (B, D):
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if Hkv == 0 or Hq % Hkv or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode kernel needs Hq % Hkv == 0 and at most "
-                         f"{MAX_GROUP} q heads per kv head; got {Hq}, {Hkv}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"decode kernel needs Hq % Hkv == 0; got {Hq}, "
+                         f"{Hkv}")
     if D not in HEAD_DIMS:
         raise ValueError(f"decode kernel takes head dims {HEAD_DIMS}, not {D}")
     if B == 0 or S == 0:

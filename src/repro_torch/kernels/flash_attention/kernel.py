@@ -17,7 +17,7 @@ import torch
 
 from ..common import check_status, count_launch, library, stream_ptr
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 192)
 # The backward is built for qwen2-7b's head dim only: hybrid training, which
 # needs 64, is queued in ROADMAP.md.
 BWD_HEAD_DIMS = (128,)

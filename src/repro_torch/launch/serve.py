@@ -1,14 +1,17 @@
 """Serving entry point: continuous-batched generation (the counterpart of
 ``repro.launch.serve``).
 
-    python -m repro_torch.launch.serve --arch qwen2-7b            # reduced
     python -m repro_torch.launch.serve --arch qwen2-7b --full     # full width
+    python -m repro_torch.launch.serve --arch starcoder2-15b --full  # G 12
     python -m repro_torch.launch.serve --arch zamba2-1.2b --full  # hybrid
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full  # moe
     python -m repro_torch.launch.serve --arch xlstm-1.3b --full    # ssm
+    python -m repro_torch.launch.serve --arch qwen2-7b --device cpu  # reduced
 
 Runs on the CUDA device unless ``device="cpu"`` (``--device cpu``) is given;
-with no device and no CUDA it raises.
+with no device and no CUDA it raises.  The reduced configs (fp32, head dim
+32) are for the CPU: on a CUDA device ``serve_demo`` raises for them before
+it allocates a parameter (``check_card_config``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..models.config import ModelConfig
 from ..models.model import init_params, prefill
 from ..serve.batcher import Batcher, Request
 from ..serve.step import make_decode_step
+from . import check_card_config
 
 
 @torch.inference_mode()
@@ -88,6 +92,7 @@ def serve_demo(arch: str, *, n_requests: int = 8, n_lanes: int = 4,
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduce_cfg(cfg)
+    check_card_config(cfg, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = init_params(cfg, gen, device=device)

@@ -1,13 +1,15 @@
 """Training entry point (the counterpart of ``repro.launch.train``), on one
 device.
 
-    python -m repro_torch.launch.train --arch qwen2-7b --steps 200   # reduced
+    python -m repro_torch.launch.train --arch qwen2-7b --full --layers 4
     python -m repro_torch.launch.train --arch qwen2-7b --device cpu --steps 4
 
 Runs on the CUDA device unless ``device="cpu"`` (``--device cpu``) is given;
 with no device and no CUDA it raises.  On the card the kernels take bf16
 and a head dim of 128, which the reduced config (fp32, head dim 32) does
-not have: there, give ``--full --layers N`` (or ``overrides=``).  A mesh
+not have: there, give ``--full --layers N`` (or ``overrides=``);
+``build_trainer`` raises before it allocates a parameter otherwise
+(``check_card_config``).  A mesh
 (tensor, FSDP or pod sharding) comes with the distributed slice of the port.
 """
 
@@ -28,6 +30,7 @@ from ..models.model import init_params
 from ..optim import cosine_schedule, pick_optimizer
 from ..train.loop import LoopConfig, TrainLoop
 from ..train.step import make_train_step
+from . import check_card_config
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
 
@@ -52,6 +55,7 @@ def build_trainer(arch: str, *, use_reduced: bool = True, seq_len: int = 128,
         cfg = reduce_cfg(cfg)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    check_card_config(cfg, device, training=True)
 
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len,
                           global_batch=global_batch,

@@ -110,6 +110,8 @@ FLASH_CASES = [
     (1, 14, 2, 200, 64, True, 0),       # S not a multiple of the block
     (1, 14, 2, 200, 64, True, 64),      # windowed
     (2, 4, 2, 150, 32, False, 0),       # not causal
+    (1, 24, 2, 150, 192, True, 0),      # nemotron's head dim 192, group 12
+    (1, 24, 2, 150, 192, True, 64),     # windowed, head dim 192
 ]
 
 
@@ -143,6 +145,25 @@ def test_flash_launch_args_read_model_layout_through_strides():
     assert args[-3:] == (pytest.approx(D ** -0.5), 1, 0)
 
 
+def test_flash_launch_args_take_head_dim_192():
+    """nemotron-4-340b's prefill: 96 q heads over 8 kv heads of 192, read
+    through the model's (B, S, H, D) layout; 96 and 256 stay refused."""
+    B, S, Hq, Hkv, D = 2, 77, 96, 8, 192
+    q = torch.zeros(B, S, Hq, D, dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.zeros(B, S, Hkv, D, dtype=torch.bfloat16).transpose(1, 2)
+    out = torch.empty_like(q)
+    args = flash_launch_args(q, k, k, out, causal=True, window=0, scale=None)
+    assert args[:5] == (B, Hq, Hkv, S, D)
+    assert args[5:8] == (S * Hq * D, D, Hq * D)
+    assert args[-3:] == (pytest.approx(D ** -0.5), 1, 0)
+    for d in (96, 256):
+        qd = torch.zeros(B, Hq, S, d, dtype=torch.bfloat16)
+        kd = torch.zeros(B, Hkv, S, d, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_launch_args(qd, kd, kd, torch.empty_like(qd), causal=True,
+                              window=0, scale=None)
+
+
 @pytest.mark.parametrize("bad", ["fp32", "head_dim", "gqa", "cross",
                                  "stride", "window"])
 def test_flash_launch_args_refuse_what_the_kernel_does_not_take(bad):
@@ -172,9 +193,14 @@ def test_flash_launch_args_refuse_what_the_kernel_does_not_take(bad):
 # decode attention
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("Hq,Hkv,D", [
+    (14, 2, 64),        # group 7
+    (24, 2, 128),       # group 12 (starcoder2-15b)
+    (32, 2, 128),       # group 16 (llama3-405b)
+    (24, 2, 192)])      # group 12 at head dim 192 (nemotron-4-340b)
 @pytest.mark.parametrize("lens", [[1, 300, 137], [300, 129, 2]])
-def test_decode_attention_matches_jax(lens):
-    B, Hq, Hkv, S, D = 3, 14, 2, 300, 64
+def test_decode_attention_matches_jax(lens, Hq, Hkv, D):
+    B, S = 3, 300
     q, k, v = _np(B, Hq, D), _np(B, S, Hkv, D), _np(B, S, Hkv, D)
     lengths = np.asarray(lens, np.int32)
     got, m, l = decode_attention(torch.from_numpy(q), torch.from_numpy(k),
@@ -209,8 +235,25 @@ def test_decode_launch_args_and_refusals():
     assert args[8:11] == (S * Hkv * D, Hkv * D, D)
     with pytest.raises(ValueError):                     # int64 lengths
         decode_launch_args(q, kv, kv, lengths.long(), scale=None, chunk=128)
-    with pytest.raises(ValueError):                     # group of 14 > 8
-        decode_launch_args(q, kv[:, :, :2], kv[:, :, :2], lengths,
+    # any group: 14 over 2 and 16 over 1 (llama3-405b's group)
+    for q_, kv_ in ((q[:, :14], kv[:, :, :1]), (q[:, :16], kv[:, :, :1]),
+                    (q, kv[:, :, :2])):
+        G = q_.shape[1] // kv_.shape[2]
+        got = decode_launch_args(q_, kv_, kv_, lengths, scale=None,
+                                 chunk=128)
+        assert got[1] // got[2] == G
+    # head dim 192 (nemotron-4-340b: 96 q heads over 8 kv heads)
+    q192 = torch.zeros(B, 1, 96, 192, dtype=torch.bfloat16)[:, 0]
+    kv192 = torch.zeros(B, S, 8, 192, dtype=torch.bfloat16)
+    args = decode_launch_args(q192, kv192, kv192, lengths, scale=None,
+                              chunk=128)
+    assert args[:6] == (B, 96, 8, S, 192, 16)
+    assert args[-1] == pytest.approx(192 ** -0.5)
+    with pytest.raises(ValueError):                     # head dim 96
+        decode_launch_args(q[..., :96], kv[..., :96], kv[..., :96], lengths,
+                           scale=None, chunk=128)
+    with pytest.raises(ValueError):                     # 28 over 3 heads
+        decode_launch_args(q, kv[:, :, :3], kv[:, :, :3], lengths,
                            scale=None, chunk=128)
     with pytest.raises(TypeError):
         decode_launch_args(q.float(), kv.float(), kv.float(), lengths,

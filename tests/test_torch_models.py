@@ -37,9 +37,9 @@ from repro_torch.serve.step import make_decode_step
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _cfgs(**over):
-    jcfg = dataclasses.replace(reduced(get_config("qwen2-7b")), **over)
-    tcfg = dataclasses.replace(t_reduced(t_get_config("qwen2-7b")), **over)
+def _cfgs(arch="qwen2-7b", **over):
+    jcfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    tcfg = dataclasses.replace(t_reduced(t_get_config(arch)), **over)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     return jcfg, tcfg
 
@@ -51,7 +51,7 @@ def _params(jcfg, seed=0):
     tree = jax.tree.map(np.asarray,
                         jax_init_params(jcfg, jax.random.PRNGKey(seed)))
     lay = tree["layers"]
-    for name in ("bq", "bk", "bv"):
+    for name in ("bq", "bk", "bv") if jcfg.qkv_bias else ():
         lay["attn"][name] = rng.normal(
             size=lay["attn"][name].shape).astype(np.float32) * 0.1
     for norm in ("attn_norm", "mlp_norm"):
@@ -142,9 +142,8 @@ def test_attention_decode_matches_jax_including_dropped_write(setup):
     assert not np.allclose(tk[0, 5].numpy(), kc[0, 5])    # lane 0 written
 
 
-def test_forward_prefill_decode_match_jax(setup):
-    jcfg, tcfg, jp, tp = setup
-    rng = np.random.default_rng(4)
+def _forward_prefill_decode_match(jcfg, tcfg, jp, tp, seed):
+    rng = np.random.default_rng(seed)
     B, S, max_len = 2, 13, 20
     toks = rng.integers(0, jcfg.vocab, (B, S + 2)).astype(np.int32)
 
@@ -175,6 +174,37 @@ def test_forward_prefill_decode_match_jax(setup):
         for name in ("k", "v"):
             np.testing.assert_allclose(ts["kv"][name].numpy(),
                                        np.asarray(js["kv"][name]), **TOL)
+
+
+def test_forward_prefill_decode_match_jax(setup):
+    jcfg, tcfg, jp, tp = setup
+    _forward_prefill_decode_match(jcfg, tcfg, jp, tp, seed=4)
+
+
+# The reduced configs of the dense archs whose attention shapes the kernels
+# took last, narrowed but keeping the heads that matter: starcoder2-15b's
+# group of 12 (with its gelu MLP and q/k/v biases), llama3-405b's group of
+# 16, nemotron-4-340b's head dim 192 (with its squared-ReLU MLP).
+NEW_SHAPES = {
+    "starcoder2-15b": (dict(d_model=384, n_heads=12, n_kv_heads=1),
+                       12, 32, "gelu"),
+    "llama3-405b": (dict(d_model=256, n_heads=16, n_kv_heads=1),
+                    16, 16, "swiglu"),
+    "nemotron-4-340b": (dict(d_model=384, n_heads=2, n_kv_heads=1),
+                        2, 192, "relu2"),
+}
+
+
+@pytest.mark.parametrize("arch", list(NEW_SHAPES))
+def test_new_attention_shapes_forward_prefill_decode_match_jax(arch):
+    over, group, d_head, act = NEW_SHAPES[arch]
+    jcfg, tcfg = _cfgs(arch, **over)
+    assert (tcfg.n_heads // tcfg.n_kv_heads, tcfg.d_head, tcfg.act) == \
+        (group, d_head, act)
+    assert tcfg.qkv_bias == (arch == "starcoder2-15b")
+    jp, npt = _params(jcfg, seed=8)
+    tp = params_from_numpy(npt, tcfg, device="cpu")
+    _forward_prefill_decode_match(jcfg, tcfg, jp, tp, seed=9)
 
 
 def test_decode_step_masks_padded_vocab_like_jax():

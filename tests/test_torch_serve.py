@@ -8,6 +8,9 @@ port's isolation from JAX.
 * ``serve_demo(device="cpu")`` serves the same request, step and token
   counts as ``repro.launch.serve.serve_demo``.
 * ``serve_demo()`` with no CUDA device raises.
+* ``check_card_config`` refuses, before any parameter is allocated, a config
+  that the CUDA kernels do not take (the reduced fp32, head-dim-32 ones) on
+  a CUDA device, and takes every published config the port serves.
 * Importing every ``repro_torch`` module pulls in neither jax nor repro.
 """
 
@@ -30,8 +33,12 @@ from repro.models import prefill as jax_prefill
 from repro.serve.batcher import Batcher as JaxBatcher
 from repro.serve.batcher import Request as JaxRequest
 from repro.serve.step import make_decode_step as jax_make_decode_step
+from repro_torch.configs import ARCH_NAMES
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
+from repro_torch.launch import check_card_config
+from repro_torch.launch import serve as t_serve
+from repro_torch.launch import train as t_train
 from repro_torch.launch.serve import serve_demo, serve_requests
 from repro_torch.models import params_from_numpy
 from repro_torch.serve.batcher import Request
@@ -110,6 +117,50 @@ def test_serve_demo_without_cuda_raises():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_demo("qwen2-7b")
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_card_config_check_refuses_reduced_configs(arch):
+    cfg = t_reduced(t_get_config(arch))
+    for training in (False, True):
+        with pytest.raises(ValueError, match="--full") as err:
+            check_card_config(cfg, "cuda", training=training)
+        assert "dtype float32" in str(err.value)
+        assert f"head dim {cfg.d_head}" in str(err.value)
+    check_card_config(cfg, "cpu")                 # the CPU takes any config
+    check_card_config(cfg, torch.device("cpu"), training=True)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if t_get_config(a)
+                                  .family in ("dense", "moe", "hybrid",
+                                              "ssm")])
+def test_card_config_check_takes_published_configs(arch):
+    cfg = t_get_config(arch)
+    check_card_config(cfg, "cuda")
+    check_card_config(cfg, torch.device("cuda", 0))
+    # training reaches the flash backward, built at head dim 128 only
+    if cfg.uses_attention and cfg.d_head != 128:
+        with pytest.raises(ValueError, match="--layers N"):
+            check_card_config(cfg, "cuda", training=True)
+    else:
+        check_card_config(cfg, "cuda", training=True)
+
+
+def test_entry_points_check_the_config_before_allocating(monkeypatch):
+    """On a CUDA device, serve_demo and build_trainer raise for the reduced
+    config before ``init_params`` allocates anything (the device is faked:
+    the check needs no card)."""
+    def no_alloc(*args, **kwargs):
+        raise AssertionError("init_params ran before the check")
+
+    for mod in (t_serve, t_train):
+        monkeypatch.setattr(mod, "resolve_device",
+                            lambda device=None: torch.device("cuda"))
+        monkeypatch.setattr(mod, "init_params", no_alloc)
+    with pytest.raises(ValueError, match="float32 and head dim 32"):
+        t_serve.serve_demo("qwen2-7b")
+    with pytest.raises(ValueError, match="float32 and head dim 32"):
+        t_train.build_trainer("qwen2-7b")
 
 
 def test_port_imports_neither_jax_nor_repro():
