@@ -308,7 +308,11 @@ def kernel_phase(torch, timer, report):
             (2, 96, 8, 1024, 192, True, 256),     # windowed, D 192
             (1, 24, 2, 77, 192, True, 0),         # below one tile, D 192
             (1, 24, 2, 77, 192, True, 16),        # windowed, below one tile
-            (1, 12, 1, 300, 192, False, 0)):      # not causal, D 192
+            (1, 12, 1, 300, 192, False, 0),       # not causal, D 192
+            (2, 96, 8, 1000, 192, True, 256),     # ragged S, windowed, D 192
+            (1, 32, 32, 129, 64, True, 0),        # one row past a q tile
+            (1, 28, 4, 129, 128, True, 0),
+            (1, 96, 8, 129, 192, True, 0)):
         q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
         case = (f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} "
                 f"{'causal' if causal else 'full'} w{window}")
@@ -647,8 +651,13 @@ GMM_SHAPES = {"prefill gate/up": (2048, GMM_D, GMM_F),
 def moe_gmm_rows(torch, timer, randn, check, report):
     """The grouped matmul against the plain loop over the experts' rows: at
     the serve path's four shapes (equal groups), and at ragged ones (empty
-    experts, sizes that are not tile multiples, rows past the last group);
-    a planted fault; times, bound and torch.bmm at each path shape."""
+    experts, group starts off every tile boundary, a one-row expert, rows
+    past the last group, K and N tails, one expert of 300 rows where the
+    decode design is picked), each through the public call and through
+    both designs; a planted fault; times, bound and torch.bmm at each path
+    shape."""
+    from repro_torch.kernels.moe_gmm.kernel import (DESIGNS, gmm_design,
+                                                    moe_gmm_cuda)
     from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 
@@ -661,6 +670,9 @@ def moe_gmm_rows(torch, timer, randn, check, report):
     cases = [(f"{name}: T {GMM_E * c} = {GMM_E} x {c}, D {d}, F {f}",
               GMM_E * c, d, f, [c] * GMM_E)
              for name, (c, d, f) in GMM_SHAPES.items()]
+    # group starts 0, 13, 83, 86, 287, 288, 385 (none a multiple of 64 past
+    # 0) with a one-row expert, T 516 (not a multiple of 128)
+    ragged7 = [13, 70, 3, 201, 1, 97, 131]
     cases += [
         ("ragged: 130 rows over 5 experts", 130, GMM_D, GMM_F,
          [31, 0, 47, 1, 51]),
@@ -669,16 +681,29 @@ def moe_gmm_rows(torch, timer, randn, check, report):
          [0, 100, 0, 28]),
         ("48 experts, 1000 rows drawn", 1000, GMM_D, GMM_F,
          np.random.default_rng(0).multinomial(1000, [1 / GMM_E] * GMM_E)
-         .tolist())]
+         .tolist()),
+        ("ragged starts, a one-row expert, T 516", 516, GMM_D, GMM_F,
+         ragged7),
+        ("D 72: a K tail past the last 64-deep slice", 516, 72, GMM_F,
+         ragged7),
+        ("F 200: an N tail", 516, GMM_D, 200, ragged7),
+        ("T 700 over 48 (decode pick), one expert of 300 rows", 700, GMM_D,
+         GMM_F, [300] + [8] * 40 + [80] + [0] * 6)]
     for case, T, d, f, sizes in cases:
         x, w = randn(T, d), (randn(len(sizes), d, f) * d ** -0.5).to(
             torch.bfloat16)
         g = sizes_of(sizes)
-        got = moe_gmm(x, w, g)
-        errs.append(check("moe_gmm", case, got, moe_gmm_ref(x, w, g)))
-        if sum(sizes) < T and got[sum(sizes):].any():
-            fail(f"moe_gmm {case}: rows past the groups are not zero")
-        del x, w, got
+        want = moe_gmm_ref(x, w, g)
+        # the public call (the design gmm_design picks), then each design
+        picked = gmm_design(T, len(sizes))
+        for design in (None, *DESIGNS):
+            got = (moe_gmm(x, w, g) if design is None else
+                   moe_gmm_cuda(x, w, g, design=design))
+            label = f"{case} [{design or 'picked: ' + picked}]"
+            errs.append(check("moe_gmm", label, got, want))
+            if sum(sizes) < T and got[sum(sizes):].any():
+                fail(f"moe_gmm {label}: rows past the groups are not zero")
+        del x, w, got, want
     moe_gmm_planted_fault(torch, randn, report)
 
     shapes = {}
@@ -1664,7 +1689,8 @@ def _kernel_table(prof, n_calls: int):
 OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "decode_merge_kernel", "_rms_bwd_rows", "_dw_sum", "delta_kernel",
         "dkdv_kernel", "dq_kernel", "ce_split_kernel", "ce_merge_kernel",
-        "ssd_scan_kernel", "ssd_scan_wide_kernel", "moe_gmm_kernel")
+        "ssd_scan_kernel", "ssd_scan_wide_kernel", "moe_gmm_kernel",
+        "moe_gmm_decode_kernel")
 
 
 # kernel families by name, for the breakdown of a profile

@@ -1,101 +1,226 @@
 // Flash attention forward (causal / windowed GQA self-attention) for Hopper.
 //
-// Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
-// (body _fa_kernel), the TPU kernel of the dense model's prefill.
+// Replaces: src/repro/kernels/flash_attention/kernel.py:103
+// flash_attention_pallas (body _fa_kernel), the TPU kernel of the dense
+// model's prefill.
 //
-// What bounds it on the H100: operations.  At the prefill shape (B=8, Hq=28,
-// S=1024, D=128, causal) the two products are ~60 GFLOP of bf16 tensor-core
-// work against ~134 MB of q/k/v/o traffic: 61 us at 989 TFLOP/s against
-// 40 us at 3.35 TB/s.
+// What bounds it on the H100: operations.  At qwen2-7b's prefill shape
+// (B 8, Hq 28 over Hkv 4, S 1024, D 128, causal) the two products are ~60
+// GFLOP of bf16 tensor-core work against ~134 MB of q/k/v/o traffic: 61 us
+// at 989 TFLOP/s against 40 us at 3.35 TB/s.  The mma.sync design (4 warps,
+// 64 x 64 tiles, cp.async) reached 1.9-2.5x SDPA: that instruction is at
+// most half the card's tensor-core rate.
+//
+// The function:
+//  * causal or full, with an optional window (key > row - window); Sq == Sk;
+//  * GQA: the kv head of q head h is h / (Hq / Hkv); K/V are not repeated;
+//  * q, k, v and o are read through their (batch, head, seq) strides, so
+//    the (B, S, H, D) activations of the model are used without a copy;
+//  * the online softmax in fp32, log2 domain (exp2), with the scale applied
+//    to the fp32 scores; P is rounded to bf16 for the P·V product (the TPU
+//    kernel kept it in fp32; the card tolerance in kernels/common.py states
+//    what that costs);
+//  * for training, the row log-sum-exp of the scaled scores goes to lse
+//    (B, Hq, S) fp32 when the caller passes a buffer (the backward in
+//    flash_attention_bwd.cu rebuilds P from it); serving passes none;
+//  * head dims 64 (zamba2-1.2b's shared block, granite-moe-3b-a800m), 128
+//    (qwen2-7b, starcoder2-15b, llama3-405b) and 192 (nemotron-4-340b).
 //
 // Design:
-//  * one block of 4 warps per (q tile of 64 rows, q head, batch); each warp
-//    owns 16 query rows.  Blocks run in parallel with nothing carried between
-//    them: the TPU's sequential K grid axis becomes the loop inside the block;
-//  * Q·K^T and P·V run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-//    accumulators); operands come from shared memory through ldmatrix, whose
-//    rows are padded by 16 bytes so the 8 rows of each 8x8 matrix fall in
-//    distinct banks;
-//  * the online softmax (m, l, acc) stays in registers, in fp32, with the
-//    scale applied to the fp32 scores (log2 domain, exp2);
-//  * K and V tiles of 64 keys are copied with cp.async: the V tile is in
-//    flight while Q·K^T runs and the next K tile while P·V runs;
-//  * K tiles entirely above the causal diagonal or before the window are
-//    never visited; masks are evaluated only on tiles that straddle an edge;
-//  * loads past S are zero-filled and never read from memory; rows past S
-//    are never stored;
-//  * GQA: the kv head of q head h is h / (Hq / Hkv); K/V are not repeated;
-//  * q, k, v and o are read through (batch, head, seq) strides, so the
-//    (B, S, H, D) activations of the model are used without a transpose;
-//  * P is rounded to bf16 for the P·V product (the TPU kernel kept it in
-//    fp32); the card tolerance in kernels/common.py states what that costs.
-//  * causal q tiles are scheduled heaviest first;
-//  * head dims 128 (qwen2-7b, starcoder2-15b, llama3-405b), 64 (zamba2-1.2b's
-//    shared attention block, granite-moe-3b-a800m) and 192 (nemotron-4-340b):
-//    the tiles stay 64 x 64 and the loops over D change length; the block
-//    needs 27, 54 and 77 KB of shared memory.  At 64 and 128 each warp keeps
-//    its Q fragments in registers for the whole K loop; at 192 the output
-//    accumulators alone are 96 registers a thread, so the Q fragments (48
-//    more) are read again from sQ, which stays resident anyway, at each K
-//    tile;
-//  * for training, the row log-sum-exp of the scaled scores is written to
-//    lse (B, Hq, S) fp32 when the caller passes a buffer (the backward in
-//    flash_attention_bwd.cu rebuilds P from it); it is m and l, which the
-//    block holds at the end anyway.  Serving passes none.
-// Later work: wgmma + TMA with a warp-specialised producer, and sharing each
-// K/V tile across the q heads of a group.
+//  * one block of two warpgroups per (q tile of 128 rows, q head, batch),
+//    heaviest causal tiles first; the TPU's sequential K grid axis becomes
+//    the loop inside the block.  Warpgroup w owns q rows 64w .. 64w + 63;
+//  * Q comes once and K and V tiles of 128 keys (64 at D 192) by TMA into
+//    a ring of 3 stages (4 at D 64), through 4-D tensor maps over
+//    (D, H, S, B) with the tensors' strides (the outer three ordered by
+//    stride for the map); K and V complete and are released on barriers of
+//    their own.  Rows past S are zero-filled by TMA;
+//  * no producer warp: beside two warpgroups it would leave every thread
+//    168 registers (ptxas gives all paths the launch bound's budget, and
+//    setmaxnreg does not change that), and the loop below needs up to ~214
+//    at D 128.  One consumer thread issues the loads instead, at a point
+//    of the loop where the stages it fills are already free (see the
+//    kernel); its code is predicated, not branched on;
+//  * S = Q·K^T runs as wgmma with Q as the register A operand (read once
+//    from the swizzled tile by ldmatrix) and K from shared memory, K-major;
+//    P goes to bf16 in registers and feeds O += P·V as the register A
+//    operand (the fp32 accumulator layout of m64nNk16 regroups into the
+//    bf16 A fragment without shared memory); V is the MN-major B operand;
+//  * within a warpgroup, tile j's Q·K^T is issued together with tile j-1's
+//    P·V, and tile j's softmax runs while that P·V is on the tensor cores;
+//    O is rescaled while Q·K^T runs;
+//  * the two warpgroups take turns to issue (named barriers), so that one's
+//    softmax runs while the other's products hold the tensor cores;
+//  * the softmax takes its row maxima and sums in four independent chains
+//    a row, both rows at once: with one warp a scheduler doing it, latency
+//    and not issue bounds it; masks are built only on tiles that straddle
+//    an edge, from two bounds a row;
+//  * no wgmma sits inside a branch: ptxas serialises wgmma around a
+//    divergent path (warning C7520), so the first and last tiles are peeled
+//    out of the loop;
+//  * shared memory: Q and the ring: 144, 224 and 192 KB at D 64, 128, 192.
+// Tried and dropped: a persistent grid with the loads walking several
+// items (the cursors' arithmetic spilled, and it ran slower), and the
+// boxes' issue spread over four warps (no faster than one thread).
+// Later work: sharing each K/V tile across the q heads of a group, and
+// Q·K^T tiles wider than 64 keys at D 192.
 #include "common.cuh"
+#include "hopper.cuh"
 
+#include <limits.h>
 #include <math.h>
+#include <algorithm>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using ll = long long;
+namespace hp = repro::hopper;
 
-constexpr int BQ = 64;        // query rows per block (16 per warp)
-constexpr int BK = 64;        // keys per tile
-constexpr int NTHREADS = 128;
+constexpr int BQ = 128;                      // query rows a block
+constexpr int NTHREADS = 256;                // 2 warpgroups
 
 template <int D>
-struct Tile {
-  static constexpr int LD = D + 8;            // padded row pitch (elements)
-  static constexpr int ELEMS = 64 * LD;
-  static constexpr int SMEM_BYTES = 3 * ELEMS * (int)sizeof(bf16);
+struct Cfg {
+  static constexpr int BK = D == 192 ? 64 : 128;   // keys a tile
+  static constexpr int NB = D / 64;                // 64-wide boxes across D
+  static constexpr int STAGES = D == 64 ? 4 : 3;   // K/V tiles in the ring
+  // where the loads of the next tiles are issued (see the kernel)
+  static constexpr bool EARLY_LOADS = D != 64;
+  static constexpr int Q_BOX = BQ * 128;           // bytes of one Q box
+  static constexpr int KV_BOX = BK * 128;          // bytes of one K or V box
+  static constexpr int Q_BYTES = NB * Q_BOX;
+  static constexpr int KV_BYTES = NB * KV_BOX;
+  static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;
 };
 
-// Copy rows [row0, row0 + 64) of a (S, D) slice into shared memory; rows at
-// or past S are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, ll stride,
-                                          int row0, int S, int tid) {
-  constexpr int CPR = D / 8;                  // 16-byte chunks per row
-  constexpr int PER_THREAD = 64 * CPR / NTHREADS;
+// The map's coordinates of (d, h, s, b): `perm` holds the map dimension
+// (1..3) of h, s and b in bits 0-1, 2-3 and 4-5.
+__device__ __forceinline__ void load_box(bool p, void* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int perm, int d,
+                                         int h, int s, int b) {
+  const int ph = perm & 3, ps = (perm >> 2) & 3;
+  const int c1 = ph == 1 ? h : ps == 1 ? s : b;
+  const int c2 = ph == 2 ? h : ps == 2 ? s : b;
+  const int c3 = ph == 3 ? h : ps == 3 ? s : b;
+  hp::tma_load_4d_if(p, dst, map, bar, d, c1, c2, c3);
+}
+
+// 2^x on the special function unit (2 ulp); 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile of raw scores sc (keys k0 ..), for this
+// thread's rows qrow0 and qrow0 + 8 of its warpgroup's 64 (from qw0):
+// masks where the tile straddles an edge, the new row maxima m_r (scaled,
+// log2 domain), alpha for the accumulators, l_r, and p = exp2(score·scale -
+// max) in place of the scores.  The maxima and sums run in four
+// independent chains a row: with one warp a scheduler at a time, the
+// softmax is bound by latency, not by issue.
+// sc[4n + e]: row qrow0 + 8·(e >> 1), key k0 + 8n + 2·(lane % 4) + (e & 1).
+template <int BK>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[BK / 2], float (&m_r)[2], float (&l_r)[2], float (&alpha)[2],
+    int k0, int qw0, int qrow0, int t4, int S, int causal, int window,
+    float scale_log2) {
+  const bool need_mask = (k0 + BK > S) || (causal && k0 + BK - 1 > qw0) ||
+                         (window > 0 && k0 <= qw0 + 63 - window);
+  if (need_mask) {
+    // row r sees the keys k0 + 2·t4 + c with lo[r] <= c <= hi[r]
+    int lo[2], hi[2];
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int c = tid + i * NTHREADS;
-    const int r = c / CPR;
-    const int col = (c % CPR) * 8;
-    const int row = row0 + r;
-    const bf16* src = g + (ll)min(row, S - 1) * stride + col;
-    repro::cp_async_16(repro::smem_u32(s + r * Tile<D>::LD + col), src,
-                       row < S ? 16 : 0);
+    for (int r = 0; r < 2; ++r) {
+      const int qr = qrow0 + 8 * r;
+      hi[r] = (causal ? min(qr, S - 1) : S - 1) - k0 - 2 * t4;
+      lo[r] = window > 0 ? qr - window + 1 - k0 - 2 * t4 : INT_MIN;
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + (e & 1), r = e >> 1;
+        sc[4 * n + e] = c >= lo[r] && c <= hi[r] ? sc[4 * n + e] : -INFINITY;
+      }
+  }
+  // both rows at once, four chains each
+  float pm[2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pm[0][i] = pm[1][i] = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      pm[r][n % 4] = fmaxf(pm[r][n % 4],
+                           fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = fmaxf(fmaxf(pm[r][0], pm[r][1]), fmaxf(pm[r][2], pm[r][3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(m_r[r], mx * scale_log2);
+    // a row with no visible key yet keeps m = -inf; exp2 of -inf is 0
+    m_use[r] = mx == -INFINITY ? 0.f : mx;
+    alpha[r] = exp2_approx(m_r[r] - m_use[r]);
+    m_r[r] = mx;
+  }
+  float ps[2][4] = {};
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const float p = exp2_approx(fmaf(sc[4 * n + e], scale_log2, -m_use[r]));
+      sc[4 * n + e] = p;
+      ps[r][n % 4] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l_r[r] = l_r[r] * alpha[r] + ((ps[r][0] + ps[r][1]) + (ps[r][2] + ps[r][3]));
+}
+
+// P in bf16 as the A operand of P·V: key groups 2kk and 2kk + 1 form k16
+// step kk (registers: row g keys 0-1, row g+8 keys 0-1, row g keys 8-9,
+// row g+8 keys 8-9, each + 2·(lane % 4)).
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&pf)[BK / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      __nv_bfloat162 v =
+          __floats2bfloat162_rn(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]);
+      pf[n / 2][(n & 1) * 2 + r] = *reinterpret_cast<uint32_t*>(&v);
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     int group, int S, ll q_sb, ll q_sh, ll q_ss, ll k_sb,
-                     ll k_sh, ll k_ss, ll v_sb, ll v_sh, ll v_ss, ll o_sb,
-                     ll o_sh, ll o_ss, float scale_log2, int causal,
-                     int window, float* __restrict__ lse) {
-  constexpr int LD = Tile<D>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + Tile<D>::ELEMS;
-  bf16* sV = sK + Tile<D>::ELEMS;
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, int q_perm,
+                     int k_perm, int v_perm, bf16* __restrict__ o, ll o_sb,
+                     ll o_sh, ll o_ss, int group, int S, float scale_log2,
+                     int causal, int window, float* __restrict__ lse) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  constexpr int ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q;
+  __shared__ __align__(8) uint64_t full_k[ST], full_v[ST];
+  __shared__ __align__(8) uint64_t empty_k[ST], empty_v[ST];
+  const uint32_t raw = hp::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;       // swizzle atoms: 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+  // Q, then stage s's K at Q_BYTES + 2s·KV_BYTES and its V one KV_BYTES on
+  auto k_off = [](int s) { return C::Q_BYTES + 2 * s * C::KV_BYTES; };
+  auto v_off = [](int s) { return C::Q_BYTES + (2 * s + 1) * C::KV_BYTES; };
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int h = blockIdx.y;
@@ -103,197 +228,283 @@ __global__ void __launch_bounds__(NTHREADS)
   const int hk = h / group;
   const int q0 = qt * BQ;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  const bf16* qg = q + b * q_sb + h * q_sh;
-  const bf16* kg = k + b * k_sb + hk * k_sh;
-  const bf16* vg = v + b * v_sb + hk * v_sh;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4;                    // q rows 64·wg .. 64·wg + 63
+  const int w4 = warp % 4, gq = lane / 4, t4 = lane % 4;
+  const int qw0 = q0 + 64 * wg;
+  const int qrow0 = qw0 + 16 * w4 + gq;       // rows qrow0 and qrow0 + 8
+  const uint32_t q_s = base + wg * 64 * 128;
 
   // keys any row of this tile can see
   const int k_end = causal ? min(S, q0 + BQ) : S;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin = (k_begin / BK) * BK;
+  const int n_kv = (k_end - k_begin + BK - 1) / BK;
 
-  load_tile<D>(sQ, qg, q_ss, q0, S, tid);
-  load_tile<D>(sK, kg, k_ss, k_begin, S, tid);
-  repro::cp_async_commit();
-  repro::cp_async_wait_all();
-  __syncthreads();
-
-  // Q fragments: in registers for the whole K loop where D <= 128, else
-  // read from sQ at each use
-  constexpr bool Q_IN_REGS = D <= 128;
-  uint32_t qf[Q_IN_REGS ? D / 16 : 1][4];
-  const bf16* q_frag = sQ + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
-  if constexpr (Q_IN_REGS) {
+  // The TMA loads of tile t's K (V) into stage t % ST; the loader waits
+  // until both warpgroups have released the K (V) that stage held before:
+  // K once S of that tile is done, V once its P·V is.
+  auto load_k = [&](bool p, int t) {
+    const int s = t % ST;
+    hp::bar_wait_if(p && t >= ST, &empty_k[s], ((t / ST) & 1) ^ 1);
+    hp::bar_arrive_tx_if(p, &full_k[s], C::KV_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      repro::ldmatrix_x4(qf[kk], repro::smem_u32(q_frag + kk * 16));
+    for (int i = 0; i < C::NB; ++i)
+      load_box(p, smem + k_off(s) + i * C::KV_BOX, &k_map, &full_k[s],
+               k_perm, 64 * i, hk, k_begin + t * BK, b);
+  };
+  auto load_v = [&](bool p, int t) {
+    const int s = t % ST;
+    hp::bar_wait_if(p && t >= ST, &empty_v[s], ((t / ST) & 1) ^ 1);
+    hp::bar_arrive_tx_if(p, &full_v[s], C::KV_BYTES);
+#pragma unroll
+    for (int i = 0; i < C::NB; ++i)
+      load_box(p, smem + v_off(s) + i * C::KV_BOX, &v_map, &full_v[s],
+               v_perm, 64 * i, hk, k_begin + t * BK, b);
+  };
+  // Where the loads go.  At D 128 and 192 (EARLY_LOADS) the loader is the
+  // first thread of warpgroup 0.  At its turn for tile j, warpgroup 1 has
+  // issued its products of tile j - 1, so both warpgroups have released
+  // the K of tile j - 2 and the V of tile j - 3: right after issuing its
+  // own products, while it waits for them, the loader asks for the K of
+  // tile j - 2 + ST and the V of tile j - 3 + ST, about one tile ahead of
+  // their use, and never waits for a release.  Every thread runs the
+  // loads' code, predicated on being the loader: no branch between a wgmma
+  // and its wait.  At D 64, whose products are short and whose ring holds
+  // four tiles, the first thread of warpgroup 1 loads tile j - 1 + ST once
+  // it has released tile j - 1, with no product in flight: on the H100
+  // that is faster at D 64 than the early loads, and slower at D 128.
+  const bool loader = tid == (C::EARLY_LOADS ? 0 : 128);
+
+  if (tid == 0) {
+    hp::bar_init(&bar_q, 1);
+    for (int i = 0; i < ST; ++i) {
+      hp::bar_init(&full_k[i], 1);
+      hp::bar_init(&full_v[i], 1);
+      hp::bar_init(&empty_k[i], 256);                // every thread
+      hp::bar_init(&empty_v[i], 256);
+    }
+    hp::bar_init_fence();
+  }
+  __syncthreads();
+  if (loader) {
+    hp::bar_arrive_tx(&bar_q, C::Q_BYTES);
+#pragma unroll
+    for (int i = 0; i < C::NB; ++i)
+      load_box(true, smem + i * C::Q_BOX, &q_map, &bar_q, q_perm, 64 * i, h,
+               q0, b);
+    for (int t = 0; t < min(ST, n_kv); ++t) {
+      load_k(true, t);
+      load_v(true, t);
+    }
   }
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.f, 0.f};
-  const int gq = lane / 4;                    // row within the 8-row group
-  const int t4 = lane % 4;
-  const int qrow0 = q0 + warp * 16 + gq;      // rows qrow0 and qrow0 + 8
-  const int mi = lane / 8;                    // ldmatrix matrix index
-  const int mr = lane % 8;                    // ldmatrix row within it
+  {
+    float acc[D / 2] = {};
+    float m_r[2] = {-INFINITY, -INFINITY};
+    float l_r[2] = {0.f, 0.f};
+    float sc[BK / 2], alpha[2];
+    uint32_t pf[BK / 16][4];
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    load_tile<D>(sV, vg, v_ss, k0, S, tid);   // in flight during Q·K^T
-    repro::cp_async_commit();
-
-    float s[BK / 8][4];
+    // Q as wgmma's register A operand, read once from the swizzled tile
+    // (16-byte chunk c of row r sits at chunk c ^ (r % 8)): S then reads
+    // only K from shared memory, whose bandwidth the products share with
+    // the TMA writes
+    uint32_t qf[D / 16][4];
+    // S = Q·K^T of tile j into sc, one wgmma group
+    auto issue_s = [&](int j) {
+      const uint32_t k_s = base + k_off(j % ST);
 #pragma unroll
-    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        hp::Wgmma<BK>::template rs<0>(
+            sc, qf[kk], hp::desc_kmajor(k_s + (kk / 4) * C::KV_BOX, kk % 4),
+            kk > 0);
+      hp::wgmma_commit();
+    };
+    // O += P·V of tile j, P from pf, one wgmma group
+    auto issue_pv = [&](int j) {
+      const uint32_t v_s = base + v_off(j % ST);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t(&a)[4] = qf[Q_IN_REGS ? kk : 0];
-      if constexpr (!Q_IN_REGS)
-        repro::ldmatrix_x4(a, repro::smem_u32(q_frag + kk * 16));
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hp::Wgmma<D>::template rs<1>(acc, pf[kk],
+                                     hp::desc_mnmajor(v_s, kk, C::KV_BOX), 1);
+      hp::wgmma_commit();
+    };
+    auto rescale = [&]() {
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t bfr[4];
-        const int row = np * 16 + mr + 8 * (mi >> 1);
-        const int col = kk * 16 + 8 * (mi & 1);
-        repro::ldmatrix_x4(bfr, repro::smem_u32(sK + row * LD + col));
-        repro::mma_bf16_16816(s[2 * np], a, bfr[0], bfr[1]);
-        repro::mma_bf16_16816(s[2 * np + 1], a, bfr[2], bfr[3]);
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= alpha[0];
+        acc[4 * n + 1] *= alpha[0];
+        acc[4 * n + 2] *= alpha[1];
+        acc[4 * n + 3] *= alpha[1];
+      }
+    };
+    // The two warpgroups take turns to issue their products (named
+    // barriers 1 and 2): while one's run on the tensor cores, the other
+    // runs its softmax.  Warpgroup 1 lets warpgroup 0 go first; warpgroup
+    // 0 takes warpgroup 1's last turn at the end, so that no arrival is
+    // left over.  No wgmma sits in a branch: ptxas serialises wgmma around
+    // a divergent path.
+    auto turn_wait = [&]() {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+    };
+    auto turn_pass = [&]() {
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+    };
+    if (wg == 1) turn_pass();
+    hp::bar_wait(&bar_q, 0);
+    {
+      const int row = 16 * w4 + lane % 16;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int chunk = (kk % 4) * 2 + lane / 16;
+        repro::ldmatrix_x4(qf[kk], q_s + (kk / 4) * C::Q_BOX + row * 128 +
+                                       ((chunk ^ (row % 8)) * 16));
       }
     }
 
-    const bool need_mask = (k0 + BK > S) ||
-                           (causal && k0 + BK - 1 > q0) ||
-                           (window > 0 && k0 <= q0 + BQ - 1 - window);
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
-        if (need_mask) {
-          const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-          const int qr = qrow0 + (e >> 1) * 8;
-          const bool ok = key < S && (!causal || key <= qr) &&
-                          (window <= 0 || key > qr - window);
-          x = ok ? x : -INFINITY;
+    // Tile j's scores are computed while tile j - 1's P·V runs, and its
+    // softmax runs while that product is still on the tensor cores.
+    hp::bar_wait(&full_k[0], 0);
+    turn_wait();
+    hp::wgmma_fence();
+    issue_s(0);
+    turn_pass();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    hp::bar_arrive(&empty_k[0]);
+    online_softmax<BK>(sc, m_r, l_r, alpha, k_begin, qw0, qrow0, t4, S,
+                       causal, window, scale_log2);
+    pack_p<BK>(sc, pf);
+    for (int j = 1; j < n_kv; ++j) {
+      const int s = j % ST, sp = (j - 1) % ST;       // tiles j, j - 1
+      hp::bar_wait(&full_k[s], (j / ST) & 1);
+      hp::bar_wait(&full_v[sp], ((j - 1) / ST) & 1);
+      turn_wait();
+      hp::wgmma_fence();
+      issue_s(j);
+      // O to tile j - 1's maxima while S of tile j runs
+      rescale();
+      hp::wgmma_fence();
+      issue_pv(j - 1);
+      turn_pass();
+      if constexpr (C::EARLY_LOADS) {
+        const int kt = j - 2 + ST, vt = j - 3 + ST;
+        load_k(loader && kt >= ST && kt < n_kv, kt);
+        load_v(loader && vt >= ST && vt < n_kv, vt);
+      }
+      hp::wgmma_wait<1>();                           // S of tile j is done
+      hp::fence_regs(sc);
+      hp::bar_arrive(&empty_k[s]);
+      online_softmax<BK>(sc, m_r, l_r, alpha, k_begin + j * BK, qw0, qrow0,
+                         t4, S, causal, window, scale_log2);
+      hp::wgmma_wait<0>();                           // P·V of tile j - 1
+      hp::fence_regs(acc);
+      hp::fence_regs(pf);
+      hp::bar_arrive(&empty_v[sp]);
+      if constexpr (!C::EARLY_LOADS) {
+        const int t = j - 1 + ST;
+        if (loader && t < n_kv) {
+          load_k(true, t);
+          load_v(true, t);
         }
-        s[nt][e] = x;
       }
+      pack_p<BK>(sc, pf);
     }
+    const int sl = (n_kv - 1) % ST;
+    hp::bar_wait(&full_v[sl], ((n_kv - 1) / ST) & 1);
+    turn_wait();
+    rescale();
+    hp::wgmma_fence();
+    issue_pv(n_kv - 1);
+    turn_pass();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    if (wg == 0) turn_wait();
 
-    float m_use[2];
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = m_r[r];
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = l > 0.f ? 1.f / l : 0.f;
+      const int row = qrow0 + 8 * r;
+      if (lse != nullptr && t4 == 0 && row < S)   // natural log: (m + log2 l)·ln 2
+        lse[((ll)b * gridDim.y + h) * S + row] =
+            (m_r[r] + log2f(l)) * 0.6931471805599453f;
+    }
+    bf16* og = o + b * o_sb + h * o_sh;
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // a row with no visible key yet keeps m = -inf; exp2 of -inf is 0
-      m_use[r] = mx == -INFINITY ? 0.f : mx;
-      const float alpha = exp2f(m_r[r] - m_use[r]);
-      m_r[r] = mx;
-      l_r[r] *= alpha;
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow0 + 8 * r;
+      if (row >= S) continue;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = 8 * n + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(og + row * o_ss + col) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv[r],
+                                  acc[4 * n + 2 * r + 1] * inv[r]);
       }
-    }
-
-    // P as the A operand of P·V: n-tiles 2kk and 2kk+1 form k-step kk
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - m_use[0]);
-      const float p1 = exp2f(s[nt][1] - m_use[0]);
-      const float p2 = exp2f(s[nt][2] - m_use[1]);
-      const float p3 = exp2f(s[nt][3] - m_use[1]);
-      l_r[0] += p0 + p1;
-      l_r[1] += p2 + p3;
-      pf[nt / 2][(nt & 1) * 2] = repro::pack_bf16(p0, p1);
-      pf[nt / 2][(nt & 1) * 2 + 1] = repro::pack_bf16(p2, p3);
-    }
-
-    repro::cp_async_wait_all();
-    __syncthreads();                          // V landed; sK no longer read
-    if (k0 + BK < k_end) {
-      load_tile<D>(sK, kg, k_ss, k0 + BK, S, tid);  // in flight during P·V
-      repro::cp_async_commit();
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bfr[4];
-        const int row = kk * 16 + mr + 8 * (mi & 1);
-        const int col = dp * 16 + 8 * (mi >> 1);
-        repro::ldmatrix_x4_trans(bfr, repro::smem_u32(sV + row * LD + col));
-        repro::mma_bf16_16816(acc[2 * dp], pf[kk], bfr[0], bfr[1]);
-        repro::mma_bf16_16816(acc[2 * dp + 1], pf[kk], bfr[2], bfr[3]);
-      }
-    }
-    repro::cp_async_wait_all();
-    __syncthreads();                          // next K landed; sV no longer read
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = l > 0.f ? 1.f / l : 0.f;
-    const int row = qrow0 + 8 * r;
-    if (lse != nullptr && t4 == 0 && row < S)   // natural log: (m + log2 l)·ln 2
-      lse[((ll)b * gridDim.y + h) * S + row] =
-          (m_r[r] + log2f(l)) * 0.6931471805599453f;
-  }
-  bf16* og = o + b * o_sb + h * o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qrow0 + 8 * r;
-    if (row >= S) continue;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const int col = dt * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(og + row * o_ss + col) = repro::pack_bf16(
-          acc[dt][2 * r] * inv[r], acc[dt][2 * r + 1] * inv[r]);
     }
   }
 }
 
+// A 4-D map of a (B, H, S, D) bf16 tensor with unit stride on D and element
+// strides sb, sh, ss: dimension 0 is D, dimensions 1..3 are h, s and b in
+// the order of their strides; the box is 64 x (1 head, `rows` positions, 1
+// batch).  Returns the map dimension of h, s and b in `perm`.
+bool attn_map(CUtensorMap* map, int* perm, const void* ptr, int B, int H,
+              int S, int D, ll sb, ll sh, ll ss, int rows) {
+  struct Dim {
+    ll stride;
+    int size, box, role;                      // role: 0 h, 1 s, 2 b
+  } dims[3] = {{sh, H, 1, 0}, {ss, S, rows, 1}, {sb, B, 1, 2}};
+  std::stable_sort(dims, dims + 3, [](const Dim& a, const Dim& c) {
+    return a.stride < c.stride;
+  });
+  cuuint64_t gd[4] = {(cuuint64_t)D, 0, 0, 0};
+  cuuint64_t gs[3];
+  cuuint32_t box[4] = {64, 0, 0, 0};
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    gd[i + 1] = (cuuint64_t)dims[i].size;
+    gs[i] = (cuuint64_t)dims[i].stride * 2;
+    box[i + 1] = (cuuint32_t)dims[i].box;
+    *perm |= (i + 1) << (2 * dims[i].role);
+  }
+  return hp::encode_bf16(map, ptr, 4, gd, gs, box);
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int group, int S, const ll* st,
+                   int B, int Hq, int Hkv, int S, const ll* st,
                    float scale_log2, int causal, int window, float* lse,
                    cudaStream_t stream) {
-  constexpr int bytes = Tile<D>::SMEM_BYTES;
+  using C = Cfg<D>;
+  CUtensorMap qm, km, vm;
+  int qp, kp, vp;
+  if (!attn_map(&qm, &qp, q, B, Hq, S, D, st[0], st[1], st[2], BQ) ||
+      !attn_map(&km, &kp, k, B, Hkv, S, D, st[3], st[4], st[5], C::BK) ||
+      !attn_map(&vm, &vp, v, B, Hkv, S, D, st[6], st[7], st[8], C::BK))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), group, S, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], scale_log2, causal, window, lse);
+  flash_fwd_kernel<D><<<grid, NTHREADS, C::SMEM, stream>>>(
+      qm, km, vm, qp, kp, vp, static_cast<bf16*>(o), st[9], st[10], st[11],
+      Hq / Hkv, S, scale_log2, causal, window, lse);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (B, Hq, S, D), k/v: (B, Hkv, S, D), o: (B, Hq, S, D), all bf16 with unit
-// stride on D and the given (batch, head, seq) strides; lse: (B, Hq, S) fp32,
-// contiguous, or null.  Returns 0 or a CUDA error code; -1 for arguments the
-// kernel does not take.
+// stride on D and the given (batch, head, seq) strides, each a multiple of 8
+// elements, and 16-byte aligned; lse: (B, Hq, S) fp32, contiguous, or null.
+// Returns 0 or a CUDA error code; -1 for arguments the kernel does not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Hq, int Hkv, int S,
                                    int D, ll q_sb, ll q_sh, ll q_ss, ll k_sb,
@@ -309,13 +520,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   float* lse_f = static_cast<float*>(lse);
   cudaError_t err;
   if (D == 128)        // qwen2-7b, starcoder2-15b, llama3-405b
-    err = launch<128>(q, k, v, o, B, Hq, Hq / Hkv, S, st, scale_log2, causal,
+    err = launch<128>(q, k, v, o, B, Hq, Hkv, S, st, scale_log2, causal,
                       window, lse_f, s);
   else if (D == 64)    // zamba2-1.2b's shared block, granite-moe-3b-a800m
-    err = launch<64>(q, k, v, o, B, Hq, Hq / Hkv, S, st, scale_log2, causal,
+    err = launch<64>(q, k, v, o, B, Hq, Hkv, S, st, scale_log2, causal,
                      window, lse_f, s);
   else if (D == 192)   // nemotron-4-340b
-    err = launch<192>(q, k, v, o, B, Hq, Hq / Hkv, S, st, scale_log2, causal,
+    err = launch<192>(q, k, v, o, B, Hq, Hkv, S, st, scale_log2, causal,
                       window, lse_f, s);
   else
     return -1;         // the head dims of the repo's models only

@@ -423,6 +423,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i,                       # T, D, F, E
         p]                                # stream
     lib.moe_gmm_fwd.restype = i
+    lib.moe_gmm_decode_fwd.argtypes = lib.moe_gmm_fwd.argtypes
+    lib.moe_gmm_decode_fwd.restype = i
     lib.decode_attention_chunk.argtypes = []
     lib.decode_attention_chunk.restype = i
     lib.repro_cuda_error_string.argtypes = [i]

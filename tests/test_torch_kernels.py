@@ -145,6 +145,29 @@ def test_flash_launch_args_read_model_layout_through_strides():
     assert args[-3:] == (pytest.approx(D ** -0.5), 1, 0)
 
 
+@pytest.mark.parametrize("layout", ["bhsd", "bshd", "sbhd"])
+def test_flash_launch_args_take_any_order_of_strides(layout):
+    """The kernel's tensor maps order the (batch, head, seq) dimensions by
+    stride, so q, k, v may each come in any of these layouts: the call
+    passes their strides as they are and refuses none of them."""
+    B, S, Hq, Hkv, D = 2, 129, 4, 2, 64
+    perm = {"bhsd": (0, 1, 2, 3), "bshd": (0, 2, 1, 3),
+            "sbhd": (1, 2, 0, 3)}[layout]
+    inv = [perm.index(i) for i in range(4)]
+
+    def make(H):
+        shape = [(B, H, S, D)[i] for i in perm]
+        return torch.zeros(shape, dtype=torch.bfloat16).permute(*inv)
+
+    q, k = make(Hq), make(Hkv)
+    assert q.shape == (B, Hq, S, D)
+    out = torch.empty_like(q)
+    args = flash_launch_args(q, k, k, out, causal=True, window=0, scale=None)
+    assert args[:5] == (B, Hq, Hkv, S, D)
+    assert args[5:8] == q.stride()[:3]
+    assert args[8:11] == k.stride()[:3]
+
+
 def test_flash_launch_args_take_head_dim_192():
     """nemotron-4-340b's prefill: 96 q heads over 8 kv heads of 192, read
     through the model's (B, S, H, D) layout; 96 and 256 stay refused."""

@@ -42,7 +42,8 @@ from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels.common import TOLERANCES, launches
-from repro_torch.kernels.moe_gmm.kernel import gmm_launch_args
+from repro_torch.kernels.moe_gmm.kernel import (gmm_design, gmm_launch_args,
+                                                moe_gmm_cuda)
 from repro_torch.launch.serve import serve_demo, serve_requests
 from repro_torch.models import (decode_step, forward, init_decode_state,
                                 init_params, moe, params_from_numpy, prefill)
@@ -192,6 +193,29 @@ def test_gmm_launch_args_refuse_what_the_kernel_does_not_take(bad):
         x, out = x[:0], out[:0]
     with pytest.raises((ValueError, TypeError)):
         gmm_launch_args(x, w, sizes, out)
+
+
+@pytest.mark.parametrize("T, E, design", [
+    (48 * 2048, 48, "prefill"),      # granite's prefill wave (C 2048)
+    (48 * 2, 48, "decode"),          # granite's decode step (C 2)
+    (16 * 48, 48, "decode"),         # the boundary: 16 rows an expert
+    (16 * 48 + 1, 48, "prefill"),
+    (700, 48, "decode"),             # one expert may hold 300 of them
+    (1, 1, "decode"),
+    (17, 1, "prefill")])
+def test_moe_gmm_design_is_picked_from_the_shapes(T, E, design):
+    """The kernel's design follows from (T, E), which the host knows; the
+    group sizes stay on the device and never enter the pick."""
+    assert gmm_design(T, E) == design
+
+
+def test_moe_gmm_cuda_refuses_an_unknown_design_before_building():
+    T, D, E, F = 96, 64, 48, 128
+    x = torch.zeros(T, D, dtype=torch.bfloat16)
+    w = torch.zeros(E, D, F, dtype=torch.bfloat16)
+    sizes = torch.full((E,), 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="design"):
+        moe_gmm_cuda(x, w, sizes, design="wide")
 
 
 def test_moe_gmm_raises_off_cpu_and_cuda():
