@@ -451,6 +451,8 @@ def kernel_phase(torch, timer, report):
         for label, t in [(r["name"], r)] + subs:
             lib = ("none" if t["library_ms"] is None else
                    f"{t['library_ms']:.4f} ms")
+            if "matmul_ms" in t:
+                lib += f"  matmul alone {t['matmul_ms']:.4f} ms"
             log(f"  {label:35s} kernel {t['ms']:.4f} ms  plain "
                 f"{t['plain_ms']:.4f} ms  library {lib}  bound "
                 f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
@@ -792,25 +794,31 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
     # ---- cross entropy forward -------------------------------------------
     T, D, V = 8192, 3584, 152064
     errs = []
-    for (t_, v_, n_valid, poison) in (
-            (T, V, V, False),                 # the train step's shape
-            (1000, V, 151000, True),          # ragged T, padded head
-            (77, 5000, 4999, True)):          # a partial last tile
-        x = randn(t_, D)
-        w = (randn(D, v_) * D ** -0.5).to(bf16)
+    for (t_, d_, v_, n_valid, poison) in (
+            (T, D, V, V, False),              # the train step's shape
+            (1000, D, V, 151000, True),       # ragged T, padded head
+            (77, D, 5000, 4999, True),        # a partial last tile
+            # a last slice half past D (3616 = 56·64 + 32); n_valid cuts
+            # column tile 15 of 256, tiles 16-19 lie wholly past it
+            (129, 3616, 5000, 4000, True),
+            (128, 256, 512, 512, False)):     # the TrainLoop check's shape
+        x = randn(t_, d_)
+        w = (randn(d_, v_) * d_ ** -0.5).to(bf16)
         if poison:
             w[:, n_valid:] = 100.0            # must be masked out exactly
         lab = torch.randint(0, n_valid, (t_,), generator=gen, device="cuda",
                             dtype=torch.int32)
         lse, ll = ce_forward_cuda(x, w, lab, n_valid)
         rl, rll = ce_forward_chunked(x, w, lab, n_valid)
-        case = f"T{t_} D{D} V{v_} n_valid {n_valid}"
+        case = f"T{t_} D{d_} V{v_} n_valid {n_valid}"
         errs.append(check("cross_entropy", case + " lse", lse, rl))
         errs.append(check("cross_entropy", case + " label", ll, rll))
     x = randn(T, D)
     w = (randn(D, V) * D ** -0.5).to(bf16)
     lab = torch.randint(0, V, (T,), generator=gen, device="cuda",
                         dtype=torch.int32)
+    same_bits(torch, "cross_entropy", f"T{T} D{D} V{V}",
+              lambda: ce_forward_cuda(x, w, lab, V))
 
     def library_ce():
         logits = (x @ w).float()
@@ -828,7 +836,9 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
         "plain_ms": timer.ms(lambda: ce_forward_chunked(x, w, lab, V),
                              iters=2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": timer.ms(library_ce, iters=3)})
+        "library_ms": timer.ms(library_ce, iters=3),
+        # a second yardstick: the bf16 GEMM alone, without the logsumexp
+        "matmul_ms": timer.ms(lambda: x @ w, iters=3)})
     del x, w, lab
 
     # ---- flash attention backward ----------------------------------------
@@ -841,7 +851,9 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
             (2, 28, 4, 1000, True, 0),        # ragged S
             (1, 14, 2, 300, True, 64),        # windowed
             (1, 14, 2, 300, False, 0),        # not causal
-            (1, 7, 1, 77, True, 0)):          # group 7 over one kv head
+            (1, 7, 1, 77, True, 0),           # group 7 over one kv head
+            (1, 14, 2, 129, True, 0),         # one row past a 128-row tile
+            (1, 28, 4, 2048, True, 256)):     # windowed at the train S
         q, k, v = bshd(B, S, Hq, 128), bshd(B, S, Hkv, 128), \
             bshd(B, S, Hkv, 128)
         do = bshd(B, S, Hq, 128)
@@ -864,6 +876,8 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
     q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
     do = bshd(B, S, Hq, D)
     o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    same_bits(torch, "flash_attention_bwd", f"B{B} Hq{Hq} Hkv{Hkv} S{S}",
+              lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do))
     planted_fault(torch, report, q, k, v, o, lse, do)
     pairs = S * (S + 1) // 2
     b_ms, b_by = bound(B * S * D * 2 * (4 * Hq + 4 * Hkv) + B * Hq * S * 4,
@@ -922,6 +936,17 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
     del x, dy, w, lx, lw, ly
     torch.cuda.empty_cache()
     return rows
+
+
+def same_bits(torch, name, case, call):
+    """Two calls of a kernel on the same inputs must agree bit for bit:
+    every output element is summed by one block in a fixed order (no
+    atomics), which the TrainLoop's resume check relies on."""
+    a, b = call(), call()
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"  {name:19s} {case:44s} two calls equal bit for bit: {equal}")
+    if not equal:
+        fail(f"{name} is not deterministic ({case})")
 
 
 def planted_fault(torch, report, q, k, v, o, lse, do):
@@ -1688,7 +1713,7 @@ def _kernel_table(prof, n_calls: int):
 
 OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "decode_merge_kernel", "_rms_bwd_rows", "_dw_sum", "delta_kernel",
-        "dkdv_kernel", "dq_kernel", "ce_split_kernel", "ce_merge_kernel",
+        "dkdv_kernel", "dq_kernel", "ce_tile_kernel", "ce_merge_kernel",
         "ssd_scan_kernel", "ssd_scan_wide_kernel", "moe_gmm_kernel",
         "moe_gmm_decode_kernel")
 

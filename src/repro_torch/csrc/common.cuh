@@ -1,5 +1,6 @@
-// Helpers shared by the kernels: PTX wrappers for cp.async, ldmatrix and
-// the bf16 tensor-core product, and packing of bf16 pairs.
+// Helpers shared by the kernels: PTX wrappers for cp.async, ldmatrix, the
+// bf16 tensor-core product (mma.sync) and the fast exp2, and packing of
+// bf16 pairs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +60,13 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special function unit (2 ulp); 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats → one register of two bf16, the first in the low half.

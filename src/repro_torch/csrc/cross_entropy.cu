@@ -2,64 +2,81 @@
 // of x·w over the valid vocabulary and the logit of its label, without ever
 // writing the (T, V) logits.
 //
-// Replaces: src/repro/kernels/cross_entropy/kernel.py:ce_forward_pallas (body
-// _ce_kernel), and the chunked jnp forward _forward_chunked (ops.py) that
-// the JAX package takes when the head is padded (n_valid < V): columns at or
-// past n_valid are masked here, so one kernel serves both branches.
+// Replaces: src/repro/kernels/cross_entropy/kernel.py:76 ce_forward_pallas
+// (body _ce_kernel), and the chunked jnp forward _forward_chunked (ops.py)
+// that the JAX package takes when the head is padded (n_valid < V): columns
+// at or past n_valid are masked here, so one kernel serves both branches.
 //
 // What bounds it on the H100: operations.  At the training path's shape
 // (T = 8192 tokens, D = 3584, V = 152064) the product is 2·T·D·V = 8.93
-// TFLOP: 9.03 ms at 989 TFLOP/s, against 1.09 GB of w (0.33 ms at 3.35 TB/s).
+// TFLOP: 9.03 ms at 989 TFLOP/s, against 1.09 GB of w and 58.7 MB of x
+// (0.34 ms at 3.35 TB/s).  The earlier design (mma.sync on 32 x 64 warp
+// tiles, cp.async, 2048-column splits with the token tile fastest) ran at
+// 1.76x the library's matmul + logsumexp: mma.sync reaches at most half
+// the tensor cores' rate, and its blocks in flight spanned all of x.
 //
-// Design:
-//  * the TPU grid is (T/256, V/2048) with V sequential, carried in VMEM
-//    scratch.  Here T = 8192 gives 64 token tiles of 128, which alone would
-//    fill half the 132 SMs, so V is split across blocks too: grid (T/128,
-//    V/2048), each block walking its 2048 columns in tiles of 128, keeping a
-//    running (max, sum, label logit) per row; a second small kernel merges
-//    the per-split partials (the split-and-merge of decode_attention.cu);
-//  * the token tile index is the fastest grid axis, so the blocks in flight
-//    share a few 2048-column slices of w (15 MB each) in L2 while x streams;
-//  * x·w runs on the tensor cores in the block's own body: mma.sync
-//    m16n8k16, bf16 in, fp32 accumulators.  Products of bf16 values are
-//    exact in fp32, as in the TPU kernel's fp32 dot of the same values; only
-//    the order of the fp32 sums differs;
-//  * 8 warps as 4 (tokens) x 2 (vocab), each warp a 32 x 64 tile; x and w
-//    are staged through shared memory in 32-deep slices by cp.async, three
-//    slices in flight; ldmatrix (transposed for w, which is (D, V) row-major)
-//    feeds the products; rows are padded by 16 bytes for conflict-free reads;
-//  * the online logsumexp runs in the log2 domain (exp2); each thread keeps
-//    its own running (m, l) over its columns, merged across the quad and the
-//    two vocab warps once at the end of the block;
-//  * V = 152064 is 74 full 2048-column splits and a 512-column tail; columns
-//    at or past V are zero-filled on load and never read, columns at or past
-//    n_valid are masked to -inf; a split wholly past n_valid writes an empty
-//    partial at once;
-//  * a label lies in exactly one split: the "hit" logit is a max over splits
-//    in which every other split contributes -inf.
-// Later work: wgmma + TMA with a warp-specialised producer, and 128 x 256
-// tiles (each x and w byte is read from L2 once per 128 columns/tokens).
+// Design: the grouped matmul's prefill mainloop (moe_gmm.cu) with a
+// logsumexp epilogue.
+//  * work units are output tiles of 128 tokens x 256 columns; a persistent
+//    grid of one block an SM walks them.  V = 152064 is exactly 594 column
+//    tiles and T = 8192 is 64 token tiles;
+//  * the token tile is the fastest index of the units: the ~132 units in
+//    flight cover all 64 token tiles of ~2 column tiles.  They advance
+//    through D nearly in step, so what L2 must hold at once is the current
+//    64-deep slices (x: 8192 x 64, w: 64 x 512, ~1 MB for each), and each
+//    w slice serves 64 units.  x is then read from device memory once per
+//    ~2 column tiles: ~297 x 58.7 MB = 17 GB, ~5.2 ms at 3.35 TB/s,
+//    overlapped with the products' 9.03 ms.  Bands of 4, 8 or 16 column
+//    tiles (x read 594/8 times, w's working set in L2) ran no faster on the
+//    H100, and their unit arithmetic (two divisions by run-time values)
+//    pushed the consumers past their 168 registers into spills;
+//  * one producer thread keeps a 4-stage TMA ring of 64-deep slices full:
+//    the x box (128 tokens, a 2-D map over (T, D)) and four 64-column w
+//    boxes (a 2-D map over (D, V)), all with the 128-byte swizzle.  Rows
+//    past T, a last slice half past D (D % 64 == 32) and columns past V
+//    read zeros;
+//  * two consumer warpgroups each run wgmma m64n256k16 on 64 of the 128
+//    tokens (x the K-major A operand, w the MN-major B operand), with one
+//    wgmma group in flight while the next slice is waited for;
+//  * the epilogue stays in registers: each thread holds 2 rows x 64
+//    columns of its warpgroup's 64 x 256 accumulator.  Columns at or past
+//    n_valid become -inf; the thread picks out its rows' label logits and
+//    takes each row's max and exp2 sum (log2 domain) in four chains; quad
+//    shuffles leave one (m, l, label logit) a row, written as the column
+//    tile's partial.  At K 3584 the epilogue is ~1 us against ~30 us of
+//    products a unit;
+//  * column tiles wholly past n_valid are not units: they run no products,
+//    and the merge reads only the tiles that ran;
+//  * ce_merge_kernel merges a token's partials in a fixed order (8 warps,
+//    each a fixed residue of the tiles, then the 8 in order): the result
+//    is deterministic, with no atomics;
+//  * products of bf16 values are exact in fp32, as in the TPU kernel's fp32
+//    dot of the same values; only the order of the fp32 sums differs.
 #include "common.cuh"
+#include "hopper.cuh"
 
+#include <limits.h>
 #include <math.h>
+
+#include <algorithm>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using ll = long long;
+namespace hp = repro::hopper;
 
-constexpr int BT = 128;        // tokens per block
-constexpr int BV = 128;        // vocab columns per tile
-constexpr int BKD = 32;        // depth of one staged slice
-constexpr int STAGES = 3;
-constexpr int NTHREADS = 256;
-constexpr int SPLIT_V = 2048;  // columns per block (the TPU kernel's BLOCK_V)
-constexpr int LDX = BKD + 8;   // padded pitch of the x slice (elements)
-constexpr int LDW = BV + 8;    // padded pitch of the w slice
-constexpr int X_ELEMS = BT * LDX;
-constexpr int W_ELEMS = BKD * LDW;
-constexpr int STAGE_ELEMS = X_ELEMS + W_ELEMS;
-constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * (int)sizeof(bf16);
+constexpr int BT = 128;                       // tokens a unit
+constexpr int BN = 256;                       // vocabulary columns a unit
+constexpr int BK = 64;                        // depth of one slice
+constexpr int STAGES = 4;
+constexpr int X_BYTES = BT * BK * 2;          // 16 KB
+constexpr int W_BOX = BK * 64 * 2;            // 8 KB: 64 deep x 64 columns
+constexpr int STAGE_BYTES = X_BYTES + (BN / 64) * W_BOX;   // 48 KB
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024;          // + alignment
+constexpr int THREADS = 384;                  // 2 consumer WGs + 1
+constexpr int MERGE_TOKENS = 32;              // tokens a merge block
+constexpr int MERGE_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -72,258 +89,229 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
   m = M;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    ce_split_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const int* __restrict__ labels, float* __restrict__ part_m,
-                    float* __restrict__ part_l, float* __restrict__ part_ll,
-                    int T, int D, int V, int n_valid) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+__global__ void __launch_bounds__(THREADS, 1)
+    ce_tile_kernel(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap w_map,
+                   const int* __restrict__ labels, float* __restrict__ part_m,
+                   float* __restrict__ part_l, float* __restrict__ part_ll,
+                   int T, int D, int n_valid, int n_tt, int n_units) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  const uint32_t raw = hp::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;       // swizzle atoms: 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
 
-  const int t0 = blockIdx.x * BT;
-  const int split = blockIdx.y;
-  const int v_begin = split * SPLIT_V;
-  const int v_end = min(V, v_begin + SPLIT_V);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int wt = warp & 3, wv = warp >> 2;     // 4 token x 2 vocab warps
-  const int gq = lane / 4, t4 = lane % 4;
-  const int mi = lane / 8, mr = lane % 8;
-
-  if (v_begin >= n_valid) {                    // nothing valid in this split
-    if (tid < BT && t0 + tid < T) {
-      const ll at = (ll)split * T + t0 + tid;
-      part_m[at] = -INFINITY;
-      part_l[at] = 0.f;
-      part_ll[at] = -INFINITY;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hp::bar_init(&full[i], 1);
+      hp::bar_init(&empty[i], 256);                  // every consumer thread
     }
-    return;
-  }
-
-  const int n_tiles = (v_end - v_begin + BV - 1) / BV;
-  const int nk = D / BKD;
-  const int total = n_tiles * nk;
-
-  auto load_stage = [&](int g, int slot) {
-    const int tile = g / nk;
-    const int d0 = (g % nk) * BKD;
-    const int c0 = v_begin + tile * BV;
-    bf16* sX = smem + slot * STAGE_ELEMS;
-    bf16* sW = sX + X_ELEMS;
-#pragma unroll
-    for (int j = 0; j < BT * BKD / 8 / NTHREADS; ++j) {   // x: 4 chunks a row
-      const int c = tid + j * NTHREADS;
-      const int r = c / (BKD / 8);
-      const int col = (c % (BKD / 8)) * 8;
-      const int row = t0 + r;
-      const bf16* src = x + (ll)min(row, T - 1) * D + d0 + col;
-      repro::cp_async_16(repro::smem_u32(sX + r * LDX + col), src,
-                         row < T ? 16 : 0);
-    }
-#pragma unroll
-    for (int j = 0; j < BKD * BV / 8 / NTHREADS; ++j) {   // w: 16 chunks a row
-      const int c = tid + j * NTHREADS;
-      const int r = c / (BV / 8);
-      const int col = (c % (BV / 8)) * 8;
-      const int gcol = c0 + col;                  // V % 8 == 0: whole chunks
-      const bf16* src = w + (ll)(d0 + r) * V + min(gcol, V - 8);
-      repro::cp_async_16(repro::smem_u32(sW + r * LDW + col), src,
-                         gcol < V ? 16 : 0);
-    }
-  };
-
-  int lab[4];                                  // row slot rs = 2·mt + half
-#pragma unroll
-  for (int rs = 0; rs < 4; ++rs) {
-    const int row = t0 + wt * 32 + (rs >> 1) * 16 + gq + (rs & 1) * 8;
-    lab[rs] = row < T ? labels[row] : -1;
-  }
-  float m[4], l[4], hit[4];
-#pragma unroll
-  for (int rs = 0; rs < 4; ++rs) {
-    m[rs] = -INFINITY;
-    l[rs] = 0.f;
-    hit[rs] = -INFINITY;
-  }
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < total) load_stage(s, s);
-    repro::cp_async_commit();
-  }
-
-  for (int g = 0; g < total; ++g) {
-    repro::cp_async_wait<STAGES - 2>();
-    __syncthreads();   // slice g landed; every warp is done with slice g - 1
-    const int nxt = g + STAGES - 1;
-    if (nxt < total) load_stage(nxt, nxt % STAGES);
-    repro::cp_async_commit();
-
-    const bf16* sX = smem + (g % STAGES) * STAGE_ELEMS;
-    const bf16* sW = sX + X_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BKD / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int row = wt * 32 + mt * 16 + (lane % 16);
-        const int col = kk * 16 + (lane / 16) * 8;
-        repro::ldmatrix_x4(af[mt], repro::smem_u32(sX + row * LDX + col));
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        const int row = kk * 16 + mr + 8 * (mi & 1);
-        const int col = wv * 64 + np * 16 + 8 * (mi >> 1);
-        repro::ldmatrix_x4_trans(bfr, repro::smem_u32(sW + row * LDW + col));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          repro::mma_bf16_16816(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-          repro::mma_bf16_16816(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
-        }
-      }
-    }
-
-    if (g % nk == nk - 1) {                    // a 128-column tile is done
-      const int c_base = v_begin + (g / nk) * BV + wv * 64 + 2 * t4;
-#pragma unroll
-      for (int rs = 0; rs < 4; ++rs) {
-        const int mt = rs >> 1, h2 = (rs & 1) * 2;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = c_base + nt * 8 + e;
-            const float logit = acc[mt][nt][h2 + e];
-            if (col < n_valid) {
-              mx = fmaxf(mx, logit);
-              if (col == lab[rs]) hit[rs] = logit;
-            }
-          }
-        if (mx != -INFINITY) {
-          const float m_new = fmaxf(m[rs], mx * LOG2E);
-          float sum = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = c_base + nt * 8 + e;
-              if (col < n_valid)
-                sum += exp2f(acc[mt][nt][h2 + e] * LOG2E - m_new);
-            }
-          l[rs] = (m[rs] == -INFINITY ? 0.f : l[rs] * exp2f(m[rs] - m_new)) +
-                  sum;
-          m[rs] = m_new;
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    }
-  }
-  repro::cp_async_wait_all();
-  __syncthreads();                             // the slices are free for reuse
-
-  // merge over the quad (the 4 lanes of a row), then over the 2 vocab warps
-#pragma unroll
-  for (int rs = 0; rs < 4; ++rs) {
-#pragma unroll
-    for (int off = 1; off <= 2; off *= 2) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[rs], off);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l[rs], off);
-      const float h2 = __shfl_xor_sync(0xffffffffu, hit[rs], off);
-      merge(m[rs], l[rs], m2, l2);
-      hit[rs] = fmaxf(hit[rs], h2);
-    }
-  }
-  float* red = reinterpret_cast<float*>(smem_raw);   // [3][2][BT]
-  if (t4 == 0) {
-#pragma unroll
-    for (int rs = 0; rs < 4; ++rs) {
-      const int r = wt * 32 + (rs >> 1) * 16 + gq + (rs & 1) * 8;
-      red[(0 * 2 + wv) * BT + r] = m[rs];
-      red[(1 * 2 + wv) * BT + r] = l[rs];
-      red[(2 * 2 + wv) * BT + r] = hit[rs];
-    }
+    hp::bar_init_fence();
   }
   __syncthreads();
-  if (tid < BT && t0 + tid < T) {
-    float mm = red[0 * BT + tid], lm = red[2 * BT + tid];
-    merge(mm, lm, red[1 * BT + tid], red[3 * BT + tid]);
-    const ll at = (ll)split * T + t0 + tid;
-    part_m[at] = mm;
-    part_l[at] = lm;
-    part_ll[at] = fmaxf(red[4 * BT + tid], red[5 * BT + tid]);
+
+  const int nk = (D + BK - 1) / BK;
+  const int wg = warp / 4;
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load --------------------
+    if (tid == 256) {
+      hp::tma_prefetch_map(&x_map);
+      hp::tma_prefetch_map(&w_map);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const int tt = u % n_tt, ct = u / n_tt;    // token tile fastest
+        for (int ks = 0; ks < nk; ++ks) {
+          hp::bar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * STAGE_BYTES;
+          hp::bar_arrive_tx(&full[stage], STAGE_BYTES);
+          hp::tma_load_2d(st, &x_map, &full[stage], ks * BK, tt * BT);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            hp::tma_load_2d(st + X_BYTES + j * W_BOX, &w_map, &full[stage],
+                            ct * BN + 64 * j, ks * BK);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns tokens 64·wg .. 64·wg + 63 --------
+    const int w4 = (tid - wg * 128) / 32, gq = lane / 4, t4 = lane % 4;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[BN / 2] = {};
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int tt = u % n_tt, ct = u / n_tt;
+      // this thread's rows: row0 and row0 + 8
+      const int row0 = tt * BT + 64 * wg + 16 * w4 + gq;
+      const int lab0 = row0 < T ? labels[row0] : -1;
+      const int lab1 = row0 + 8 < T ? labels[row0 + 8] : -1;
+
+      int prev = -1;
+      for (int ks = 0; ks < nk; ++ks) {
+        hp::bar_wait(&full[stage], phase);
+        const uint32_t xs = base + stage * STAGE_BYTES + wg * 64 * 128;
+        const uint32_t ws = base + stage * STAGE_BYTES + X_BYTES;
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hp::Wgmma<BN>::ss<0, 1>(acc, hp::desc_kmajor(xs, kk),
+                                  hp::desc_mnmajor(ws, kk, W_BOX),
+                                  ks > 0 || kk > 0);
+        hp::wgmma_commit();
+        // the products of the previous slice are done: release its stage
+        hp::wgmma_wait<1>();
+        if (prev >= 0) hp::bar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+      hp::bar_arrive(&empty[prev]);
+
+      // Epilogue.  acc[4j + 2r + e]: row row0 + 8r, column
+      // ct·BN + 8j + 2·t4 + e.  Column c = 8j + e of this thread is valid
+      // while c < lim; the label sits at c == lab - c0.
+      const int c0 = ct * BN + 2 * t4;
+      const int lim = n_valid - c0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lab_c = (r == 0 ? lab0 : lab1) - c0;
+        float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+        float hit = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + e;
+            const float v = c < lim ? acc[4 * j + 2 * r + e] : -INFINITY;
+            acc[4 * j + 2 * r + e] = v;
+            mx[j % 4] = fmaxf(mx[j % 4], v);
+            hit = c == lab_c ? v : hit;
+          }
+        const float m =
+            fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])) * LOG2E;
+        const float m_use = m == -INFINITY ? 0.f : m;
+        float sm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sm[j % 4] +=
+                repro::exp2_approx(fmaf(acc[4 * j + 2 * r + e], LOG2E, -m_use));
+        float mm = m, l = (sm[0] + sm[1]) + (sm[2] + sm[3]);
+#pragma unroll
+        for (int off = 1; off <= 2; off *= 2) {
+          const float m2 = __shfl_xor_sync(0xffffffffu, mm, off);
+          const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
+          hit = fmaxf(hit, __shfl_xor_sync(0xffffffffu, hit, off));
+          merge(mm, l, m2, l2);
+        }
+        const int row = row0 + 8 * r;
+        if (t4 == 0 && row < T) {
+          const ll at = (ll)ct * T + row;
+          part_m[at] = mm;
+          part_l[at] = l;
+          part_ll[at] = hit;
+        }
+      }
+    }
   }
 }
 
-// One thread a token: merge the splits' (m, l, label logit).
-__global__ void ce_merge_kernel(const float* __restrict__ part_m,
-                                const float* __restrict__ part_l,
-                                const float* __restrict__ part_ll,
-                                float* __restrict__ lse,
-                                float* __restrict__ label_logit, int T,
-                                int n_split) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
+// A block merges the partials of 32 tokens: warp w takes the column tiles
+// w, w + 8, w + 16, ... of its lane's token in order, then the 8 warps'
+// results are merged in order.  The order of the sums is fixed.
+__global__ void __launch_bounds__(MERGE_TOKENS * MERGE_WARPS)
+    ce_merge_kernel(const float* __restrict__ part_m,
+                    const float* __restrict__ part_l,
+                    const float* __restrict__ part_ll,
+                    float* __restrict__ lse, float* __restrict__ label_logit,
+                    int T, int n_ct) {
+  __shared__ float red[3][MERGE_WARPS][MERGE_TOKENS];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = blockIdx.x * MERGE_TOKENS + lane;
   float M = -INFINITY, L = 0.f, H = -INFINITY;
-  for (int s = 0; s < n_split; ++s) {
-    const ll at = (ll)s * T + t;
-    merge(M, L, part_m[at], part_l[at]);
-    H = fmaxf(H, part_ll[at]);
+  if (t < T) {
+    for (int s = warp; s < n_ct; s += MERGE_WARPS) {
+      const ll at = (ll)s * T + t;
+      merge(M, L, part_m[at], part_l[at]);
+      H = fmaxf(H, part_ll[at]);
+    }
   }
-  // the TPU kernel's m + log(max(l, 1e-30)), from the log2 domain
-  lse[t] = M == -INFINITY ? -INFINITY : (M + log2f(fmaxf(L, 1e-30f))) * LN2;
-  label_logit[t] = H;
+  red[0][warp][lane] = M;
+  red[1][warp][lane] = L;
+  red[2][warp][lane] = H;
+  __syncthreads();
+  if (warp == 0 && t < T) {
+    for (int w = 1; w < MERGE_WARPS; ++w) {
+      merge(M, L, red[0][w][lane], red[1][w][lane]);
+      H = fmaxf(H, red[2][w][lane]);
+    }
+    // the TPU kernel's m + log(max(l, 1e-30)), from the log2 domain
+    lse[t] = M == -INFINITY ? -INFINITY : (M + log2f(fmaxf(L, 1e-30f))) * LN2;
+    label_logit[t] = H;
+  }
 }
 
 }  // namespace
 
-// Vocabulary columns per split: the caller sizes the (n_split, T) scratch.
-extern "C" int cross_entropy_split() { return SPLIT_V; }
+// Vocabulary columns a tile: the caller sizes the (n_split, T) scratch.
+extern "C" int cross_entropy_split() { return BN; }
 
 // x: (T, D) bf16 contiguous; w: (D, V) bf16 contiguous; labels: (T,) int32;
 // lse, label_logit: (T,) fp32; part_m, part_l, part_ll: (n_split, T) fp32
-// scratch.  Needs D % 32 == 0, V % 8 == 0, 0 < n_valid <= V and n_split ==
-// ceil(V / 2048).  Returns 0 or a CUDA error code; -1 for arguments the
-// kernel does not take.
+// scratch.  Needs D % 32 == 0, V % 8 == 0, 0 < n_valid <= V, n_split ==
+// ceil(V / 256) and 16-byte aligned x and w.  Returns 0 or a CUDA error
+// code; -1 for arguments the kernel does not take.
 extern "C" int cross_entropy_fwd(const void* x, const void* w,
                                  const void* labels, void* lse,
                                  void* label_logit, void* part_m,
                                  void* part_l, void* part_ll, int T, int D,
                                  int V, int n_valid, int n_split,
                                  void* stream) {
-  if (T <= 0 || D <= 0 || D % BKD != 0 || V <= 0 || V % 8 != 0) return -1;
+  if (T <= 0 || D <= 0 || D % 32 != 0 || V <= 0 || V % 8 != 0) return -1;
   if (n_valid <= 0 || n_valid > V) return -1;
-  if (n_split != (V + SPLIT_V - 1) / SPLIT_V) return -1;
+  if (n_split != (V + BN - 1) / BN) return -1;
+  const int n_tt = (T + BT - 1) / BT;
+  const int n_ct = (n_valid + BN - 1) / BN;   // tiles with a valid column
+  if ((ll)n_tt * n_ct > INT_MAX) return -1;
+  CUtensorMap xm, wm;
+  const cuuint64_t xd[2] = {(cuuint64_t)D, (cuuint64_t)T};
+  const cuuint64_t xs[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t xb[2] = {64, BT};
+  const cuuint64_t wd[2] = {(cuuint64_t)V, (cuuint64_t)D};
+  const cuuint64_t wst[1] = {(cuuint64_t)V * 2};
+  const cuuint32_t wb[2] = {64, BK};
+  if (!hp::encode_bf16(&xm, x, 2, xd, xs, xb) ||
+      !hp::encode_bf16(&wm, w, 2, wd, wst, wb))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(
-      ce_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      ce_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pll = static_cast<float*>(part_ll);
-  ce_split_kernel<<<dim3((T + BT - 1) / BT, n_split), NTHREADS, SMEM_BYTES,
-                    s>>>(static_cast<const bf16*>(x),
-                         static_cast<const bf16*>(w),
-                         static_cast<const int*>(labels), pm, pl, pll, T, D, V,
-                         n_valid);
+  const int grid = std::min(n_tt * n_ct, hp::sm_count());
+  ce_tile_kernel<<<grid, THREADS, SMEM, s>>>(
+      xm, wm, static_cast<const int*>(labels), pm, pl, pll, T, D, n_valid,
+      n_tt, n_tt * n_ct);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ce_merge_kernel<<<(T + 255) / 256, 256, 0, s>>>(
+  ce_merge_kernel<<<(T + MERGE_TOKENS - 1) / MERGE_TOKENS,
+                    MERGE_TOKENS * MERGE_WARPS, 0, s>>>(
       pm, pl, pll, static_cast<float*>(lse), static_cast<float*>(label_logit),
-      T, n_split);
+      T, n_ct);
   return static_cast<int>(cudaGetLastError());
 }

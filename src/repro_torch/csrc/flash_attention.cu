@@ -69,7 +69,6 @@
 
 #include <limits.h>
 #include <math.h>
-#include <algorithm>
 
 namespace {
 
@@ -93,26 +92,6 @@ struct Cfg {
   static constexpr int KV_BYTES = NB * KV_BOX;
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;
 };
-
-// The map's coordinates of (d, h, s, b): `perm` holds the map dimension
-// (1..3) of h, s and b in bits 0-1, 2-3 and 4-5.
-__device__ __forceinline__ void load_box(bool p, void* dst,
-                                         const CUtensorMap* map,
-                                         uint64_t* bar, int perm, int d,
-                                         int h, int s, int b) {
-  const int ph = perm & 3, ps = (perm >> 2) & 3;
-  const int c1 = ph == 1 ? h : ps == 1 ? s : b;
-  const int c2 = ph == 2 ? h : ps == 2 ? s : b;
-  const int c3 = ph == 3 ? h : ps == 3 ? s : b;
-  hp::tma_load_4d_if(p, dst, map, bar, d, c1, c2, c3);
-}
-
-// 2^x on the special function unit (2 ulp); 2^-inf = 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The online softmax of one tile of raw scores sc (keys k0 ..), for this
 // thread's rows qrow0 and qrow0 + 8 of its warpgroup's 64 (from qw0):
@@ -165,7 +144,7 @@ __device__ __forceinline__ void online_softmax(
     mx = fmaxf(m_r[r], mx * scale_log2);
     // a row with no visible key yet keeps m = -inf; exp2 of -inf is 0
     m_use[r] = mx == -INFINITY ? 0.f : mx;
-    alpha[r] = exp2_approx(m_r[r] - m_use[r]);
+    alpha[r] = repro::exp2_approx(m_r[r] - m_use[r]);
     m_r[r] = mx;
   }
   float ps[2][4] = {};
@@ -174,7 +153,7 @@ __device__ __forceinline__ void online_softmax(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
-      const float p = exp2_approx(fmaf(sc[4 * n + e], scale_log2, -m_use[r]));
+      const float p = repro::exp2_approx(fmaf(sc[4 * n + e], scale_log2, -m_use[r]));
       sc[4 * n + e] = p;
       ps[r][n % 4] += p;
     }
@@ -250,8 +229,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     hp::bar_arrive_tx_if(p, &full_k[s], C::KV_BYTES);
 #pragma unroll
     for (int i = 0; i < C::NB; ++i)
-      load_box(p, smem + k_off(s) + i * C::KV_BOX, &k_map, &full_k[s],
-               k_perm, 64 * i, hk, k_begin + t * BK, b);
+      hp::attn_load_box(p, smem + k_off(s) + i * C::KV_BOX, &k_map,
+                        &full_k[s], k_perm, 64 * i, hk, k_begin + t * BK, b);
   };
   auto load_v = [&](bool p, int t) {
     const int s = t % ST;
@@ -259,8 +238,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     hp::bar_arrive_tx_if(p, &full_v[s], C::KV_BYTES);
 #pragma unroll
     for (int i = 0; i < C::NB; ++i)
-      load_box(p, smem + v_off(s) + i * C::KV_BOX, &v_map, &full_v[s],
-               v_perm, 64 * i, hk, k_begin + t * BK, b);
+      hp::attn_load_box(p, smem + v_off(s) + i * C::KV_BOX, &v_map,
+                        &full_v[s], v_perm, 64 * i, hk, k_begin + t * BK, b);
   };
   // Where the loads go.  At D 128 and 192 (EARLY_LOADS) the loader is the
   // first thread of warpgroup 0.  At its turn for tile j, warpgroup 1 has
@@ -291,8 +270,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     hp::bar_arrive_tx(&bar_q, C::Q_BYTES);
 #pragma unroll
     for (int i = 0; i < C::NB; ++i)
-      load_box(true, smem + i * C::Q_BOX, &q_map, &bar_q, q_perm, 64 * i, h,
-               q0, b);
+      hp::attn_load_box(true, smem + i * C::Q_BOX, &q_map, &bar_q, q_perm,
+                        64 * i, h, q0, b);
     for (int t = 0; t < min(ST, n_kv); ++t) {
       load_k(true, t);
       load_v(true, t);
@@ -450,32 +429,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// A 4-D map of a (B, H, S, D) bf16 tensor with unit stride on D and element
-// strides sb, sh, ss: dimension 0 is D, dimensions 1..3 are h, s and b in
-// the order of their strides; the box is 64 x (1 head, `rows` positions, 1
-// batch).  Returns the map dimension of h, s and b in `perm`.
-bool attn_map(CUtensorMap* map, int* perm, const void* ptr, int B, int H,
-              int S, int D, ll sb, ll sh, ll ss, int rows) {
-  struct Dim {
-    ll stride;
-    int size, box, role;                      // role: 0 h, 1 s, 2 b
-  } dims[3] = {{sh, H, 1, 0}, {ss, S, rows, 1}, {sb, B, 1, 2}};
-  std::stable_sort(dims, dims + 3, [](const Dim& a, const Dim& c) {
-    return a.stride < c.stride;
-  });
-  cuuint64_t gd[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t gs[3];
-  cuuint32_t box[4] = {64, 0, 0, 0};
-  *perm = 0;
-  for (int i = 0; i < 3; ++i) {
-    gd[i + 1] = (cuuint64_t)dims[i].size;
-    gs[i] = (cuuint64_t)dims[i].stride * 2;
-    box[i + 1] = (cuuint32_t)dims[i].box;
-    *perm |= (i + 1) << (2 * dims[i].role);
-  }
-  return hp::encode_bf16(map, ptr, 4, gd, gs, box);
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Hq, int Hkv, int S, const ll* st,
@@ -484,9 +437,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   using C = Cfg<D>;
   CUtensorMap qm, km, vm;
   int qp, kp, vp;
-  if (!attn_map(&qm, &qp, q, B, Hq, S, D, st[0], st[1], st[2], BQ) ||
-      !attn_map(&km, &kp, k, B, Hkv, S, D, st[3], st[4], st[5], C::BK) ||
-      !attn_map(&vm, &vp, v, B, Hkv, S, D, st[6], st[7], st[8], C::BK))
+  if (!hp::attn_map(&qm, &qp, q, B, Hq, S, D, st[0], st[1], st[2], BQ) ||
+      !hp::attn_map(&km, &kp, k, B, Hkv, S, D, st[3], st[4], st[5], C::BK) ||
+      !hp::attn_map(&vm, &vp, v, B, Hkv, S, D, st[6], st[7], st[8], C::BK))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,

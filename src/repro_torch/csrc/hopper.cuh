@@ -1,5 +1,7 @@
-// Hopper building blocks of the grouped matmul (moe_gmm.cu) and the flash
-// attention forward (flash_attention.cu), as inline PTX for sm_90a:
+// Hopper building blocks of the grouped matmul (moe_gmm.cu), the flash
+// attention forward and backward (flash_attention.cu,
+// flash_attention_bwd.cu) and the fused cross entropy (cross_entropy.cu), as
+// inline PTX for sm_90a:
 //  * mbarrier: init, arrive, arrive with an expected transaction count, and
 //    a wait on a phase's parity, which traps after 2^20 tries (seconds), so
 //    that a lost arrival fails the launch instead of hanging the card;
@@ -7,11 +9,15 @@
 //    that complete on an mbarrier, and the host-side encoding of their
 //    tensor maps through the driver entry point (no -lcuda on the link
 //    line);
-//  * bulk stores of a run of bytes from shared memory to device memory;
+//  * bulk copies of a run of bytes: loads into shared memory that complete
+//    on an mbarrier (predicated), and stores from shared memory;
+//  * the 4-D tensor map of an attention operand (B, H, S, D) read through
+//    its strides, and its box loads;
 //  * wgmma shared-memory matrix descriptors for tiles that TMA wrote with
 //    the 128-byte swizzle, K-major and MN-major;
 //  * wgmma.mma_async m64nNk16, bf16 in and fp32 accumulators, with both
-//    operands in shared memory or A in registers; fence, commit and wait.
+//    operands in shared memory (ss: N 16, 64, 128, 256) or A in registers
+//    (rs: N 64, 128, 192); fence, commit and wait.
 //
 // No setmaxnreg: ptxas (CUDA 12.9) allocates one register budget to every
 // path of a kernel, the one its launch bounds allow (168 a thread at 384
@@ -29,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace repro {
 namespace hopper {
@@ -168,9 +176,21 @@ __device__ __forceinline__ void tma_load_4d_if(bool p, void* dst,
 }
 
 // ---------------------------------------------------------------------------
-// bulk stores from shared memory (no tensor map): a run of bytes, 16-byte
-// aligned at both ends, tracked per thread in bulk groups
+// bulk copies (no tensor map): a run of bytes, 16-byte aligned at both ends
+// and a multiple of 16 long.  Loads complete on an mbarrier, as TMA tile
+// loads do; stores are tracked per thread in bulk groups.
 // ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void bulk_load_if(bool p, void* dst,
+                                             const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .pred act;\nsetp.ne.b32 act, %0, 0;\n"
+      "@act cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%1], [%2], %3, [%4];\n}\n" ::"r"((int)p),
+      "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
 // Makes this thread's ordinary shared-memory writes visible to the async
 // proxy (TMA and bulk copies) before it reads them.
@@ -274,8 +294,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R][C]) {
 // from shared-memory descriptors, TA / TB = 1 for an MN-major operand; rs:
 // A from four registers a thread (the m16n8k16 A fragment of the thread's
 // warp, rows 16·warp .. + 15), B from a descriptor.  acc = 0 overwrites D.
-// Only the shapes the kernels use: ss at N 16 and 256 (moe_gmm), rs at N
-// 64, 128 and 192 (flash: Q·K^T at 64 and 128 keys, P·V at D 64 / 128 / 192).
+// Only the shapes the kernels use: ss at N 16 and 256 (moe_gmm, cross
+// entropy), 64 (flash backward: S^T = K·Q^T and dP^T = V·dO^T over 64
+// queries) and 128 (flash backward: S = Q·K^T and dP = dO·V^T over 128
+// keys); rs at N 64, 128 and 192 (flash forward: Q·K^T at 64 and 128 keys,
+// P·V at D 64 / 128 / 192; flash backward: P^T·dO, dS^T·Q and dS·K at D
+// 128).
 // D's layout: warp w of the warpgroup holds rows 16w + lane/4 (registers
 // 4j, 4j+1) and 16w + lane/4 + 8 (4j+2, 4j+3), columns 8j + 2·(lane%4) + {0,1}.
 template <int N>
@@ -300,6 +324,28 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[32],
                                             const uint32_t (&a)[4],
@@ -327,6 +373,39 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
@@ -498,6 +577,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The card's SM count, read once (a persistent grid's size).
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 132;
+  }();
+  return n;
+}
+
 // A bf16 tensor map of `rank` dimensions, innermost first: dims[i]
 // elements, byte strides of dims 1.. (dim 0 is contiguous), a box of
 // box[i] elements (box[0] = 64, 128 bytes), the 128-byte swizzle and zeros
@@ -513,6 +603,50 @@ inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// attention operands: a (B, H, S, D) bf16 tensor read through its strides
+// ---------------------------------------------------------------------------
+
+// A 4-D map of a (B, H, S, D) bf16 tensor with unit stride on D and element
+// strides sb, sh, ss: dimension 0 is D, dimensions 1..3 are h, s and b in
+// the order of their strides; the box is 64 x (1 head, `rows` positions, 1
+// batch).  Returns the map dimension of h, s and b in `perm`.
+inline bool attn_map(CUtensorMap* map, int* perm, const void* ptr, int B,
+                     int H, int S, int D, long long sb, long long sh,
+                     long long ss, int rows) {
+  struct Dim {
+    long long stride;
+    int size, box, role;                      // role: 0 h, 1 s, 2 b
+  } dims[3] = {{sh, H, 1, 0}, {ss, S, rows, 1}, {sb, B, 1, 2}};
+  std::stable_sort(dims, dims + 3, [](const Dim& a, const Dim& c) {
+    return a.stride < c.stride;
+  });
+  cuuint64_t gd[4] = {(cuuint64_t)D, 0, 0, 0};
+  cuuint64_t gs[3];
+  cuuint32_t box[4] = {64, 0, 0, 0};
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    gd[i + 1] = (cuuint64_t)dims[i].size;
+    gs[i] = (cuuint64_t)dims[i].stride * 2;
+    box[i + 1] = (cuuint32_t)dims[i].box;
+    *perm |= (i + 1) << (2 * dims[i].role);
+  }
+  return encode_bf16(map, ptr, 4, gd, gs, box);
+}
+
+// The box of an attn_map at (d, h, s, b), predicated on p: `perm` holds the
+// map dimension (1..3) of h, s and b in bits 0-1, 2-3 and 4-5.
+__device__ __forceinline__ void attn_load_box(bool p, void* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int perm, int d,
+                                              int h, int s, int b) {
+  const int ph = perm & 3, ps = (perm >> 2) & 3;
+  const int c1 = ph == 1 ? h : ps == 1 ? s : b;
+  const int c2 = ph == 2 ? h : ps == 2 ? s : b;
+  const int c3 = ph == 3 ? h : ps == 3 ? s : b;
+  tma_load_4d_if(p, dst, map, bar, d, c1, c2, c3);
 }
 
 }  // namespace hopper

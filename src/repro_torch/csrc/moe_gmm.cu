@@ -453,16 +453,6 @@ bool gmm_args_ok(int T, int K, int N, int E) {
          E <= MAX_E;
 }
 
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 132;
-  }();
-  return n;
-}
-
 }  // namespace
 
 // x: (T, K) bf16 contiguous, rows sorted by expert; w: (E, K, N) bf16
@@ -484,7 +474,7 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w,
   cudaError_t err = cudaFuncSetAttribute(
       moe_gmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (int)std::min(units, (ll)sm_count());
+  const int grid = (int)std::min(units, (ll)hp::sm_count());
   moe_gmm_kernel<<<grid, P_THREADS, P_SMEM,
                    static_cast<cudaStream_t>(stream)>>>(
       xm, wm, static_cast<const int*>(group_sizes), static_cast<bf16*>(out),
@@ -513,7 +503,7 @@ extern "C" int moe_gmm_decode_fwd(const void* x, const void* w,
     if (err != cudaSuccess) return static_cast<int>(err);
     per_sm = std::max(per_sm, 1);
   }
-  const int grid = (int)std::min(blocks, (ll)per_sm * sm_count());
+  const int grid = (int)std::min(blocks, (ll)per_sm * hp::sm_count());
   moe_gmm_decode_kernel<<<grid, D_THREADS, D_SMEM,
                           static_cast<cudaStream_t>(stream)>>>(
       xm, wm, static_cast<const int*>(group_sizes), static_cast<bf16*>(out),

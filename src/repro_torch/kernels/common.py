@@ -204,9 +204,10 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # remain.
     "decode_attention/card_bf16": (1e-2, 2.0 ** -7),
     # CE forward: the products of bf16 values are exact in fp32 on both
-    # sides (mma.sync bf16 -> fp32 here, an fp32 product with TF32 off in
-    # the plain version); only the order of the D = 3584 fp32 sums and of
-    # the online logsumexp differs.  lse ~ 12, logits ~ N(0, 1).
+    # sides (wgmma bf16 -> fp32 here, an fp32 product with TF32 off in the
+    # plain version); only the order of the D = 3584 fp32 sums and of the
+    # logsumexp (a tile of 256 columns, then the tiles merged in a fixed
+    # order) differs.  lse ~ 12, logits ~ N(0, 1).
     "cross_entropy/card_bf16": (1e-4, 1e-5),
     # rmsnorm backward: dx in bf16 from the same fp32 arithmetic as the plain
     # version (one bf16 rounding, one ulp at a boundary); dw in fp32 sums
@@ -230,7 +231,7 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # |y| >= 128).  REL_L2 below holds the whole tensor.
     "ssd/card_bf16": (1e-2, 2.0 ** -7),
     # Grouped matmul: products of bf16 values are exact in fp32 on both
-    # sides (mma.sync here, an fp32 product with TF32 off in the plain
+    # sides (wgmma here, an fp32 product with TF32 off in the plain
     # version); the D fp32 sums run in another order, so an output next to
     # a rounding boundary rounds the other way: one bf16 ulp (on the H100 at
     # most 3.1e-2, at |y| in [4, 8)).  REL_L2 below holds the whole tensor.
@@ -385,11 +386,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.restype = i
     lib.flash_attention_bwd.argtypes = [
         p, p, p, p, p, p,                 # q, k, v, o, do, lse
-        p, p, p, p,                       # dq, dk, dv, delta scratch
+        p, p, p, p,                       # dq, dk, dv, (lse, Delta) scratch
         i, i, i, i, i,                    # B, Hq, Hkv, S, D
         *([i64] * 24),                    # (b, h, s) strides: q k v o do dq dk dv
         f, i, i, p]                       # scale, causal, window, stream
     lib.flash_attention_bwd.restype = i
+    lib.flash_attention_bwd_rows.argtypes = []
+    lib.flash_attention_bwd_rows.restype = i
     lib.cross_entropy_fwd.argtypes = [
         p, p, p,                          # x (T, D), w (D, V), labels (T,)
         p, p,                             # lse, label logit (T,) fp32

@@ -5,8 +5,9 @@ Replaces ``src/repro/kernels/cross_entropy/kernel.py:ce_forward_pallas`` and
 the chunked forward the JAX package takes for a padded head; the source's
 header says what bounds the kernel on the H100 and how its design answers
 that.  This module checks what the kernel takes, allocates the outputs and
-the per-split scratch, launches (split pass + merge pass) on PyTorch's
-current stream and counts the launch.
+the scratch of per-tile partials (one (m, l, label logit) a token for each
+tile of ``cross_entropy_split()`` vocabulary columns), launches (tile pass +
+merge pass) on PyTorch's current stream and counts the launch.
 """
 
 from __future__ import annotations

@@ -123,6 +123,14 @@ def flash_bwd_launch_args(q, k, v, o, lse, do, dq, dk, dv, *,
     return (*args[:5], *strides, *args[17:])
 
 
+def flash_bwd_scratch_shape(q, rows: int) -> tuple:
+    """The backward's fp32 scratch: a (lse·log2e, Delta) pair for each
+    (batch, q head, row), the rows padded to a multiple of ``rows`` (the
+    kernel's ``flash_attention_bwd_rows()``)."""
+    B, Hq, S = q.shape[:3]
+    return (B, Hq, -(-S // rows) * rows, 2)
+
+
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0, scale: float | None = None):
     """The gradient of flash attention: (dq, dk, dv), each with the shape,
@@ -132,12 +140,13 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args = flash_bwd_launch_args(q, k, v, o, lse, do, dq, dk, dv,
                                  causal=causal, window=window, scale=scale)
-    B, Hq, S = q.shape[:3]
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    status = library().flash_attention_bwd(
+    lib = library()
+    shape = flash_bwd_scratch_shape(q, lib.flash_attention_bwd_rows())
+    rows = torch.empty(shape, dtype=torch.float32, device=q.device)
+    status = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), *args, stream_ptr(q.device))
+        dv.data_ptr(), rows.data_ptr(), *args, stream_ptr(q.device))
     check_status("flash_attention_bwd", status)
     count_launch("flash_attention_bwd")
     return dq, dk, dv

@@ -50,6 +50,7 @@ from repro_torch.kernels.cross_entropy.ref import (ce_backward_chunked,
                                                    cross_entropy_ref)
 from repro_torch.kernels.decode_attention.kernel import decode_launch_args
 from repro_torch.kernels.flash_attention.kernel import (flash_bwd_launch_args,
+                                                        flash_bwd_scratch_shape,
                                                         flash_launch_args)
 from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import \
@@ -531,6 +532,37 @@ def test_ce_launch_args_and_refusals():
         ce_launch_args(x, w, lab, V + 1, 2048)
     with pytest.raises(ValueError):                      # not contiguous
         ce_launch_args(x[:, :1024], w[:1024], lab, V, 2048)
+
+
+@pytest.mark.parametrize("T,D,V,n_valid,n_split", [
+    (8192, 3584, 152064, 152064, 594),   # the train step: 594 tiles exactly
+    (1000, 3584, 152064, 151000, 594),   # ragged T, padded head
+    (129, 3616, 5000, 4000, 20),         # D = 56·64 + 32, V a ragged tile
+    (128, 256, 512, 512, 2),             # the TrainLoop check's shape
+])
+def test_ce_scratch_at_the_kernels_tile(T, D, V, n_valid, n_split):
+    """The wrapper sizes the (3, n_split, T) scratch from the kernel's tile
+    of 256 columns (cross_entropy_split() in csrc/cross_entropy.cu); a D
+    that is 32 mod 64 is taken (its last slice reads zeros past D)."""
+    x = torch.zeros(T, D, dtype=torch.bfloat16)
+    w = torch.zeros(D, V, dtype=torch.bfloat16)
+    lab = torch.zeros(T, dtype=torch.int32)
+    assert ce_launch_args(x, w, lab, n_valid, 256) == (T, D, V, n_valid,
+                                                       n_split)
+    with pytest.raises(ValueError):                      # D % 32
+        ce_launch_args(x[:, :D - 16].contiguous(), w[:D - 16], lab, n_valid,
+                       256)
+
+
+@pytest.mark.parametrize("S,S_pad", [(2048, 2048), (129, 256), (77, 128),
+                                     (1, 128), (1000, 1024)])
+def test_flash_bwd_scratch_rows_padded(S, S_pad):
+    """The backward's (lse·log2e, Delta) rows are padded to the kernels'
+    multiple of 128 (flash_attention_bwd_rows() in
+    csrc/flash_attention_bwd.cu), so that every 64- and 128-row tile's rows
+    are one aligned bulk copy."""
+    q = torch.zeros(2, S, 7, 128, dtype=torch.bfloat16).transpose(1, 2)
+    assert flash_bwd_scratch_shape(q, 128) == (2, 7, S_pad, 2)
 
 
 # ---------------------------------------------------------------------------
