@@ -25,10 +25,6 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Wait until at most N committed groups are still in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

@@ -1,7 +1,7 @@
 // Hopper building blocks of the grouped matmul (moe_gmm.cu), the flash
 // attention forward and backward (flash_attention.cu,
-// flash_attention_bwd.cu) and the fused cross entropy (cross_entropy.cu), as
-// inline PTX for sm_90a:
+// flash_attention_bwd.cu), the fused cross entropy (cross_entropy.cu) and
+// the SSD scans (ssd_scan.cu, ssd_scan_wide.cu), as inline PTX for sm_90a:
 //  * mbarrier: init, arrive, arrive with an expected transaction count, and
 //    a wait on a phase's parity, which traps after 2^20 tries (seconds), so
 //    that a lost arrival fails the launch instead of hanging the card;
@@ -15,9 +15,13 @@
 //    its strides, and its box loads;
 //  * wgmma shared-memory matrix descriptors for tiles that TMA wrote with
 //    the 128-byte swizzle, K-major and MN-major;
+//  * TMA tile stores from shared memory (4-D, the attention-operand map),
+//    predicated bulk-group commits and waits, a predicated global store;
+//  * named barriers, stmatrix (plain and transposed) and the byte offset of
+//    a chunk in a 128-byte-swizzled tile;
 //  * wgmma.mma_async m64nNk16, bf16 in and fp32 accumulators, with both
-//    operands in shared memory (ss: N 16, 64, 128, 256) or A in registers
-//    (rs: N 64, 128, 192); fence, commit and wait.
+//    operands in shared memory (ss: N 16, 32, 64, 72, 128, 256) or A in
+//    registers (rs: N 64, 128, 192); fence, commit and wait.
 //
 // No setmaxnreg: ptxas (CUDA 12.9) allocates one register budget to every
 // path of a kernel, the one its launch bounds allow (168 a thread at 384
@@ -216,6 +220,106 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// A 4-D TMA tile store from shared memory (the box at the given
+// coordinates, innermost first), tracked in this thread's bulk groups;
+// elements outside the tensor are not written.  Predicated on p (see
+// tma_load_4d_if).
+__device__ __forceinline__ void tma_store_4d_if(bool p, const CUtensorMap* map,
+                                                uint32_t src, int c0, int c1,
+                                                int c2, int c3) {
+  asm volatile(
+      "{\n.reg .pred act;\nsetp.ne.b32 act, %0, 0;\n"
+      "@act cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"((int)p),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The store of an attn_map box at (d, h, s, b), predicated on p; `perm` as
+// in attn_load_box.
+__device__ __forceinline__ void attn_store_box_if(bool p,
+                                                  const CUtensorMap* map,
+                                                  uint32_t src, int perm,
+                                                  int d, int h, int s, int b) {
+  const int ph = perm & 3, ps = (perm >> 2) & 3;
+  const int c1 = ph == 1 ? h : ps == 1 ? s : b;
+  const int c2 = ph == 2 ? h : ps == 2 ? s : b;
+  const int c3 = ph == 3 ? h : ps == 3 ? s : b;
+  tma_store_4d_if(p, map, src, d, c1, c2, c3);
+}
+
+// bulk_commit, bulk_wait_read and bulk_wait predicated on p.
+__device__ __forceinline__ void bulk_commit_if(bool p) {
+  asm volatile(
+      "{\n.reg .pred act;\nsetp.ne.b32 act, %0, 0;\n"
+      "@act cp.async.bulk.commit_group;\n}\n" ::"r"((int)p)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read_if(bool p) {
+  asm volatile(
+      "{\n.reg .pred act;\nsetp.ne.b32 act, %0, 0;\n"
+      "@act cp.async.bulk.wait_group.read 0;\n}\n" ::"r"((int)p)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_if(bool p) {
+  asm volatile(
+      "{\n.reg .pred act;\nsetp.ne.b32 act, %0, 0;\n"
+      "@act cp.async.bulk.wait_group 0;\n}\n" ::"r"((int)p)
+      : "memory");
+}
+
+// Two floats to global memory, predicated on p: a store a kernel makes
+// between wgmma groups without a branch.
+__device__ __forceinline__ void st_global_v2_if(bool p, float* dst, float a,
+                                                float b) {
+  asm volatile(
+      "{\n.reg .pred act;\nsetp.ne.b32 act, %0, 0;\n"
+      "@act st.global.v2.f32 [%1], {%2, %3};\n}\n" ::"r"((int)p),
+      "l"(dst), "f"(a), "f"(b)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// named barriers (ids 1..15; 0 is __syncthreads) and stmatrix
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Four 8x8 bf16 matrices from the m16n8 fragment layout (register i: row
+// lane/4, columns 2·(lane%4) and + 1 of matrix i) into shared memory; lanes
+// 8i .. 8i + 7 give the addresses of matrix i's rows.  .trans stores each
+// matrix transposed: row r in memory holds column r of the fragment.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// Byte offset of the 16-byte chunk `chunk` of row `row` in a tile written
+// with the 128-byte swizzle (rows of 128 bytes, 8-row atoms).
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
 // Wait until this thread's bulk groups have completed.
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -295,11 +399,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R][C]) {
 // A from four registers a thread (the m16n8k16 A fragment of the thread's
 // warp, rows 16·warp .. + 15), B from a descriptor.  acc = 0 overwrites D.
 // Only the shapes the kernels use: ss at N 16 and 256 (moe_gmm, cross
-// entropy), 64 (flash backward: S^T = K·Q^T and dP^T = V·dO^T over 64
-// queries) and 128 (flash backward: S = Q·K^T and dP = dO·V^T over 128
+// entropy), 32 (ssd_scan: half of c·b^T), 64 (flash backward: S^T = K·Q^T
+// and dP^T = V·dO^T over 64 queries; the SSD scans), 72 (ssd_scan_wide's
+// last P tile) and 128 (flash backward: S = Q·K^T and dP = dO·V^T over 128
 // keys); rs at N 64, 128 and 192 (flash forward: Q·K^T at 64 and 128 keys,
 // P·V at D 64 / 128 / 192; flash backward: P^T·dO, dS^T·Q and dS·K at D
-// 128).
+// 128; ssd_scan: M·x and the state update).
 // D's layout: warp w of the warpgroup holds rows 16w + lane/4 (registers
 // 4j, 4j+1) and 16w + lane/4 + 8 (4j+2, 4j+3), columns 8j + 2·(lane%4) + {0,1}.
 template <int N>
@@ -318,6 +423,26 @@ struct Wgmma<16> {
         :
           "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };
@@ -368,6 +493,32 @@ struct Wgmma<64> {
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
           "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<72> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[36], uint64_t da,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35"
+        "}, %36, %37, p, 1, 1, %39, %40;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };
 

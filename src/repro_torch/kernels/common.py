@@ -88,7 +88,7 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0, "cross_entropy": 0,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
                             "ssd_scan": 0, "ssd_scan_wide": 0,
-                            "moe_gmm": 0}
+                            "ssd_wide_prep": 0, "moe_gmm": 0}
 
 
 def count_launch(name: str) -> None:
@@ -419,8 +419,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         *([i64] * 18),                    # (b, h, s) strides: c b x y la g
         p]                                # stream
     lib.ssd_scan_fwd.restype = i
-    lib.ssd_scan_wide_fwd.argtypes = lib.ssd_scan_fwd.argtypes
+    lib.ssd_scan_wide_fwd.argtypes = [
+        p, p, p, p, p,                    # c, b, x, log_a, gate
+        p, p, p,                          # y, s_final, the first pass's records
+        i, i, i, i, i,                    # B, H, S, N, P
+        *([i64] * 18),                    # (b, h, s) strides: c b x y la g
+        p]                                # stream
     lib.ssd_scan_wide_fwd.restype = i
+    lib.ssd_scan_wide_prep.argtypes = [
+        p, p, p, p, p,                    # c, b, log_a, gate, records
+        i, i, i,                          # B, H, S
+        *([i64] * 12),                    # (b, h, s) strides: c b la g
+        p]                                # stream
+    lib.ssd_scan_wide_prep.restype = i
+    lib.ssd_scan_wide_workspace.argtypes = [i, i, i]
+    lib.ssd_scan_wide_workspace.restype = i64
     lib.moe_gmm_fwd.argtypes = [
         p, p, p, p,                       # x, w, group_sizes, out
         i, i, i, i,                       # T, D, F, E

@@ -56,9 +56,11 @@ from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref as t_attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
-from repro_torch.kernels.ssd.kernel import ssd_launch_args
+from repro_torch.kernels.ssd.kernel import (WIDE_RECORD, ssd_launch_args,
+                                             wide_workspace_bytes)
 from repro_torch.kernels.ssd.ops import ssd_step
-from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.kernels.ssd.ref import (ssd_chunk_m, ssd_chunked_ref,
+                                          ssd_ref)
 
 RNG = np.random.default_rng(0)
 
@@ -764,3 +766,115 @@ def test_ssd_rel_l2_limit_rejects_dropped_inter_chunk_term():
     y_bad = torch.cat([p[0] for p in parts], dim=2)
     assert rel_l2(y_bad, y) > 10 * REL_L2["ssd/card_bf16"]
     assert rel_l2(parts[-1][1], s) > 10 * REL_L2["ssd_state/card_fp32"]
+
+
+# the chunked form the CUDA kernels compute (64-row chunks, a first pass of
+# M and gates in the wide kernel), held against the JAX package
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_head", "shared"])
+@pytest.mark.parametrize("N,P", [(16, 32), (32, 33)])
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_ssd_chunked_ref_matches_jax_ref_and_pallas(chunk, N, P, shared):
+    """The plain chunked version at chunk 64 (the kernels') and 128 (the
+    TPU kernel's), at a ones-column-like ragged P, with b and c per head or
+    shared by the heads (head stride 0, zamba2's layout), against JAX's
+    sequential ssd_ref and its Pallas kernel in interpret mode."""
+    B, H, S = 2, 3, 256
+    c, b, x, la, g = _ssd_inputs(B, H, S, N, P)
+    if shared:
+        c, b = (np.ascontiguousarray(np.broadcast_to(a[:, :1], a.shape))
+                for a in (c, b))
+    tc, tb = (torch.from_numpy(a[:, :1]).expand(B, H, S, N) if shared
+              else torch.from_numpy(a) for a in (c, b))
+    if shared:
+        assert tc.stride(1) == 0 and tb.stride(1) == 0
+    y, s = ssd_chunked_ref(tc, tb, *map(torch.from_numpy, (x, la, g)),
+                           chunk=chunk)
+    assert y.shape == (B, H, S, P) and s.shape == (B, H, N, P)
+    jargs = list(map(jnp.asarray, (c, b, x, la, g)))
+    for want_y, want_s in (jax_ssd_ref(*jargs),
+                           ssd_scan_pallas(*jargs, interpret=True,
+                                           chunk=chunk)):
+        _close(y, want_y, "ssd/cpu_fp32")
+        _close(s, want_s, "ssd/cpu_fp32")
+
+
+@pytest.mark.parametrize("S", [200, 1])
+def test_ssd_chunked_ref_ragged_matches_the_recurrence(S):
+    """A ragged last chunk and a single row: rows past S add nothing."""
+    args = [torch.from_numpy(a) for a in _ssd_inputs(2, 3, S, 16, 33)]
+    y, s = ssd_chunked_ref(*args, chunk=64)
+    want_y, want_s = ssd_ref(*args)
+    _close(y, want_y, "ssd/cpu_fp32")
+    _close(s, want_s, "ssd/cpu_fp32")
+
+
+def test_ssd_chunk_m_is_the_masked_decayed_cb_and_the_gates():
+    """The first pass's part (the card's oracle for the wide kernel's
+    records): M from its definition, computed here element by element, and
+    exp(l_i), w_j, exp(l_L); where l falls by more than 88 within a chunk
+    the mask, a select taken before the exp, leaves no inf or NaN."""
+    B, H, S, N, L = 1, 2, 100, 8, 64
+    c, b, x, la, g = _ssd_inputs(B, H, S, N, 4)
+    la = la - 3.0                        # l falls by > 190 a chunk
+    m, e, w, d = ssd_chunk_m(*map(torch.from_numpy, (c, b, la, g)), chunk=L)
+    assert m.shape == (B, H, 2, L, L) and e.shape == w.shape == (B, H, 2, L)
+    assert d.shape == (B, H, 2) and bool(torch.isfinite(m).all())
+    pad = lambda a: np.pad(a.astype(np.float64),
+                           [(0, 0), (0, 0), (0, 2 * L - S)]
+                           + [(0, 0)] * (a.ndim - 3))
+    cp, bp, lp, gp = pad(c), pad(b), pad(la), pad(g)
+    for k in range(2):
+        rows = slice(k * L, (k + 1) * L)
+        l = np.cumsum(lp[..., rows], -1)
+        want = np.zeros((B, H, L, L))
+        for i in range(L):
+            for j in range(i + 1):
+                want[..., i, j] = ((cp[..., rows, :][..., i, :]
+                                    * bp[..., rows, :][..., j, :]).sum(-1)
+                                   * np.exp(l[..., i] - l[..., j])
+                                   * gp[..., rows][..., j])
+        # l is an fp32 cumulative sum reaching ~190 here: its absolute
+        # error (~2e-5) is the relative error of each exp
+        np.testing.assert_allclose(m[:, :, k].numpy(), want, rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(e[:, :, k].numpy(), np.exp(l), rtol=1e-4,
+                                   atol=1e-30)
+        np.testing.assert_allclose(
+            w[:, :, k].numpy(), np.exp(l[..., -1:] - l) * gp[..., rows],
+            rtol=1e-4, atol=1e-30)
+        np.testing.assert_allclose(d[:, :, k].numpy(), np.exp(l[..., -1]),
+                                   rtol=1e-4, atol=1e-30)
+
+
+@pytest.mark.parametrize("shared_c,shared_b",
+                         [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("N,P,pitch", [(512, 513, 520), (64, 64, 64)])
+def test_ssd_launch_args_take_shared_c_and_b(N, P, pitch, shared_c,
+                                             shared_b):
+    """Both kernels take c and b with a head stride of 0 (one head's c and b
+    read by every head: zamba2's layout) beside per-head ones, and pass the
+    stride 0 on to the C call."""
+    B, H, S = 1, 2, 64
+    bf = torch.bfloat16
+    x = torch.zeros(B, S, H, pitch, dtype=bf)[..., :P].transpose(1, 2)
+    y = torch.empty(B, S, H, pitch, dtype=bf)[..., :P].transpose(1, 2)
+    la = torch.zeros(B, H, S)
+    per_head = torch.zeros(B, H, S, N, dtype=bf)
+    shared = torch.zeros(B, 1, S, N, dtype=bf).expand(B, H, S, N)
+    c = shared if shared_c else per_head
+    b = shared if shared_b else per_head
+    args = ssd_launch_args(c, b, x, la, la, y)
+    assert args[:5] == (B, H, S, N, P)
+    assert (args[6] == 0) == shared_c and (args[9] == 0) == shared_b
+
+
+@pytest.mark.parametrize("B,H,S,chunks", [(8, 4, 1024, 16), (3, 5, 300, 5),
+                                          (2, 4, 1, 1), (1, 1, 65, 2)])
+def test_wide_workspace_is_a_record_per_64_row_chunk(B, H, S, chunks):
+    """The wide kernel's workspace: one 17 KB record (M's two bf16 tiles,
+    the gates) per (batch, head, 64-row chunk); 8.9 MB at the prefill
+    shape."""
+    assert WIDE_RECORD == 2 * 64 * 64 * 2 + 1024
+    assert wide_workspace_bytes(B, H, S) == B * H * chunks * WIDE_RECORD
+    assert wide_workspace_bytes(B, H, S) % 16 == 0      # bulk copies
