@@ -8,7 +8,7 @@ Phases, each of which must pass:
 
 1. device  — name and power limit (nvidia-smi); TF32 off for fp32 products.
 2. build   — nvcc builds ``src/repro_torch/csrc/*.cu`` (one process a
-             source, in parallel); Triton compiles the rmsnorm kernel at a
+             source, in parallel); Triton compiles the rmsnorm forward at a
              first launch.  Both are timed; each CUDA kernel's registers
              and spills are printed (``ptxas -v``; the full text goes to
              ``chiprun_out/ptxas.txt``).
@@ -76,6 +76,20 @@ Phases, each of which must pass:
              ``build_trainer``'s ``TrainLoop`` at a small config (bf16, head
              dim 128) is preempted at step 2 and resumed from its checkpoint
              under ``build/``: its losses must equal an uninterrupted run's.
+13. consistency_audio, serve_audio — phases 4 and 5 for musicgen-medium
+             (audio: the dense stack fed by precomputed EnCodec-frame
+             embeddings, no embedding table) at its published width and
+             depth (48 layers, d_model 1536, 24 q heads over 24 kv heads of
+             64, gelu MLP of 6144), nothing cut.  Prompts and each decode
+             step's input are seeded N(0, 1) embeddings; the serve phase
+             drives ``serve/step.py``'s ``make_prefill_step`` and
+             ``make_decode_step`` over the same 16 requests in two waves (the
+             frontend is a stub, so the chosen token is recorded, not fed
+             back: each step is fed the next seeded embedding).
+14. consistency_vlm, serve_vlm — the same for internvl2-76b (vlm: patch
+             embeddings) at its published widths (d_model 8192, 64 q heads
+             over 8 kv heads of 128, swiglu MLP of 28672, vocab 128,256),
+             depth cut 80 -> 16 layers (the only cut).
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the kernels line reports each kernel's launches in the
@@ -115,12 +129,19 @@ LLAMA_ARCH = "llama3-405b"
 # llama3-405b's 126 are 810 GB; at 4 layers they are 46.5 and 33.9 GB
 NEMOTRON_LAYERS = 4
 LLAMA_LAYERS = 4
+AUDIO_ARCH = "musicgen-medium"
+VLM_ARCH = "internvl2-76b"
+# internvl2-76b's depth cut: a layer is 0.856 B parameters (1.71 GB in bf16)
+# and the LM head 2.1 GB, so 80 layers are ~139 GB and 16 are ~29.5 GB;
+# init_params draws one layer at a time, so the peak stays inside 80 GB
+VLM_LAYERS = 16
 PHASES = ("device", "build", "kernels", "consistency", "serve",
           "consistency_hybrid", "serve_hybrid", "consistency_moe",
           "serve_moe", "consistency_ssm", "serve_ssm",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
-          "train")
+          "train", "consistency_audio", "serve_audio", "consistency_vlm",
+          "serve_vlm")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -186,11 +207,12 @@ def ptxas_summary(text: str) -> dict:
             source = m.group(1)
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([A-Za-z_]+kernel)(?:IL[ib](\d+)E)?",
+            k = re.search(r"\d+([A-Za-z_]+kernel)(?:I((?:L[ib]\d+E)+)E)?",
                           m.group(1))
             name = k.group(1) if k else m.group(1)
-            kernel = f"{source} {name}" + (f"<{k.group(2)}>" if k and
-                                           k.group(2) else "")
+            targs = re.findall(r"L[ib](\d+)E", k.group(2) or "") if k else []
+            kernel = f"{source} {name}" + (f"<{','.join(targs)}>" if targs
+                                           else "")
             spill = ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -257,12 +279,14 @@ def kernel_phase(torch, timer, report):
     # ---- rmsnorm ---------------------------------------------------------
     errs = []
     # the served models' widths: qwen2-7b 3584, zamba2-1.2b 2048,
-    # granite-moe-3b-a800m 1536, starcoder2-15b 6144, nemotron-4-340b
-    # 18432, each at a prefill wave's 8 x 1024 rows and a decode step's 8;
-    # llama3-405b's 16384 at the consistency check's 2 x 1001
+    # granite-moe-3b-a800m and musicgen-medium 1536, starcoder2-15b 6144,
+    # internvl2-76b 8192, nemotron-4-340b 18432, each at a prefill wave's
+    # 8 x 1024 rows and a decode step's 8; llama3-405b's 16384 at the
+    # consistency check's 2 x 1001
     for shape, dtype in (((8192, 3584), bf16), ((8, 3584), bf16),
                          ((8192, 2048), bf16), ((8, 2048), bf16),
                          ((8192, 1536), bf16), ((8, 1536), bf16),
+                         ((8192, 8192), bf16), ((8, 8192), bf16),
                          ((8192, 6144), bf16), ((8, 6144), bf16),
                          ((8192, 18432), bf16), ((8, 18432), bf16),
                          ((2002, 16384), bf16),
@@ -320,7 +344,11 @@ def kernel_phase(torch, timer, report):
             (2, 96, 8, 1000, 192, True, 256),     # ragged S, windowed, D 192
             (1, 32, 32, 129, 64, True, 0),        # one row past a q tile
             (1, 28, 4, 129, 128, True, 0),
-            (1, 96, 8, 129, 192, True, 0)):
+            (1, 96, 8, 129, 192, True, 0),
+            (8, 24, 24, 1024, 64, True, 0),       # musicgen's prefill, G 1
+            (2, 24, 24, 1000, 64, True, 0),       # its consistency prompt
+            (8, 64, 8, 1024, 128, True, 0),       # internvl2's prefill, G 8
+            (2, 64, 8, 1000, 128, True, 0)):
         q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
         case = (f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} "
                 f"{'causal' if causal else 'full'} w{window}")
@@ -348,7 +376,8 @@ def kernel_phase(torch, timer, report):
 
     # qwen2-7b's prefill wave; the other served models' (zamba2's shared
     # block 32 q heads over 32 kv heads of 64, granite 24 over 8 of 64,
-    # starcoder2 48 over 4 of 128, nemotron 96 over 8 of 192)
+    # starcoder2 48 over 4 of 128, nemotron 96 over 8 of 192, musicgen 24
+    # over 24 of 64, internvl2 64 over 8 of 128)
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -357,7 +386,8 @@ def kernel_phase(torch, timer, report):
         "shapes": {label: flash_timings(8, 1024, *heads) for label, heads in
                    (("D64", (32, 32, 64)), ("granite", (24, 8, 64)),
                     ("starcoder2", (48, 4, 128)),
-                    ("nemotron", (96, 8, 192)))}})
+                    ("nemotron", (96, 8, 192)), ("musicgen", (24, 24, 64)),
+                    ("internvl2", (64, 8, 128)))}})
 
     # ---- decode attention ------------------------------------------------
     errs = []
@@ -366,7 +396,8 @@ def kernel_phase(torch, timer, report):
     # the served models' shapes at the decode path's lengths (qwen2-7b 28 q
     # heads over 4 of 128, zamba2's shared block 32 over 32 of 64, granite
     # 24 over 8 of 64, starcoder2-15b 48 over 4 of 128, llama3-405b 128 over
-    # 8, nemotron-4-340b 96 over 8 of 192), ragged lengths, and ragged
+    # 8, nemotron-4-340b 96 over 8 of 192, musicgen-medium 24 over 24 of
+    # 64, internvl2-76b 64 over 8 of 128), ragged lengths, and ragged
     # groups (1, 3, 5, 16 at D 64; 24, more than one block's 16, at D 128);
     # every head of each group is compared, those past the 8th too
     ragged = [1, 129, 2047, 2048, 128, 1000, 127, 1]
@@ -385,6 +416,8 @@ def kernel_phase(torch, timer, report):
             (8, 2048, 48, 4, 128, lens_path, False),
             (8, 2048, 128, 8, 128, lens_path, False),
             (8, 2048, 96, 8, 192, lens_path, False),
+            (8, 2048, 24, 24, 64, lens_path, False),
+            (8, 2048, 64, 8, 128, lens_path, False),
             (8, 2048, 48, 4, 128, ragged, True),
             (8, 2048, 96, 8, 192, ragged, True),
             (8, 2048, 4, 4, 64, ragged, False),
@@ -448,7 +481,9 @@ def kernel_phase(torch, timer, report):
                                         ("granite", (24, 8, 64)),
                                         ("starcoder2", (48, 4, 128)),
                                         ("llama3", (128, 8, 128)),
-                                        ("nemotron", (96, 8, 192)))}})
+                                        ("nemotron", (96, 8, 192)),
+                                        ("musicgen", (24, 24, 64)),
+                                        ("internvl2", (64, 8, 128)))}})
     torch.cuda.empty_cache()
     rows += ssd_rows(torch, timer, randn, check, report)
     rows += moe_gmm_rows(torch, timer, randn, check, report)
@@ -887,7 +922,8 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_ref)
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_triton
+    from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_bwd_cuda,
+                                                    rmsnorm_bwd_launch_args)
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
 
     bf16 = torch.bfloat16
@@ -1004,40 +1040,96 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
     del q, k, v, do, o, lse, lq, lk, lv, lo
 
     # ---- rmsnorm backward ------------------------------------------------
+    # the train step's (8192, 3584) bf16 (the bulk path: two blocks an SM,
+    # 2 slots each); nemotron-4-340b's width (8 vectors a thread, 2 slots
+    # beside w); rows
+    # of 1001 bf16, not 16-byte aligned, and of 65536 fp32, too wide for a
+    # 2-slot ring (the second path); one row; ragged fp32 and fp16
     eps = 1e-5
     errs = []
     for shape, dtype in (((8192, 3584), bf16), ((77, 1000), bf16),
-                         ((300, 3584), torch.float32)):
+                         ((300, 3584), torch.float32),
+                         ((1024, 18432), bf16), ((77, 1001), bf16),
+                         ((1, 3584), bf16), ((5, 65536), torch.float32),
+                         ((33, 4096), torch.float16)):
         x = randn(*shape, dtype=dtype)
         w = 1.0 + 0.1 * randn(shape[-1], dtype=torch.float32)
         dy = randn(*shape, dtype=dtype)
-        dx, dw = rmsnorm_bwd_triton(x, w, dy, eps)
+        dx, dw = rmsnorm_bwd_cuda(x, w, dy, eps)
         rdx, rdw = rmsnorm_bwd_ref(x, w, dy, eps)
-        case = f"x{shape} {str(dtype)[6:]}"
+        path = rmsnorm_bwd_launch_args(x, w, dy)[2]["path"]
+        case = f"x{shape} {str(dtype)[6:]} ({path})"
         errs.append(check("rmsnorm_bwd", case + " dx", dx, rdx))
         errs.append(check("rmsnorm_bwd_dw", case + " dw", dw, rdw))
     x, dy = randn(8192, 3584), randn(8192, 3584)
     w = 1.0 + 0.1 * randn(3584, dtype=torch.float32)
+    same_bits(torch, "rmsnorm_bwd", "x(8192, 3584) bf16",
+              lambda: rmsnorm_bwd_cuda(x, w, dy, eps))
     n = x.numel()
     b_ms, b_by = bound(3 * n * 2 + 2 * 3584 * 4, 8 * n, PEAK_FP32)
     lx = x.detach().requires_grad_()
     lw = w.to(bf16).requires_grad_()
     ly = F.rms_norm(lx, (3584,), lw, eps)
     rows.append({
-        "name": "rmsnorm_bwd", "route": "triton",
-        "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
+        "name": "rmsnorm_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
         "replaces": "no Pallas counterpart: the JAX package cannot "
                     "differentiate rmsnorm_pallas "
                     "(src/repro/kernels/rmsnorm/kernel.py:35)",
         "max_abs_err": max(errs),
-        "ms": timer.ms(lambda: rmsnorm_bwd_triton(x, w, dy, eps)),
+        "ms": timer.ms(lambda: rmsnorm_bwd_cuda(x, w, dy, eps)),
         "plain_ms": timer.ms(lambda: rmsnorm_bwd_ref(x, w, dy, eps)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: torch.autograd.grad(
-            ly, (lx, lw), dy, retain_graph=True))})
+            ly, (lx, lw), dy, retain_graph=True)),
+        # a second yardstick: one elementwise kernel moving the same bytes
+        # (reads two tensors, writes one), what a streaming pass reaches
+        "add_ms": timer.ms(lambda: torch.add(x, dy)),
+        "other_launches_ms": rmsnorm_bwd_other_launches(torch, timer, x, w,
+                                                        dy, eps)})
     del x, dy, w, lx, lw, ly
     torch.cuda.empty_cache()
     return rows
+
+
+def rmsnorm_bwd_other_launches(torch, timer, x, w, dy, eps) -> dict:
+    """The rmsnorm backward's launch at the train shape against two other
+    launches of the same kernel: one block an SM with 4 ring slots, and two
+    blocks an SM with 3.  dx must equal the default launch's bit for bit
+    (each row's arithmetic is the same; only dw's order of blocks moves)."""
+    from repro_torch.kernels.common import check_status, library, stream_ptr
+    from repro_torch.kernels.rmsnorm.kernel import (HEAD_BYTES,
+                                                    rmsnorm_bwd_cuda,
+                                                    rmsnorm_bwd_launch_args)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x2, dy2, a = rmsnorm_bwd_launch_args(x, w, dy, sms)
+    rows, D = a["rows"], a["D"]
+    want, _ = rmsnorm_bwd_cuda(x, w, dy, eps)
+    out = {}
+    for blocks, stages in ((1, 4), (2, 3)):
+        grid = min(rows, blocks * sms)
+        smem = HEAD_BYTES + 4 * D + stages * 2 * D * x.element_size()
+        dx, dw = torch.empty_like(x), torch.empty(D, device="cuda")
+        part = torch.empty(grid, D, device="cuda")
+
+        def call():
+            check_status("rmsnorm_bwd", library().rmsnorm_bwd(
+                x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+                dw.data_ptr(), part.data_ptr(), rows, D, a["sx"], a["sdy"],
+                D, eps, a["kind"], 1, grid, a["threads"], a["vpt"], stages,
+                smem, stream_ptr(x.device)))
+
+        call()
+        if not torch.equal(dx, want):
+            fail(f"rmsnorm_bwd at {blocks} blocks an SM, {stages} slots: dx "
+                 "differs from the default launch's")
+        label = f"{blocks} block{'s' * (blocks > 1)} an SM, {stages} slots"
+        out[label] = timer.ms(call)
+        log(f"  rmsnorm_bwd launch {label}: {out[label]:.4f} ms")
+    log(f"  rmsnorm_bwd launch {2 if a['vpt'] == 1 else 1} blocks an SM, "
+        f"{a['stages']} slots (the default): see the kernel line below")
+    return out
 
 
 def same_bits(torch, name, case, call):
@@ -1102,16 +1194,22 @@ def planted_fault(torch, report, q, k, v, o, lse, do):
 # 1.289e-2 against a floor of 1.473e-2, nemotron-4-340b at 4 layers
 # 1.064e-2 against 1.308e-2, llama3-405b at 4 layers 1.204e-2 against
 # 1.679e-2; each limit sits just below its floor, as qwen2-7b's does.
+# musicgen-medium (fed seeded embeddings; the floor perturbs them) reads
+# 1.4134e-2 against a floor of 1.5148e-2, internvl2-76b at 16 layers
+# 1.6974e-2 against 1.8978e-2; their limits sit just below the floors.
 CONSISTENCY_LIMIT = {(ARCH, None): 2e-2, (HYBRID_ARCH, None): 0.3,
                      (SSM_ARCH, None): 0.3, (SSM_ARCH, 8): 4e-2,
                      (HYBRID_ARCH, 8): 4e-2, (MOE_ARCH, None): 1.1e-2,
                      (STARCODER_ARCH, None): 1.45e-2,
                      (NEMOTRON_ARCH, NEMOTRON_LAYERS): 1.3e-2,
-                     (LLAMA_ARCH, LLAMA_LAYERS): 1.65e-2}
+                     (LLAMA_ARCH, LLAMA_LAYERS): 1.65e-2,
+                     (AUDIO_ARCH, None): 1.5e-2,
+                     (VLM_ARCH, VLM_LAYERS): 1.85e-2}
 
 
 def perturb_half_ulp(torch, tok, seed: int = 2) -> None:
-    """Multiply each entry of the embedding table ``tok`` by 1 + 2^-9·n, n
+    """Multiply each entry of the (rows, D) embedding table or input
+    embeddings ``tok`` by 1 + 2^-9·n, n
     ~ N(0, 1), in place: about half a bf16 ulp.  Row blocks of at most 2^26
     entries at a time, so the fp32 copies stay small beside a large table
     (nemotron-4-340b's is 4.7 G entries)."""
@@ -1147,17 +1245,20 @@ def scan_state_misses_last_row(c, b, x, log_a, gate):
     return y, s
 
 
-def decode_vs_forward(torch, params, cfg, toks):
-    """fp32 logits of token S+1 two ways: the forward over the S+1 tokens,
-    and prefill over S then one decode step."""
+def decode_vs_forward(torch, params, cfg, seq):
+    """fp32 logits of position S+1 two ways: the forward over the S+1
+    inputs, and prefill over S then one decode step.  ``seq`` is (B, S+1)
+    tokens, or (B, S+1, D) embeddings for the families fed precomputed
+    embeddings (vlm, audio)."""
     from repro_torch.models import decode_step, forward, prefill
 
-    S = toks.shape[1] - 1
-    hidden, _ = forward(params, {"tokens": toks}, cfg)
+    key = "tokens" if cfg.frontend == "none" else "embeds"
+    S = seq.shape[1] - 1
+    hidden, _ = forward(params, {key: seq}, cfg)
     full = (hidden[:, -1] @ params["lm_head"]).float()
     del hidden
-    _, state = prefill(params, {"tokens": toks[:, :S]}, cfg, max_len=1024)
-    dec, _ = decode_step(params, state, toks[:, S:S + 1], cfg)
+    _, state = prefill(params, {key: seq[:, :S]}, cfg, max_len=1024)
+    dec, _ = decode_step(params, state, seq[:, S:S + 1], cfg)
     return full, dec.float()
 
 
@@ -1188,13 +1289,21 @@ def consistency_phase(torch, np, report, arch=ARCH, layers=None):
         cfg = dataclasses.replace(cfg, n_layers=layers)
     limit = CONSISTENCY_LIMIT[arch, layers]
     ssd_model = arch in (HYBRID_ARCH, SSM_ARCH)
+    embeds = cfg.frontend != "none"
     with torch.inference_mode():
         params = init_params(cfg, torch.Generator(
             device="cuda").manual_seed(1), device="cuda")
         rng = np.random.default_rng(1)
         B, S = 2, 1000
-        toks = torch.from_numpy(
-            rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int64)).cuda()
+        if embeds:
+            # seeded N(0, 1) embeddings in the model's dtype, so that the
+            # half-ulp perturbation below is one of its inputs
+            toks = torch.from_numpy(rng.standard_normal(
+                (B, S + 1, cfg.d_model), dtype=np.float32)).cuda().to(
+                    torch.bfloat16)
+        else:
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab, (B, S + 1)).astype(np.int64)).cuda()
         full, dec = decode_vs_forward(torch, params, cfg, toks)
         variants = {}
         if ssd_model:
@@ -1208,10 +1317,16 @@ def consistency_phase(torch, np, report, arch=ARCH, layers=None):
                     variants["planted fault (state misses the last token)"] \
                         = decode_vs_forward(torch, params, cfg, toks)
         # the bf16 noise floor: the same forward with the embedding table
-        # perturbed by about half an ulp (one rounding at the input instead
-        # of the two paths' roundings in every layer)
-        perturb_half_ulp(torch, params["embed"]["tok"])
-        hidden, _ = forward(params, {"tokens": toks}, cfg)
+        # (or the input embeddings) perturbed by about half an ulp (one
+        # rounding at the input instead of the two paths' roundings in
+        # every layer)
+        if embeds:
+            toks = toks.clone()
+            perturb_half_ulp(torch, toks.view(-1, cfg.d_model))
+        else:
+            perturb_half_ulp(torch, params["embed"]["tok"])
+        hidden, _ = forward(params, {"embeds" if embeds else "tokens": toks},
+                            cfg)
         pert = (hidden[:, -1] @ params["lm_head"]).float()
         del hidden
     floor = float((pert - full).norm() / full.norm())
@@ -1555,6 +1670,14 @@ NEMOTRON_EXPECTED = {**STARCODER_EXPECTED,
                      "rmsnorm": (2 * NEMOTRON_LAYERS + 1) * (2 + 128),
                      "flash_attention": NEMOTRON_LAYERS * 2,
                      "decode_attention": NEMOTRON_LAYERS * 128}
+# musicgen-medium (48 layers) and internvl2-76b at VLM_LAYERS = 16: the same
+# per layer, fed embeddings (no embedding lookup, which is no kernel)
+AUDIO_EXPECTED = {**STARCODER_EXPECTED, "rmsnorm": (2 * 48 + 1) * (2 + 128),
+                  "flash_attention": 48 * 2, "decode_attention": 48 * 128}
+VLM_EXPECTED = {**STARCODER_EXPECTED,
+                "rmsnorm": (2 * VLM_LAYERS + 1) * (2 + 128),
+                "flash_attention": VLM_LAYERS * 2,
+                "decode_attention": VLM_LAYERS * 128}
 
 
 SERVE_TRAFFIC = dict(n_requests=16, n_lanes=8, prompt_len=1024, max_new=64,
@@ -1588,12 +1711,86 @@ def serve_cut(arch: str, layers: int) -> dict:
     return stats
 
 
+def serve_embeds(arch: str, layers=None) -> dict:
+    """The serve phases' traffic for a family fed precomputed embeddings
+    (vlm, audio), through ``serve/step.py``'s ``make_prefill_step`` and
+    ``make_decode_step`` (the JAX package's ``serve_demo`` feeds tokens
+    only): 16 requests over 8 lanes in the ``Batcher``, two waves, each
+    prefilled with a seeded N(0, 1) embedding of (8, 1024, D) and decoded
+    64 steps, each step fed a seeded (8, 1, D) embedding (the frontend is a
+    stub: no table embeds the chosen token, which is recorded).  The
+    embeddings are made on the host and copied to the card before each
+    wave's clock starts.  Returns ``serve_requests``' stats."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import check_card_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.batcher import Batcher, Request
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    t = SERVE_TRAFFIC
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    check_card_config(cfg, "cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    prefill = make_prefill_step(cfg, max_len=t["max_len"])
+    decode = make_decode_step(cfg)
+    lanes, S, D = t["n_lanes"], t["prompt_len"], cfg.d_model
+    rng = np.random.default_rng(0)
+    batcher = Batcher(n_lanes=lanes, max_len=t["max_len"])
+    for rid in range(t["n_requests"]):
+        batcher.submit(Request(rid=rid, prompt=None,
+                               max_new_tokens=t["max_new"]))
+    steps = produced = 0
+    prefill_s, decode_s = [], 0.0
+    wall = 0.0
+    while not batcher.idle:
+        wave = batcher.admit()
+        if not wave:
+            break
+        prompts = rng.standard_normal((lanes, S, D), dtype=np.float32)
+        inputs = rng.standard_normal((t["max_new"], lanes, 1, D),
+                                     dtype=np.float32)
+        for lane, req in wave:
+            req.prompt = prompts[lane]
+        prompts_d = torch.from_numpy(prompts).cuda()
+        inputs_d = torch.from_numpy(inputs).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, state = prefill(params, {"embeds": prompts_d})
+            nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+            prefill_s.append(time.perf_counter() - t0)
+            k = 0
+            while batcher.active_lanes():
+                produced += len(batcher.active_lanes())
+                batcher.record_tokens(nxt)
+                td = time.perf_counter()
+                nxt_t, _, state = decode(params, state, inputs_d[k])
+                nxt = nxt_t[:, 0].cpu().numpy()      # waits for the step
+                decode_s += time.perf_counter() - td
+                steps += 1
+                k += 1
+        wall += time.perf_counter() - t0
+        del prompts_d, inputs_d, state, logits
+    return {"requests": len(batcher.finished), "decode_steps": steps,
+            "tokens": produced, "tok_per_s": produced / max(wall, 1e-9),
+            "wall_s": wall, "prefill_s": prefill_s, "decode_s": decode_s}
+
+
 def serve_phase(torch, report, arch=ARCH, expected=EXPECTED, layers=None):
+    from repro_torch.configs import get_config
     from repro_torch.kernels.common import launches, reset_launches
     from repro_torch.launch.serve import serve_demo
     from repro_torch.models import moe
 
     def serve():
+        if get_config(arch).frontend != "none":
+            return serve_embeds(arch, layers)
         if layers is not None:
             return serve_cut(arch, layers)
         return serve_demo(arch, use_reduced=False, device="cuda",
@@ -1894,7 +2091,8 @@ def _kernel_table(prof, n_calls: int):
 
 
 OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
-        "decode_merge_kernel", "_rms_bwd_rows", "_dw_sum", "delta_kernel",
+        "decode_merge_kernel", "rms_bwd_ring_kernel", "rms_bwd_rows_kernel",
+        "rms_dw_sum_kernel", "delta_kernel",
         "dkdv_kernel", "dq_kernel", "ce_tile_kernel", "ce_merge_kernel",
         "ssd_scan_kernel", "ssd_scan_wide_kernel", "ssd_wide_prep_kernel",
         "moe_gmm_kernel",
@@ -1982,7 +2180,8 @@ def profile_serving(torch, np, report, arch, layers=None):
     """One prefill wave (B=8, S=1024) and 8 decode steps at full width (at
     ``layers`` layers where given) under torch.profiler, after a warm wave
     and 3 warm steps; for qwen2-7b also the host cost of one call of a few
-    kinds."""
+    kinds.  The families fed embeddings (vlm, audio) take seeded N(0, 1)
+    ones, a (8, 1, D) embedding at each step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1998,28 +2197,41 @@ def profile_serving(torch, np, report, arch, layers=None):
         params = init_params(cfg, torch.Generator(
             device="cuda").manual_seed(0), device="cuda")
         rng = np.random.default_rng(0)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1024))).cuda()
+        key = "tokens" if cfg.frontend == "none" else "embeds"
+        if key == "tokens":
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                 (8, 1024))).cuda()
+        else:
+            toks, step_in = (torch.from_numpy(rng.standard_normal(
+                (8, s, cfg.d_model), dtype=np.float32)).cuda()
+                for s in (1024, 1))
         decode = make_decode_step(cfg)
-        prefill(params, {"tokens": toks}, cfg, max_len=2048)   # warm
+        prefill(params, {key: toks}, cfg, max_len=2048)        # warm
         torch.cuda.synchronize()
         if arch == SSM_ARCH:          # before the profiler, which slows
             lines.append(slstm_share(torch, params, toks, cfg, report))
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            logits, state = prefill(params, {"tokens": toks}, cfg,
+            logits, state = prefill(params, {key: toks}, cfg,
                                     max_len=2048)
             nxt = logits.argmax(-1)[:, None].to(torch.int32)
             torch.cuda.synchronize()
             wall_p = time.perf_counter() - t0
         rows_p, busy_p, nk_p = _kernel_table(prof, 1)
+
+        def step(nxt, state):
+            out, _, state = decode(params, state,
+                                   nxt if key == "tokens" else step_in)
+            return out, state
+
         for _ in range(3):                                     # warm
-            nxt, _, state = decode(params, state, nxt)
+            nxt, state = step(nxt, state)
         torch.cuda.synchronize()
         n = 8
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                nxt, _, state = decode(params, state, nxt)
+                nxt, state = step(nxt, state)
                 nxt.cpu()                                      # as serving
             wall_d = (time.perf_counter() - t0) / n
         rows_d, busy_d, nk_d = _kernel_table(prof, n)
@@ -2115,6 +2327,10 @@ def profile_phase(torch, np, report, phases):
     if "serve_nemotron" in phases:
         lines += profile_serving(torch, np, report, NEMOTRON_ARCH,
                                  NEMOTRON_LAYERS)
+    if "serve_audio" in phases:
+        lines += profile_serving(torch, np, report, AUDIO_ARCH)
+    if "serve_vlm" in phases:
+        lines += profile_serving(torch, np, report, VLM_ARCH, VLM_LAYERS)
     for line in lines:
         log("  " + line)
     with open(OUT / "profile.txt", "w") as f:
@@ -2175,8 +2391,7 @@ def main() -> None:
     # ---- 2: build --------------------------------------------------------
     if set(phases) - {"device"}:
         from repro_torch.kernels.common import build_library, library
-        from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_bwd_triton,
-                                                        rmsnorm_triton)
+        from repro_torch.kernels.rmsnorm.kernel import rmsnorm_triton
         t0 = time.perf_counter()
         nvcc_out = io.StringIO()
         with contextlib.redirect_stdout(nvcc_out):
@@ -2190,12 +2405,11 @@ def main() -> None:
         t0 = time.perf_counter()
         one = torch.ones(1, 3584, device="cuda", dtype=torch.bfloat16)
         rmsnorm_triton(one, torch.ones(3584, device="cuda"))  # Triton compiles
-        rmsnorm_bwd_triton(one, torch.ones(3584, device="cuda"), one)
         torch.cuda.synchronize()
         report["triton_compile_s"] = time.perf_counter() - t0
         log(f"[build] nvcc: {lib_path.relative_to(ROOT)} in "
-            f"{report['build_s']:.1f} s; Triton rmsnorm forward and backward "
-            f"compiled in {report['triton_compile_s']:.1f} s")
+            f"{report['build_s']:.1f} s; Triton rmsnorm forward (the only "
+            f"Triton kernel) compiled in {report['triton_compile_s']:.1f} s")
 
     phase_s = report["phase_s"] = {}
 
@@ -2287,6 +2501,25 @@ def main() -> None:
     if "train" in phases:
         log("[train] make_train_step qwen2-7b full width, 4 layers")
         by_path["train"] = timed("train", train_phase, torch, np, report)
+    if "consistency_audio" in phases:
+        log(f"[consistency_audio] full-width {AUDIO_ARCH}, B=2, embeddings")
+        timed("consistency_audio", consistency_phase, torch, np, report,
+              AUDIO_ARCH)
+    if "serve_audio" in phases:
+        log(f"[serve_audio] make_prefill_step / make_decode_step "
+            f"{AUDIO_ARCH} full width, embeddings")
+        by_path["serve_audio"] = timed("serve_audio", serve_phase, torch,
+                                       report, AUDIO_ARCH, AUDIO_EXPECTED)
+    if "consistency_vlm" in phases:
+        log(f"[consistency_vlm] {VLM_ARCH} full width, {VLM_LAYERS} layers, "
+            f"B=2, embeddings")
+        timed("consistency_vlm", consistency_phase, torch, np, report,
+              VLM_ARCH, VLM_LAYERS)
+    if "serve_vlm" in phases:
+        log(f"[serve_vlm] make_prefill_step / make_decode_step {VLM_ARCH} "
+            f"full width, {VLM_LAYERS} layers, embeddings")
+        by_path["serve_vlm"] = timed("serve_vlm", serve_phase, torch, report,
+                                     VLM_ARCH, VLM_EXPECTED, VLM_LAYERS)
     if args.profile:
         log("[profile] full width, torch.profiler")
         profile_phase(torch, np, report, phases)

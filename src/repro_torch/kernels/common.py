@@ -211,7 +211,7 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     "cross_entropy/card_bf16": (1e-4, 1e-5),
     # rmsnorm backward: dx in bf16 from the same fp32 arithmetic as the plain
     # version (one bf16 rounding, one ulp at a boundary); dw in fp32 sums
-    # 8192 rows in another order (per-program partials, then a second pass).
+    # 8192 rows in another order (per-block partials, then a second pass).
     "rmsnorm_bwd/card_bf16": (1e-3, 2.0 ** -7),
     "rmsnorm_bwd_dw/card_bf16": (1e-3, 1e-4),
     # Flash backward: P and dS are rounded to bf16 for the tensor-core
@@ -441,6 +441,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.moe_gmm_fwd.restype = i
     lib.moe_gmm_decode_fwd.argtypes = lib.moe_gmm_fwd.argtypes
     lib.moe_gmm_decode_fwd.restype = i
+    lib.rmsnorm_bwd.argtypes = [
+        p, p, p, p, p, p,                 # x, w, dy, dx, dw, dw partials
+        i, i, i64, i64, i64,              # rows, D, row strides x dy dx
+        f, i, i,                          # eps, kind, path
+        i, i, i, i, i,                    # grid, threads, vpt, stages,
+                                          # shared bytes
+        p]                                # stream
+    lib.rmsnorm_bwd.restype = i
     lib.decode_attention_chunk.argtypes = []
     lib.decode_attention_chunk.restype = i
     lib.repro_cuda_error_string.argtypes = [i]

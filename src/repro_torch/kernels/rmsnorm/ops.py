@@ -1,13 +1,14 @@
-"""Public RMSNorm wrappers: the plain versions for a CPU tensor, the Triton
-kernels for a CUDA tensor.  Where a gradient is wanted, ``rmsnorm`` goes
-through an ``autograd.Function`` whose backward is ``rmsnorm_bwd``."""
+"""Public RMSNorm wrappers: the plain versions for a CPU tensor, the kernels
+for a CUDA tensor (the forward in Triton, the backward in CUDA C++).  Where a
+gradient is wanted, ``rmsnorm`` goes through an ``autograd.Function`` whose
+backward is ``rmsnorm_bwd``."""
 
 from __future__ import annotations
 
 import torch
 
 from ..common import kernel_device
-from .kernel import rmsnorm_bwd_triton, rmsnorm_triton
+from .kernel import rmsnorm_bwd_cuda, rmsnorm_triton
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 
@@ -20,7 +21,7 @@ def _forward(x, weight, eps):
 def rmsnorm_bwd(x, weight, dy, eps: float = 1e-6):
     """(dx, dw) of rmsnorm for the upstream gradient ``dy``."""
     if kernel_device(x, weight, dy) == "cuda":
-        return rmsnorm_bwd_triton(x, weight, dy, eps=eps)
+        return rmsnorm_bwd_cuda(x, weight, dy, eps=eps)
     return rmsnorm_bwd_ref(x, weight, dy, eps=eps)
 
 

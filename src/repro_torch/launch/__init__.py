@@ -14,8 +14,10 @@ def check_card_config(cfg: ModelConfig, device, *,
     """Raise ``ValueError`` before any parameter is allocated when ``cfg``
     would reach a CUDA kernel it does not take: the kernels take bf16, and
     the attention kernels the head dims of the repo's published configs
-    (the flash backward 128 only).  The reduced configs (fp32, head dim 32)
-    are for the CPU.  Nothing is checked for a CPU device."""
+    (the flash backward 128 only).  That holds for every family, the vlm
+    and audio ones (internvl2-76b at head dim 128, musicgen-medium at 64)
+    too.  The reduced configs (fp32, head dim 32) are for the CPU.  Nothing
+    is checked for a CPU device."""
     if torch.device(device).type != "cuda":
         return
     dims = sorted(set(HEAD_DIMS) & set(DECODE_HEAD_DIMS))

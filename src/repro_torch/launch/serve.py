@@ -87,11 +87,18 @@ def serve_demo(arch: str, *, n_requests: int = 8, n_lanes: int = 4,
     """Synthetic requests through the port's serving path.  Returns the JAX
     ``serve_demo``'s dict (requests, decode_steps, tokens, tok_per_s,
     wall_s) plus the prefill seconds of each wave and the summed decode
-    seconds."""
+    seconds.  Its prompts are tokens, as the JAX package's are: the vlm and
+    audio families, which take precomputed embeddings, raise before any
+    parameter is allocated (serve them through ``serve.step``)."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduce_cfg(cfg)
+    if cfg.frontend != "none":
+        raise ValueError(
+            f"{arch} takes precomputed embeddings (frontend "
+            f"{cfg.frontend!r}), not token prompts: serve it through "
+            "repro_torch.serve.step's make_prefill_step and make_decode_step")
     check_card_config(cfg, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

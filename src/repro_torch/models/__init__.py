@@ -1,4 +1,4 @@
-"""repro_torch.models — the LM substrate of the port (dense family).
+"""repro_torch.models — the LM substrate of the port.
 
 A :class:`ModelConfig` + the generic :mod:`repro_torch.models.model`
 machinery, as in ``repro.models``.

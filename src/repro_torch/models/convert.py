@@ -31,8 +31,15 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
     family's expert axis; (G, per) for the hybrid family's ``groups`` and T
     for its ``tail`` (:func:`hybrid_layout`); (n_seg, period - 1) for the
     ssm family's ``mlstm`` and n_seg for its ``slstm``
-    (:func:`ssm_layout`)."""
+    (:func:`ssm_layout`); and an ``embed`` table exactly where
+    ``cfg.frontend`` is "none" (the vlm and audio families take precomputed
+    embeddings and have none)."""
     device = resolve_device(device)
+    if ("embed" in tree) != (cfg.frontend == "none"):
+        raise ValueError(f"{cfg.name} (frontend {cfg.frontend!r}) "
+                         f"{'has' if cfg.frontend == 'none' else 'has no'} "
+                         f"embedding table; the tree "
+                         f"{'lacks' if 'embed' not in tree else 'has'} one")
     layers = tree.get("layers")
     if layers is not None:
         n = np.asarray(layers["attn"]["wq"]).shape[0]

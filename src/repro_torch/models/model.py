@@ -1,5 +1,6 @@
-"""Model assembly for the dense, moe, hybrid and ssm families: params,
-forward, prefill and decode (the counterpart of ``repro.models.model``).
+"""Model assembly for the dense, moe, hybrid, ssm, vlm and audio families:
+params, forward, prefill and decode (the counterpart of
+``repro.models.model``).
 
 Parameters are a dict tree shaped like the JAX package's: per-layer weights
 stacked on a leading layer axis, weights in the (in, out) layout.  Python
@@ -16,8 +17,11 @@ attention+MLP block, then a tail of Mamba2 layers.  The ssm family (xlstm)
 is served, not trained: ``n_layers / slstm_period`` segments, each
 ``slstm_period - 1`` mLSTM blocks (the SSD scan at N = d_head, P = d_head +
 1) and one sLSTM block (a sequential loop in plain torch), each block
-pre-normed and residual, with no attention and no MLP.  The vlm/audio
-frontends come with a later slice and raise here.
+pre-normed and residual, with no attention and no MLP.  The vlm family
+(internvl2) and the audio family (musicgen) are the dense layer stack fed by
+precomputed embeddings: their frontends (a ViT, EnCodec) are stubs in the
+JAX package too, so they have no embedding table; ``forward`` takes
+``{"embeds": (B, S, D)}`` and ``decode_step`` a (B, 1, D) embedding.
 """
 
 from __future__ import annotations
@@ -36,19 +40,6 @@ from .moe import moe_ffn
 from .ssm import mamba_block, mamba_decode_step
 from .xlstm import (mlstm_block, mlstm_decode_step, slstm_block,
                     slstm_decode_step, slstm_init_state)
-
-_LATER = {
-    "vlm": "the precomputed-embedding frontends",
-    "audio": "the precomputed-embedding frontends",
-}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; it "
-            f"comes with {_LATER[cfg.family]} (see ROADMAP.md A6)")
-
 
 def _layers(tree, n: int) -> list:
     """The per-layer views of a stacked parameter tree, from one
@@ -255,22 +246,22 @@ def init_params(cfg: ModelConfig,
     default a new one seeded with 0, as JAX's default key is PRNGKey(0)).
     Shapes, dtypes and scales follow the JAX package's ``init_params``,
     including the hybrid family's tree: ``groups`` (G, per, ...), ``tail``
-    (T, ...) and one ``shared_attn`` layer, and the ssm family's: ``mlstm``
-    (n_seg, period - 1, ...) and ``slstm`` (n_seg, ...).  The numbers
-    differ (torch and JAX generators differ — load JAX's parameters with
-    :func:`repro_torch.models.convert.params_from_numpy` to compare the
-    two).  Each layer is drawn straight into its slot of the stacked
-    tensor, so the fp32 draw is one layer at a time: a full-width model
-    needs no more than its bf16 size plus one layer's largest fp32
+    (T, ...) and one ``shared_attn`` layer, the ssm family's: ``mlstm``
+    (n_seg, period - 1, ...) and ``slstm`` (n_seg, ...), and no ``embed``
+    table where ``cfg.frontend`` feeds precomputed embeddings (vlm,
+    audio).  The numbers differ (torch and JAX generators differ — load
+    JAX's parameters with :func:`repro_torch.models.convert.params_from_numpy`
+    to compare the two).  Each layer is drawn straight into its slot of the
+    stacked tensor, so the fp32 draw is one layer at a time: a full-width
+    model needs no more than its bf16 size plus one layer's largest fp32
     matrix."""
-    _check_family(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
     dt = dtype_of(cfg)
     D = cfg.d_model
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         trunk = {"layers": _attn_layer_params(cfg, (cfg.n_layers,),
                                               generator, device)}
     elif cfg.family == "ssm":
@@ -278,26 +269,28 @@ def init_params(cfg: ModelConfig,
         trunk = {"mlstm": _mlstm_params(cfg, (n_seg, per), generator,
                                         device),
                  "slstm": _slstm_params(cfg, (n_seg,), generator, device)}
-    else:
+    elif cfg.family == "hybrid":
         n_groups, per, tail = hybrid_layout(cfg)
         trunk = {"groups": _mamba_params(cfg, (n_groups, per), generator,
                                          device)}
         if tail:
             trunk["tail"] = _mamba_params(cfg, (tail,), generator, device)
         trunk["shared_attn"] = _attn_layer_params(cfg, (), generator, device)
+    else:
+        raise ValueError(cfg.family)
 
     def empty(*shape):
         return torch.empty(shape, dtype=dt, device=device)
 
-    params: dict[str, Any] = {
-        "embed": {"tok": _dense_(empty(cfg.vocab_padded, D), generator,
-                                 scale=0.02)},
-        **trunk,
-        "final_norm": {"w": torch.ones(D, dtype=torch.float32,
-                                       device=device)},
-        "lm_head": _dense_(empty(D, cfg.vocab_padded), generator,
-                           scale=D ** -0.5),
-    }
+    params: dict[str, Any] = {}
+    if cfg.frontend == "none":
+        params["embed"] = {"tok": _dense_(empty(cfg.vocab_padded, D),
+                                          generator, scale=0.02)}
+    params.update(trunk)
+    params["final_norm"] = {"w": torch.ones(D, dtype=torch.float32,
+                                            device=device)}
+    params["lm_head"] = _dense_(empty(D, cfg.vocab_padded), generator,
+                                scale=D ** -0.5)
     return params
 
 
@@ -388,21 +381,34 @@ def _ssm_trunk(params, x, cfg: ModelConfig, collect: bool):
     return x, ({"mlstm": m_states, "slstm": s_states} if collect else None)
 
 
+def _input_key(cfg: ModelConfig) -> str:
+    """The inputs' key: "tokens", or "embeds" where ``cfg.frontend`` feeds
+    precomputed embeddings (vlm, audio)."""
+    return "tokens" if cfg.frontend == "none" else "embeds"
+
+
+def _trunk_input(params, token_or_embed, cfg: ModelConfig):
+    """The trunk's input in the model's dtype: (B, S) tokens embedded, or
+    (B, S, D) precomputed embeddings cast."""
+    if cfg.frontend == "none":
+        return embed(params["embed"], token_or_embed, cfg)
+    return token_or_embed.to(dtype_of(cfg))
+
+
 def forward(params, inputs: dict, cfg: ModelConfig, collect: bool = False):
-    """inputs: {"tokens": (B,S)}.  Returns (hidden (B,S,D), states), the
-    states None unless ``collect``: for the dense and moe families the
+    """inputs: {"tokens": (B,S)}, or {"embeds": (B,S,D)} for the vlm and
+    audio families.  Returns (hidden (B,S,D), states), the states None
+    unless ``collect``: for the dense, moe, vlm and audio families the
     per-layer (k, v), each (B, S, Hkv, dh); for the hybrid family {"mamba": the
     (conv_state (B, k-1, di) fp32, ssd_state (B, H, N, P) fp32) of each
     Mamba2 layer in order, "kv": the (k, v) of each application of the
     shared block}; for the ssm family {"mlstm": the (B, H, dh, dh + 1) fp32
     memory of each mLSTM block in order, "slstm": the (h, c, n, m) of each
     sLSTM block}."""
-    _check_family(cfg)
-    tokens = inputs["tokens"]
-    x = embed(params["embed"], tokens, cfg)
-    B, S = tokens.shape
+    x = _trunk_input(params, inputs[_input_key(cfg)], cfg)
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None].expand(B, S)
+                             device=x.device)[None].expand(B, S)
     if cfg.family in ("hybrid", "ssm"):
         if cfg.family == "hybrid":
             x, states = _hybrid_trunk(params, x, cfg, positions, collect)
@@ -441,13 +447,13 @@ def loss_fn(params, inputs: dict, cfg: ModelConfig):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=None, device=None):
     """Decode state: the per-lane KV caches (n, B, S_max, Hkv, dh), with n
-    the layers (dense, moe) or the applications of the shared block
-    (hybrid), and lengths (B,) int32.  The hybrid family adds a conv state
-    (L, B, k-1, di) and an SSD state (L, B, H, N, P) per Mamba2 layer, both
-    fp32.  The ssm family has no KV cache: its state is the mLSTM memories
-    (n_seg, period - 1, B, H, dh, dh + 1) and the sLSTM's (h, c, n, m), each
-    (n_seg, B, H, dh), all fp32 (m starts at -1e30), and the lengths."""
-    _check_family(cfg)
+    the layers (dense, moe, vlm, audio) or the applications of the shared
+    block (hybrid), and lengths (B,) int32.  The hybrid family adds a conv
+    state (L, B, k-1, di) and an SSD state (L, B, H, N, P) per Mamba2
+    layer, both fp32.  The ssm family has no KV cache: its state is the
+    mLSTM memories (n_seg, period - 1, B, H, dh, dh + 1) and the sLSTM's
+    (h, c, n, m), each (n_seg, B, H, dh), all fp32 (m starts at -1e30), and
+    the lengths."""
     device = resolve_device(device)
     if cfg.family == "ssm":
         n_seg, per = ssm_layout(cfg)
@@ -525,8 +531,9 @@ def _ssm_decode(params, state: dict, x, cfg: ModelConfig):
     return x
 
 
-def decode_step(params, state: dict, tokens, cfg: ModelConfig):
-    """One decode step.  tokens: (B, 1) int.  Returns (logits
+def decode_step(params, state: dict, token_or_embed, cfg: ModelConfig):
+    """One decode step.  token_or_embed: (B, 1) int, or a (B, 1, D)
+    embedding for the vlm and audio families.  Returns (logits
     (B, vocab_padded) fp32, new_state).
 
     The KV caches of ``state`` (see ``layers.attention_decode``), for the
@@ -536,8 +543,7 @@ def decode_step(params, state: dict, tokens, cfg: ModelConfig):
     package returns new arrays, and its new conv state has the model's
     dtype; here the fp32 buffer keeps the same values.)  A caller that needs
     the old state copies it first."""
-    _check_family(cfg)
-    x = embed(params["embed"], tokens, cfg)
+    x = _trunk_input(params, token_or_embed, cfg)
     cache_len = state["len"]
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, state, x, cfg)
@@ -557,16 +563,17 @@ def decode_step(params, state: dict, tokens, cfg: ModelConfig):
 
 
 def prefill(params, inputs: dict, cfg: ModelConfig, max_len: int):
-    """Run the full prompt, returning (last_logits, decode state): the K/V
-    of the trunk written into a ``max_len`` cache; for the hybrid family
+    """Run the full prompt (``tokens`` (B, S), or ``embeds`` (B, S, D) for
+    the vlm and audio families), returning (last_logits, decode state): the
+    K/V of the trunk written into a ``max_len`` cache; for the hybrid family
     also the conv and SSD states of each Mamba2 layer; for the ssm family
     the mLSTM and sLSTM states of each block (no cache)."""
-    tokens = inputs["tokens"]
-    B, S = tokens.shape
+    prompt = inputs[_input_key(cfg)]
+    B, S = prompt.shape[:2]
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
     hidden, states = forward(params, inputs, cfg, collect=True)
-    state = init_decode_state(cfg, B, max_len, device=tokens.device)
+    state = init_decode_state(cfg, B, max_len, device=prompt.device)
     kvs = states
     if cfg.family == "ssm":
         per = ssm_layout(cfg)[1]
@@ -585,6 +592,6 @@ def prefill(params, inputs: dict, cfg: ModelConfig, max_len: int):
         state["kv"]["k"][i, :, :S] = k        # in place into the new cache
         state["kv"]["v"][i, :, :S] = v
     state["len"] = torch.full((B,), S, dtype=torch.int32,
-                              device=tokens.device)
+                              device=prompt.device)
     logits = (hidden[:, -1] @ params["lm_head"]).float()
     return logits, state

@@ -16,9 +16,11 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
 
 
 def make_decode_step(cfg: ModelConfig):
-    """Greedy decode step: (next tokens (B, 1) int32, logits, state)."""
-    def decode(params, state, tokens):
-        logits, state = _decode_step(params, state, tokens, cfg)
+    """Greedy decode step: (next tokens (B, 1) int32, logits, state).  It
+    takes the (B, 1) tokens, or for the vlm and audio families a (B, 1, D)
+    embedding, passed through to ``decode_step`` unchanged."""
+    def decode(params, state, token_or_embed):
+        logits, state = _decode_step(params, state, token_or_embed, cfg)
         # mask padded vocab columns before sampling
         if cfg.vocab_padded > cfg.vocab:
             logits = logits.masked_fill(

@@ -55,6 +55,8 @@ from repro_torch.kernels.flash_attention.kernel import (flash_bwd_launch_args,
 from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref as t_attention_ref
+from repro_torch.kernels.rmsnorm.kernel import (DW_SUM_WARPS,
+                                                rmsnorm_bwd_launch_args)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
 from repro_torch.kernels.ssd.kernel import (WIDE_RECORD, ssd_launch_args,
                                              wide_workspace_bytes)
@@ -355,6 +357,115 @@ def test_rmsnorm_grad_matches_jax(shape):
     rmsnorm(tx, tw, eps=1e-5).backward(torch.from_numpy(dy))
     _close(tx.grad, jdx, key)
     _close(tw.grad, jdw, key)
+
+
+# The CUDA backward's launch (csrc/rmsnorm_bwd.cu): (rows, D, dtype, start
+# offset in elements) -> (path, grid, threads, vectors a thread, ring slots,
+# dynamic shared bytes), at 132 SMs.  Block b takes rows b, b + grid, ....
+# The bulk path's shared memory is the 384-byte head, w's fp32 copy and the
+# slots of x and dy rows.
+BWD_LAUNCHES = {
+    # the train step's shape: 448 threads x 8 bf16 cover D exactly; two
+    # blocks an SM of 2 slots each
+    "D3584 bf16": ((8192, 3584, torch.bfloat16, 0),
+                   ("bulk", 264, 448, 1, 2, 384 + 4 * 3584
+                    + 2 * 2 * 7168)),
+    # nemotron-4-340b's width: 2304 vectors, 8 a thread, one block an SM;
+    # w's copy (72 KB) leaves room for 2 slots of 72 KB
+    "D18432 bf16": ((264, 18432, torch.bfloat16, 0),
+                    ("bulk", 132, 288, 8, 2, 384 + 4 * 18432
+                     + 2 * 2 * 36864)),
+    # rows of 2002 bytes: not 16-byte aligned, the second path
+    "D1001 bf16": ((77, 1001, torch.bfloat16, 0),
+                   ("rows", 77, 512, 0, 0, 0)),
+    # rows of 256 KB: x and dy do not fit 2 slots in 227 KB
+    "D65536 fp32": ((16, 65536, torch.float32, 0),
+                    ("rows", 16, 512, 0, 0, 0)),
+    # an aligned width starting one element into its buffer
+    "D3584 bf16 offset": ((300, 3584, torch.bfloat16, 1),
+                          ("rows", 132, 512, 0, 0, 0)),
+    "0 rows": ((0, 3584, torch.bfloat16, 0),
+               ("bulk", 0, 448, 1, 2, 384 + 4 * 3584 + 2 * 2 * 7168)),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_LAUNCHES))
+def test_rmsnorm_bwd_launch_args(case):
+    (rows, D, dt, off), want = BWD_LAUNCHES[case]
+    buf = torch.empty(rows * D + off, dtype=dt)
+    x = buf[off:].view(rows, D)
+    w = torch.ones(D)
+    x2, dy2, a = rmsnorm_bwd_launch_args(x, w, x, sms=132)
+    assert x2.shape == dy2.shape == (rows, D)
+    got = tuple(a[k] for k in ("path", "grid", "threads", "vpt", "stages",
+                               "smem"))
+    assert got == want
+    assert (a["rows"], a["D"], a["sx"], a["sdy"]) == (rows, D, D, D)
+    assert a["kind"] == {torch.float32: 0, torch.bfloat16: 1}[dt]
+    assert a["grid"] <= min(rows, 2 * 132)        # every block takes a row
+    if a["path"] == "bulk":
+        blocks_an_sm = 2 if a["vpt"] == 1 else 1
+        assert blocks_an_sm * (a["smem"] + 1024) <= 232448 + 1024
+        assert a["stages"] >= 2
+        assert a["threads"] % 32 == 0 and \
+            a["threads"] * a["vpt"] * 16 >= D * x.element_size()
+    if case == "D3584 bf16":                      # 4 rows in flight an SM
+        assert a["threads"] * a["vpt"] * 8 == D and 2 * a["stages"] >= 3
+
+
+@pytest.mark.parametrize("bad", ["weight_dtype", "too_wide", "dy_shape",
+                                 "dy_dtype"])
+def test_rmsnorm_bwd_launch_args_refuse(bad):
+    D = 65537 if bad == "too_wide" else 256
+    x = torch.zeros(4, D, dtype=torch.bfloat16)
+    w = torch.ones(D, dtype=torch.bfloat16 if bad == "weight_dtype"
+                   else torch.float32)
+    dy = {"dy_shape": torch.zeros(5, D, dtype=torch.bfloat16),
+          "dy_dtype": torch.zeros(4, D)}.get(bad, x)
+    err = TypeError if bad == "weight_dtype" else ValueError
+    with pytest.raises(err):
+        rmsnorm_bwd_launch_args(x, w, dy, sms=132)
+
+
+def _dw_in_kernel_order(x, dy, w, eps, grid):
+    """dw as csrc/rmsnorm_bwd.cu sums it, in fp32: block b's partial adds
+    dy·x̂ over its rows b, b + grid, ... in order; rms_dw_sum_kernel sums
+    the partials by DW_SUM_WARPS residues (blocks b ≡ k, in increasing b),
+    then the residues in order."""
+    rstd = torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    contrib = dy * (x * rstd)
+    parts = []
+    for b in range(grid):
+        acc = torch.zeros(x.shape[-1])
+        for row in range(b, x.shape[0], grid):
+            acc = acc + contrib[row]
+        parts.append(acc)
+    dw = torch.zeros(x.shape[-1])
+    for k in range(DW_SUM_WARPS):
+        res = torch.zeros(x.shape[-1])
+        for b in range(k, grid, DW_SUM_WARPS):
+            res = res + parts[b]
+        dw = dw + res
+    return dw
+
+
+@pytest.mark.parametrize("rows,D", [(300, 96), (77, 1001)])
+def test_rmsnorm_bwd_dw_in_kernel_order_matches_jax(rows, D):
+    """dw summed as the kernel sums it (per-block partials over the rows
+    b, b + grid, ..., then the partials by warp residue) against jax.grad
+    of the JAX oracle, at a launch of many blocks (264 over 300 rows; 77 of
+    one row)."""
+    x, dy = _np(rows, D), _np(rows, D)
+    w = 1.0 + _np(D, scale=0.1)
+    _, vjp = jax.vjp(lambda w: rmsnorm_ref(jnp.asarray(x), w, eps=1e-5),
+                     jnp.asarray(w))
+    (jdw,) = vjp(jnp.asarray(dy))
+    tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
+    a = rmsnorm_bwd_launch_args(tx, tw, tdy, sms=132)[2]
+    assert a["grid"] > 8                          # every warp residue used
+    got = _dw_in_kernel_order(tx, tdy, tw, 1e-5, a["grid"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(jdw), atol=1e-5,
+                               rtol=1e-5)
 
 
 GRAD_CASES = [

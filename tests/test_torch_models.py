@@ -1,6 +1,7 @@
 """The port's dense model (``repro_torch.models``) against the JAX package's
 (``repro.models``) on the CPU, with JAX's parameters carried across by
-``params_from_numpy``.
+``params_from_numpy``; then the vlm and audio families (the same layer stack
+fed by precomputed embeddings) at their reduced configs.
 
 The config is the reduced qwen2-7b (float32, 2 layers, d_model 128, 4 q
 heads over 2 kv heads).  JAX's ``init_params`` makes the QKV biases zero and
@@ -23,13 +24,16 @@ from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
+from repro.models.model import loss_fn as jax_loss_fn
 from repro.models.layers import attention_block as jax_attention_block
 from repro.models.layers import attention_decode as jax_attention_decode
 from repro.models.layers import rope as jax_rope
 from repro.serve.step import make_decode_step as jax_make_decode_step
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
-from repro_torch.models import (decode_step, forward, init_params,
+from repro_torch.kernels.common import TOLERANCES
+from repro_torch.launch import check_card_config
+from repro_torch.models import (decode_step, forward, init_params, loss_fn,
                                 params_from_numpy, prefill)
 from repro_torch.models.layers import attention_block, attention_decode, rope
 from repro_torch.serve.step import make_decode_step
@@ -243,13 +247,6 @@ def test_decode_consistency_with_forward():
     assert torch.equal(dec.argmax(-1), full.argmax(-1))
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "musicgen-medium"])
-def test_unported_families_raise(arch):
-    cfg = t_reduced(t_get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, device="cpu")
-
-
 def test_params_from_numpy_keeps_layout_and_bf16():
     jcfg, tcfg = _cfgs(dtype="bfloat16")
     tree = jax.tree.map(np.asarray, jax_init_params(jcfg,
@@ -265,3 +262,154 @@ def test_params_from_numpy_keeps_layout_and_bf16():
     with pytest.raises(ValueError):
         params_from_numpy(tree, dataclasses.replace(tcfg, n_layers=3),
                           device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the vlm and audio families: the dense layer stack fed by precomputed
+# embeddings, no embedding table (reduced internvl2-76b: swiglu; reduced
+# musicgen-medium: gelu; each 2 layers, d_model 128, 4 q heads over 2 kv
+# heads).  Inputs as tests/test_models.py builds them: N(0, 1) embeddings
+# (B, S, d_model) and labels drawn from the vocabulary.
+# ---------------------------------------------------------------------------
+
+FRONTEND_ARCHS = ["internvl2-76b", "musicgen-medium"]
+
+
+def _embeds(rng, B, S, D):
+    return rng.normal(size=(B, S, D)).astype(np.float32)
+
+
+@pytest.fixture(scope="module", params=FRONTEND_ARCHS)
+def frontend(request):
+    jcfg, tcfg = _cfgs(request.param)
+    assert tcfg.frontend != "none" and tcfg.family in ("vlm", "audio")
+    jp, npt = _params(jcfg, seed=10)
+    return jcfg, tcfg, jp, npt
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items()
+                for pl in _paths(v, prefix + k + "/")]
+    return [(prefix[:-1], tree)]
+
+
+def _get(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def test_frontend_params_have_no_embedding_table(frontend):
+    jcfg, tcfg, _, npt = frontend
+    assert "embed" not in npt                       # the JAX package's tree
+    tp = params_from_numpy(npt, tcfg, device="cpu")
+    assert set(tp) == set(npt) == {"layers", "final_norm", "lm_head"}
+    fresh = init_params(tcfg, device="cpu")
+    got = {p: (tuple(t.shape), t.dtype) for p, t in _paths(fresh)}
+    want = {p: (a.shape, a.dtype) for p, a in _paths(npt)}
+    assert sorted(got) == sorted(want)
+    for p, (shape, dt) in got.items():
+        assert shape == want[p][0] and str(dt)[6:] == str(want[p][1]), p
+    table = {"tok": np.zeros((tcfg.vocab_padded, tcfg.d_model), np.float32)}
+    with pytest.raises(ValueError, match="has no embedding table"):
+        params_from_numpy({"embed": table, **npt}, tcfg, device="cpu")
+
+
+def test_frontend_forward_prefill_decode_match_jax(frontend):
+    jcfg, tcfg, jp, npt = frontend
+    tp = params_from_numpy(npt, tcfg, device="cpu")
+    rng = np.random.default_rng(11)
+    B, S, max_len = 2, 13, 20
+    emb = _embeds(rng, B, S + 2, jcfg.d_model)
+
+    jh, jkv = jax_forward(jp, {"embeds": jnp.asarray(emb)}, jcfg,
+                          collect=True)
+    th, tkv = forward(tp, {"embeds": _t(emb)}, tcfg, collect=True)
+    assert th.shape == (B, S + 2, tcfg.d_model)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    for i, (k, v) in enumerate(tkv):
+        np.testing.assert_allclose(k.numpy(), np.asarray(jkv[0][i]), **TOL)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jkv[1][i]), **TOL)
+
+    jl, js = jax_prefill(jp, {"embeds": jnp.asarray(emb[:, :S])}, jcfg,
+                         max_len=max_len)
+    tl, ts = prefill(tp, {"embeds": _t(emb[:, :S])}, tcfg, max_len=max_len)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_array_equal(ts["len"].numpy(), np.asarray(js["len"]))
+    for step in range(2):                   # two steps: the state carries
+        e = emb[:, S + step:S + step + 1]
+        jl, js = jax_decode_step(jp, js, jnp.asarray(e), jcfg)
+        tl, ts = decode_step(tp, ts, _t(e), tcfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(ts["kv"][name].numpy(),
+                                       np.asarray(js["kv"][name]), **TOL)
+
+
+def test_frontend_loss_and_every_grad_match_jax(frontend):
+    jcfg, tcfg, jp, npt = frontend
+    rng = np.random.default_rng(12)
+    B, S = 2, 17
+    inputs = {"embeds": _embeds(rng, B, S, jcfg.d_model),
+              "labels": rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)}
+    inputs["labels"][:, -3:] = -100               # padding: masked out
+    jloss, jgrads = jax.value_and_grad(jax_loss_fn)(
+        jp, jax.tree.map(jnp.asarray, inputs), jcfg)
+    tp = params_from_numpy(npt, tcfg, device="cpu")
+    flat = _paths(tp)
+    for _, t in flat:
+        t.requires_grad_(True)
+    loss = loss_fn(tp, {k: _t(v) for k, v in inputs.items()}, tcfg)
+    grads = torch.autograd.grad(loss, [t for _, t in flat])
+    atol, rtol = TOLERANCES["model_loss/cpu_fp32"]
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=atol,
+                               rtol=rtol)
+    jg = jax.tree.map(np.asarray, jgrads)
+    assert len(flat) == len(jax.tree.leaves(jg))
+    atol, rtol = TOLERANCES["model_grad/cpu_fp32"]
+    for (path, _), g in zip(flat, grads):
+        want = _get(jg, path)
+        assert g.shape == want.shape, path
+        np.testing.assert_allclose(g.numpy(), want, atol=atol, rtol=rtol,
+                                   err_msg=path)
+
+
+def test_frontend_prefill_decode_match_forward(frontend):
+    """Prefill S embeddings, then decode embedding S through the serving
+    step, against the forward over S + 1 (the check chip_smoke.py makes at
+    full width)."""
+    _, tcfg, _, npt = frontend
+    tp = params_from_numpy(npt, tcfg, device="cpu")
+    rng = np.random.default_rng(13)
+    B, S = 2, 12
+    emb = _t(_embeds(rng, B, S + 1, tcfg.d_model))
+    hidden, _ = forward(tp, {"embeds": emb}, tcfg)
+    full = (hidden[:, -1] @ tp["lm_head"]).float()
+    _, state = prefill(tp, {"embeds": emb[:, :S]}, tcfg, max_len=S + 4)
+    nxt, dec, state = make_decode_step(tcfg)(tp, state, emb[:, S:S + 1])
+    np.testing.assert_allclose(dec.numpy(), full.numpy(), **TOL)
+    assert torch.equal(nxt[:, 0].long(), full.argmax(-1))
+    assert state["len"].tolist() == [S + 1] * B
+
+
+@pytest.mark.parametrize("published", [True, False],
+                         ids=["published", "reduced"])
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_card_config_check_frontend_families(arch, published):
+    """On a CUDA device the published configs are taken (internvl2-76b's
+    head dim 128 for training too; musicgen-medium's 64 has no flash
+    backward) and the reduced ones refused, before any allocation."""
+    cfg = t_get_config(arch)
+    if published:
+        check_card_config(cfg, "cuda")
+        if cfg.d_head == 128:
+            check_card_config(cfg, "cuda", training=True)
+        else:
+            with pytest.raises(ValueError, match="--layers N"):
+                check_card_config(cfg, "cuda", training=True)
+        return
+    cfg = t_reduced(cfg)
+    for training in (False, True):
+        with pytest.raises(ValueError, match="float32 and head dim 32"):
+            check_card_config(cfg, "cuda", training=training)

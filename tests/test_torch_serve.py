@@ -146,6 +146,20 @@ def test_card_config_check_takes_published_configs(arch):
         check_card_config(cfg, "cuda", training=True)
 
 
+@pytest.mark.parametrize("arch", ["internvl2-76b", "musicgen-medium"])
+def test_serve_demo_refuses_embedding_families(arch, monkeypatch):
+    """serve_demo's prompts are tokens, as the JAX package's are: the vlm
+    and audio families (fed precomputed embeddings, served through
+    serve.step) raise before any parameter is allocated."""
+    def no_alloc(*args, **kwargs):
+        raise AssertionError("init_params ran before the check")
+
+    monkeypatch.setattr(t_serve, "init_params", no_alloc)
+    for reduced_cfg in (True, False):
+        with pytest.raises(ValueError, match="precomputed embeddings"):
+            serve_demo(arch, use_reduced=reduced_cfg, device="cpu")
+
+
 def test_entry_points_check_the_config_before_allocating(monkeypatch):
     """On a CUDA device, serve_demo and build_trainer raise for the reduced
     config before ``init_params`` allocates anything (the device is faked:
