@@ -90,6 +90,18 @@ Phases, each of which must pass:
              embeddings) at its published widths (d_model 8192, 64 q heads
              over 8 kv heads of 128, swiglu MLP of 28672, vocab 128,256),
              depth cut 80 -> 16 layers (the only cut).
+15. tabular — the paper's main path: ``examples/quickstart.py``'s batch
+             (3-fold CV of ridge and of a 20-tree GBT over
+             ``table_vectorizer`` features) built from ``repro_torch``, at
+             1,000,000 rows, through ``connect("local", ...)`` on the card
+             (16 GiB budget, compiled_segments=False, hardware_threads=8),
+             twice.  The plan must be the reference's (42 ops, 14 waves,
+             31 torch and 11 python ops), every torch op's output but
+             read's must live on the card, the second run must serve 40 ops
+             from the cache with equal scores, the torch tier's CV scores
+             at 100,000 rows must be within 1e-4 of the python tier's, two
+             GBT fits on the card must be equal bit for bit, and no hand
+             kernel may launch (none lies on this path).
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the kernels line reports each kernel's launches in the
@@ -141,7 +153,7 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
           "train", "consistency_audio", "serve_audio", "consistency_vlm",
-          "serve_vlm")
+          "serve_vlm", "tabular")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -2070,6 +2082,217 @@ def loop_phase(torch, report):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the tabular main path: examples/quickstart.py's batch on the card
+# ---------------------------------------------------------------------------
+
+TABULAR_ROWS = 1_000_000
+TABULAR_CHECK_ROWS = 100_000      # the tier comparison's size
+TABULAR_BUDGET = 16 << 30
+# the scheduler shapes its waves by the thread count (os.cpu_count() when
+# 0): fixed, so the plan is the reference's on any host
+TABULAR_THREADS = 8
+# the reference's plan for this batch at this size and budget
+# (repro.client.connect("local", ...) with compiled_segments=False)
+TABULAR_EXPECTED = {"submitted": 6, "planned": 42, "cse": 6, "pushed": 4,
+                    "waves": 14, "inter_op": 6,
+                    "tiers": {"torch": 31, "python": 11},
+                    "second_run_cache_hits": 40}
+TABULAR_TIER_RTOL = 1e-4
+
+
+def tabular_batch(T, data, rows):
+    """examples/quickstart.py's two pipelines, from the port: 3-fold CV of
+    ridge and of a 20-tree GBT over table_vectorizer features."""
+    from repro_torch.core import PipelineBatch
+
+    feats, tgt = data.feature_target_indices()
+    raw = T.read("uk_housing", n_rows=rows, seed=0)
+    y = T.project(raw, [tgt])
+    X = T.table_vectorizer(T.project(raw, feats), data.schema_dict(), feats)
+    ridge = T.cv_score(X, y, {"name": "ridge_fit", "alpha": 1.0}, k=3,
+                       seed=7)
+    gbt = T.cv_score(X, y, {"name": "gbt_fit", "n_trees": 20}, k=3, seed=7)
+    return PipelineBatch([ridge, gbt], ["ridge", "gbt"]), X, y
+
+
+def tabular_client(enable=None):
+    from repro_torch.client import StratumConfig, connect
+
+    kw = {} if enable is None else {"enable": enable}
+    return connect("local", StratumConfig.make(
+        memory_budget_bytes=TABULAR_BUDGET, compiled_segments=False,
+        hardware_threads=TABULAR_THREADS, **kw))
+
+
+def tabular_phase(torch, np, report):
+    import repro_torch.tabular as T
+    from repro_torch.core import ALL_FEATURES, PipelineBatch
+    from repro_torch.core.runtime import crossings, reset_crossings
+    from repro_torch.data import tabular as data
+    from repro_torch.kernels.common import launches, reset_launches
+    from repro_torch.tabular import gbt
+
+    t0 = time.perf_counter()
+    for rows in (TABULAR_ROWS, TABULAR_CHECK_ROWS):
+        data.ensure_files("uk_housing", rows, 0)
+    lake_s = time.perf_counter() - t0
+    log(f"  lake (CSV and .npy of {TABULAR_ROWS} and {TABULAR_CHECK_ROWS} "
+        f"rows) written in {lake_s:.1f} s, before the clock")
+
+    batch, X, y = tabular_batch(T, data, TABULAR_ROWS)
+    client = tabular_client()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runs = []
+    for _ in range(2):
+        reset_crossings()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, rep = client.run_batch(batch)
+        torch.cuda.synchronize()
+        runs.append((results, rep, time.perf_counter() - t0, crossings()))
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    (res1, rep1, wall1, cross1), (res2, rep2, wall2, cross2) = runs
+    scores = {k: float(v) for k, v in res1.items()}
+    got = {"submitted": rep1.ops_submitted, "planned": rep1.ops_planned,
+           "cse": rep1.rewrites.cse_merged,
+           "pushed": rep1.rewrites.projections_pushed,
+           "waves": rep1.run.waves,
+           "inter_op": rep1.plan.inter_op_parallelism,
+           "tiers": dict(rep1.run.per_backend),
+           "second_run_cache_hits": rep2.run.ops_from_cache}
+    log(f"  {TABULAR_ROWS} rows, budget {TABULAR_BUDGET >> 30} GiB, "
+        f"hardware_threads {TABULAR_THREADS}: scores {scores}")
+    for line in rep1.summary().splitlines():
+        log(f"    {line}")
+    log(f"  first run {wall1:.3f} s (optimize_time_s "
+        f"{rep1.optimize_time_s:.4f}), second run {wall2:.4f} s with "
+        f"{rep2.run.ops_from_cache} ops from the cache; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    for label, cross in (("first", cross1), ("second", cross2)):
+        log(f"  host<->device crossings, {label} run: {cross['to_device']} "
+            f"to the card ({cross['to_device_bytes'] / 2**20:.1f} MiB), "
+            f"{cross['to_host']} to the host "
+            f"({cross['to_host_bytes'] / 2**20:.1f} MiB)")
+    names = {op.signature: op.op_name for w in rep1.plan.waves
+             for op in w.ops}
+    off_card = sorted(
+        (names[sig], where) for sig, where in rep1.run.placement.items()
+        if rep1.run.sig_source[sig] == "torch" and names[sig] != "read"
+        and not all(w.startswith("cuda") for w in where))
+    read_out = [where for sig, where in rep1.run.placement.items()
+                if names[sig] == "read"]
+    log(f"  outputs of torch ops off the card: {off_card or 'none'} "
+        f"(read's, host numpy as the reference's: {read_out})")
+    same = {k: float(res2[k]) == v for k, v in scores.items()}
+    log(f"  second run's scores equal the first's bit for bit: {same}")
+
+    # the tiers against each other: the same batch at 100,000 rows through
+    # the torch tier on the card and through the python tier alone
+    tiers = {}
+    for label, enable in (("torch", None), ("python", tuple(
+            f for f in ALL_FEATURES if f != "selection"))):
+        small, _, _ = tabular_batch(T, data, TABULAR_CHECK_ROWS)
+        t0 = time.perf_counter()
+        res, rep = tabular_client(enable).run_batch(small)
+        torch.cuda.synchronize()
+        tiers[label] = ({k: float(v) for k, v in res.items()},
+                        dict(rep.run.per_backend),
+                        time.perf_counter() - t0)
+    rel = {k: abs(tiers["torch"][0][k] - v) / abs(v)
+           for k, v in tiers["python"][0].items()}
+    for label, (sc, per, wall) in tiers.items():
+        log(f"  {TABULAR_CHECK_ROWS} rows, {label} tier: scores {sc}, "
+            f"{per}, {wall:.2f} s")
+    log(f"  torch tier on the card against the python tier, relative "
+        f"difference: {rel} (limit {TABULAR_TIER_RTOL:g})")
+
+    # two GBT fits on the card, on the first fold's training rows
+    xtr, ytr, _, _ = T.kfold_split(X, y, 3, 0, seed=7)
+    fold, _ = client.run_batch(PipelineBatch([xtr, ytr], ["x", "y"]))
+    xt = torch.from_numpy(np.asarray(fold["x"])).cuda()
+    yt = torch.from_numpy(np.asarray(fold["y"])).cuda()
+    fits = [gbt.fit_torch(xt, yt, n_trees=20) for _ in range(2)]
+    torch.cuda.synchronize()
+    fits_equal = bool(torch.equal(*fits))
+    log(f"  two GBT fits on the card ({tuple(xt.shape)}, 20 trees) equal "
+        f"bit for bit: {fits_equal}")
+    # the counters were zeroed before the two timed runs: ``counts`` is the
+    # path's, ``counts_all`` adds the tier runs and the fits
+    counts_all = launches()
+    log(f"  launches {counts} (with the tier runs and the fits: "
+        f"{counts_all})")
+    del xt, yt, fits, fold
+
+    report["tabular"] = {
+        "rows": TABULAR_ROWS, "budget_bytes": TABULAR_BUDGET,
+        "hardware_threads": TABULAR_THREADS, "lake_s": lake_s,
+        "scores": scores, "plan": got, "wall_s": [wall1, wall2],
+        "optimize_time_s": rep1.optimize_time_s, "peak_bytes": peak,
+        "crossings": [cross1, cross2], "off_card": off_card,
+        "second_run_equal": same, "tiers": {
+            k: {"scores": v[0], "per_backend": v[1], "wall_s": v[2]}
+            for k, v in tiers.items()},
+        "tier_rel_diff": rel, "gbt_fits_equal": fits_equal,
+        "launches": counts, "launches_with_checks": counts_all}
+    if got != TABULAR_EXPECTED:
+        fail(f"plan {got}, expected the reference's {TABULAR_EXPECTED}")
+    if off_card or read_out != [("numpy",)]:
+        fail(f"torch ops' outputs off the card: {off_card}; read's "
+             f"{read_out}")
+    if not all(same.values()):
+        fail(f"the second run's scores differ from the first's: {same}")
+    if tiers["torch"][1] != TABULAR_EXPECTED["tiers"] or \
+            tiers["python"][1] != {"python": 42}:
+        fail(f"tier runs {tiers['torch'][1]} / {tiers['python'][1]}")
+    if not all(r <= TABULAR_TIER_RTOL for r in rel.values()):
+        fail(f"torch tier against python tier {rel} > {TABULAR_TIER_RTOL}")
+    if not fits_equal:
+        fail("two GBT fits on the card differ")
+    if any(counts.values()) or any(counts_all.values()):
+        fail(f"a hand kernel launched on the tabular path: {counts}, "
+             f"{counts_all}")
+    return counts
+
+
+def profile_tabular(torch, np, report):
+    """One cold run of the tabular batch (a new client: no cache) under
+    torch.profiler: the device's busy share, the top device ops, and the
+    share of the GBT's histogram kernels (the segment sum's index_add_ and
+    the counts' bincount)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.tabular as T
+    from repro_torch.data import tabular as data
+
+    batch, _, _ = tabular_batch(T, data, TABULAR_ROWS)
+    client = tabular_client()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        client.run_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, busy, nk = _kernel_table(prof, 1)
+    hist = sum(us for name, _, us in rows
+               if any(k in name for k in HISTOGRAM_KERNELS))
+    lines = _profile_lines(f"tabular batch, {TABULAR_ROWS} rows, cold",
+                           wall, busy, nk, rows, report)
+    lines.append(f"    GBT histogram kernels ({', '.join(HISTOGRAM_KERNELS)}"
+                 f"): {hist / 1e3:.3f} ms, {hist / busy:.3f} of device time")
+    report["profile"]["tabular_histogram_share"] = hist / busy
+    return lines
+
+
+# the kernels of the GBT's per-level histogram: index_add_ of the fixed-point
+# gradients and bincount of the counts
+HISTOGRAM_KERNELS = ("indexFunc", "index_add", "Histogram", "histogram")
+
+
 def _kernel_table(prof, n_calls: int):
     """(rows sorted by device time, device µs per call) from a profile:
     rows of (name, launches per call, device µs per call)."""
@@ -2331,6 +2554,8 @@ def profile_phase(torch, np, report, phases):
         lines += profile_serving(torch, np, report, AUDIO_ARCH)
     if "serve_vlm" in phases:
         lines += profile_serving(torch, np, report, VLM_ARCH, VLM_LAYERS)
+    if "tabular" in phases:
+        lines += profile_tabular(torch, np, report)
     for line in lines:
         log("  " + line)
     with open(OUT / "profile.txt", "w") as f:
@@ -2520,6 +2745,11 @@ def main() -> None:
             f"full width, {VLM_LAYERS} layers, embeddings")
         by_path["serve_vlm"] = timed("serve_vlm", serve_phase, torch, report,
                                      VLM_ARCH, VLM_EXPECTED, VLM_LAYERS)
+    if "tabular" in phases:
+        log(f"[tabular] examples/quickstart.py's batch through "
+            f"connect(\"local\"), {TABULAR_ROWS} rows, on the card")
+        by_path["tabular"] = timed("tabular", tabular_phase, torch, np,
+                                   report)
     if args.profile:
         log("[profile] full width, torch.profiler")
         profile_phase(torch, np, report, phases)

@@ -10,13 +10,20 @@ import torch
 
 from ..common import kernel_device
 from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
-from .ref import attention_bwd_ref, attention_ref
+from .ref import attention_bwd_ref, attention_chunked, attention_ref
+
+# from this key length on the plain version runs the online softmax over K
+# blocks instead of building the (Sq, Sk) score matrix, as the reference does
+CHUNKED_MIN_SEQ = 2048
 
 
 def _forward(q, k, v, causal, window, scale, return_lse=False):
     if kernel_device(q, k, v) == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     scale=scale, return_lse=return_lse)
+    if k.shape[2] >= CHUNKED_MIN_SEQ:
+        return attention_chunked(q, k, v, causal=causal, window=window,
+                                 scale=scale, return_lse=return_lse)
     return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                          return_lse=return_lse)
 

@@ -1,6 +1,10 @@
-"""Plain PyTorch attention (the counterpart of
-``repro.kernels.flash_attention.ref.attention_ref``): GQA, causal, optional
-local window, the full (Sq, Sk) score matrix in fp32; and its gradient."""
+"""Plain PyTorch attention (the counterparts of
+``repro.kernels.flash_attention.ref``): GQA, causal, optional local window.
+
+* :func:`attention_ref` builds the full (Sq, Sk) score matrix in fp32;
+* :func:`attention_chunked` runs an online softmax over K blocks, so its
+  live memory is O(Sq·block) (the wrapper takes it at Sk >= 2048);
+* :func:`attention_bwd_ref` is the gradient of :func:`attention_ref`."""
 
 from __future__ import annotations
 
@@ -50,6 +54,49 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), vq).to(q.dtype)
     if return_lse:
         return out, (m + torch.log(s))[..., 0]
+    return out
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
+                      scale: float | None = None, block_k: int = 1024,
+                      return_lse: bool = False):
+    """Flash-style online softmax over K blocks of ``block_k`` keys (shapes
+    as :func:`attention_ref`); masked scores are -1e30, so a row that sees
+    no key gives 0.  With ``return_lse`` also the row log-sum-exp of the
+    scaled scores, (B, Hq, Sq) fp32."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {Hq} and {Hkv}")
+    group = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    bk = min(block_k, Sk)
+    qf = q.float() * scale
+    q_pos = torch.arange(Sq, device=q.device) + (Sk - Sq)
+    m = torch.full((B, Hq, Sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    for start in range(0, Sk, bk):
+        kt = k[:, :, start:start + bk].repeat_interleave(group, dim=1).float()
+        vt = v[:, :, start:start + bk].repeat_interleave(group, dim=1).float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt)
+        k_pos = torch.arange(start, start + kt.shape[2], device=q.device)
+        mask = torch.ones((Sq, kt.shape[2]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vt)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    if return_lse:
+        return out, m + torch.log(l)
     return out
 
 

@@ -22,7 +22,7 @@ import torch
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[..., tuple]     # (grads, state, params) -> (params, state, gnorm)
+    update: Callable[..., tuple]     # (grads, state, params, step=None) -> (params, state, gnorm)
     name: str = "opt"
 
 
@@ -79,7 +79,7 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
                                      device=first.device)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, step=None):
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
         state["count"].add_(1)
         count = state["count"]
@@ -125,7 +125,7 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
                                      device=first.device)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, step=None):
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
         state["count"].add_(1)
         count = state["count"]

@@ -15,10 +15,11 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, sample: str = "greedy"):
     """Greedy decode step: (next tokens (B, 1) int32, logits, state).  It
     takes the (B, 1) tokens, or for the vlm and audio families a (B, 1, D)
-    embedding, passed through to ``decode_step`` unchanged."""
+    embedding, passed through to ``decode_step`` unchanged.  ``sample`` is
+    accepted and ignored, as the reference ignores it: decoding is greedy."""
     def decode(params, state, token_or_embed):
         logits, state = _decode_step(params, state, token_or_embed, cfg)
         # mask padded vocab columns before sampling

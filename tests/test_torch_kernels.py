@@ -136,6 +136,42 @@ def test_flash_attention_matches_jax(B, Hq, Hkv, S, D, causal, window):
                               window=window), key)
 
 
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, 0),          # at the switch: chunked, two K blocks
+    (2100, 2100, True, 300),        # a ragged last block, windowed
+    (64, 2500, True, 0),            # queries at the end of a longer context
+    (2048, 2048, False, 0),
+])
+def test_flash_attention_chunked_on_cpu_matches_jax(Sq, Sk, causal, window,
+                                                   monkeypatch):
+    """From Sk 2048 on, the CPU path runs the online softmax over K blocks
+    (as ``repro``'s ``CHUNKED_MIN_SEQ``) and matches ``repro``'s
+    ``attention_chunked`` within flash_attention/cpu_fp32; its lse matches
+    the full score matrix's."""
+    from repro.kernels.flash_attention.ref import attention_chunked as j_chk
+    from repro_torch.kernels.flash_attention import ops as t_ops
+    from repro_torch.kernels.flash_attention.ref import attention_chunked
+    B, Hq, Hkv, D = 1, 2, 1, 32
+    q, k, v = _np(B, Sq, Hq, D), _np(B, Sk, Hkv, D), _np(B, Sk, Hkv, D)
+    t = lambda a: torch.from_numpy(a).transpose(1, 2)
+    j = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))
+    calls = []
+    real = t_ops.attention_chunked
+    monkeypatch.setattr(t_ops, "attention_chunked",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    got = t_ops._forward(t(q), t(k), t(v), causal, window, None)
+    assert calls == [1]                     # the chunked path was taken
+    key = "flash_attention/cpu_fp32"
+    _close(got, j_chk(j(q), j(k), j(v), causal=causal, window=window), key)
+    out, lse = attention_chunked(t(q), t(k), t(v), causal=causal,
+                                 window=window, return_lse=True)
+    _, want_lse = t_attention_ref(t(q), t(k), t(v), causal=causal,
+                                  window=window, return_lse=True)
+    assert torch.equal(out, got)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_flash_launch_args_read_model_layout_through_strides():
     B, S, Hq, Hkv, D = 2, 77, 14, 2, 128
     q = torch.zeros(B, S, Hq, D, dtype=torch.bfloat16).transpose(1, 2)

@@ -406,7 +406,8 @@ def test_card_config_check_frontend_families(arch, published):
         if cfg.d_head == 128:
             check_card_config(cfg, "cuda", training=True)
         else:
-            with pytest.raises(ValueError, match="--layers N"):
+            with pytest.raises(ValueError, match="flash attention at head "
+                                                 f"dim {cfg.d_head}"):
                 check_card_config(cfg, "cuda", training=True)
         return
     cfg = t_reduced(cfg)

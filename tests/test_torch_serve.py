@@ -138,12 +138,39 @@ def test_card_config_check_takes_published_configs(arch):
     cfg = t_get_config(arch)
     check_card_config(cfg, "cuda")
     check_card_config(cfg, torch.device("cuda", 0))
-    # training reaches the flash backward, built at head dim 128 only
-    if cfg.uses_attention and cfg.d_head != 128:
-        with pytest.raises(ValueError, match="--layers N"):
-            check_card_config(cfg, "cuda", training=True)
-    else:
+    # training reaches the flash backward, built at head dim 128 only, and
+    # the SSD scan and the grouped expert matmul, which have no backward
+    if cfg.family == "dense" and cfg.d_head == 128:
         check_card_config(cfg, "cuda", training=True)
+    else:
+        with pytest.raises(ValueError, match="has no backward|have no "
+                                             "backward"):
+            check_card_config(cfg, "cuda", training=True)
+
+
+@pytest.mark.parametrize("training", [False, True],
+                         ids=["serve", "train"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_card_config_check_names_missing_backward(arch, training):
+    """Every published config is taken for serving; for training it is
+    refused, naming each kernel of its path without a backward (and no
+    depth flag, which cannot help), exactly when it has one."""
+    cfg = t_get_config(arch)
+    want = []
+    if cfg.family in ("ssm", "hybrid"):
+        want.append("SSD scan")
+    if cfg.family == "moe":
+        want.append("grouped expert matmul")
+    if cfg.uses_attention and cfg.d_head != 128:
+        want.append(f"flash attention at head dim {cfg.d_head}")
+    if not training or not want:
+        check_card_config(cfg, "cuda", training=training)
+        return
+    with pytest.raises(ValueError) as err:
+        check_card_config(cfg, "cuda", training=True)
+    msg = str(err.value)
+    assert all(w in msg for w in want), msg
+    assert "--layers" not in msg and "no backward" in msg
 
 
 @pytest.mark.parametrize("arch", ["internvl2-76b", "musicgen-medium"])
@@ -186,7 +213,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
-        "repro_torch.models.xlstm"} <= set(names)
+        "repro_torch.models.xlstm", "repro_torch.core.runtime",
+        "repro_torch.tabular.impls", "repro_torch.data.tabular",
+        "repro_torch.client"} <= set(names)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -199,3 +228,23 @@ print(len(names))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 25       # every module was imported
+
+
+def test_make_decode_step_takes_sample_as_the_reference_does():
+    """``make_decode_step(cfg, sample="greedy")`` is the reference's
+    signature; the argument is accepted and ignored (decoding is greedy)."""
+    import inspect
+    from repro_torch.serve.step import make_decode_step as t_make
+    want = inspect.signature(jax_make_decode_step).parameters["sample"]
+    got = inspect.signature(t_make).parameters["sample"]
+    assert got.default == want.default == "greedy"
+    cfg = t_reduced(t_get_config("qwen2-7b"))
+    from repro_torch.models import init_params, prefill
+    params = init_params(cfg, device="cpu")
+    prompt = {"tokens": torch.ones(2, 4, dtype=torch.int32)}
+    tok = torch.ones(2, 1, dtype=torch.int32)
+    outs = []
+    for kw in ({}, {"sample": "greedy"}):
+        _, state = prefill(params, prompt, cfg, max_len=8)
+        outs.append(t_make(cfg, **kw)(params, state, tok)[1])
+    assert torch.equal(outs[0], outs[1])

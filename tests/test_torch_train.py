@@ -435,3 +435,28 @@ def test_train_cli_on_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "trained 4 steps" in out.stdout
     assert find_latest(str(tmp_path)) == 4
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_update_takes_step_as_the_reference_does(name):
+    """``update(grads, state, params, step=None)`` is the reference's
+    signature; ``step`` is accepted and ignored (the count is in the
+    state), so passing it changes nothing."""
+    import inspect
+    import repro.optim as j_optim
+    import repro_torch.optim as t_optim
+    j_upd = getattr(j_optim, name)().update
+    t_make = getattr(t_optim, name)
+    assert "step" in inspect.signature(j_upd).parameters
+    assert inspect.signature(t_make().update).parameters["step"].default \
+        is None
+    rng = np.random.default_rng(3)
+    p = {"w": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32))}
+    g = {"w": torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32))}
+    outs = []
+    for kw in ({}, {"step": 7}):
+        opt = t_make(lr=1e-2)
+        params = {"w": p["w"].clone()}
+        state = opt.init(params)
+        outs.append(opt.update(g, state, params, **kw)[0]["w"])
+    assert torch.equal(outs[0], outs[1])
