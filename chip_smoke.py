@@ -102,6 +102,25 @@ Phases, each of which must pass:
              at 100,000 rows must be within 1e-4 of the python tier's, two
              GBT fits on the card must be equal bit for bit, and no hand
              kernel may launch (none lies on this path).
+16. agentic — the paper's agentic pipeline search at the client's defaults
+             (compiled segments on: ``repro_torch.core.backends.
+             torch_segment``, inductor's cache in a fresh temporary
+             directory through ``jit_cache_dir``), on the tabular phase's
+             1,000,000-row lake, 16 GiB, hardware_threads=8: (a) the
+             quickstart batch twice — per-tier counts, waves, plan-cache
+             misses and hits and the second run's cache hits the
+             reference's, equal scores, within 1e-4 of the tabular phase's
+             per-op scores; (b) the paper workload (``examples/
+             agentic_search.py``'s run_sync): iteration 1's 8 pipelines,
+             then the grid on the winner, counts the reference's for that
+             winner; (c) one ridge pipeline at four alphas compiles once, a
+             fan of alphas runs as one batched program and a second fan
+             compiles nothing; (d) ``compile_async``: the first touch runs
+             per-op, the next one hits; (e) ``analyze_batch`` pre-verifies
+             every torch segment and the run after it traces nothing; (f)
+             ``AsyncAIDESearch``, 2 rounds of 4.  On every run no segment
+             is uncompilable, compiled ops' outputs live on the card, and
+             no hand kernel launches.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the kernels line reports each kernel's launches in the
@@ -153,7 +172,7 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
           "train", "consistency_audio", "serve_audio", "consistency_vlm",
-          "serve_vlm", "tabular")
+          "serve_vlm", "tabular", "agentic")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -2258,6 +2277,331 @@ def tabular_phase(torch, np, report):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the agentic path: the paper's pipeline search at the client's defaults
+# ---------------------------------------------------------------------------
+
+AGENTIC_ROWS = TABULAR_ROWS
+AGENTIC_BUDGET = 16 << 30
+AGENTIC_THREADS = 8
+AGENTIC_ALPHAS = (0.1, 1.0, 10.0, 123.0)
+# the reference's counts at these rows, budget and threads, at the client's
+# defaults (compiled segments on; repro on the CPU, "jax" read as "torch"):
+# per-tier ops, waves, plan-cache misses and hits, ops from the cache
+AGENTIC_QUICKSTART = (
+    ({"torch": 17, "torch-seg": 14, "python": 11}, 14, 2, 0, 0),
+    ({"python": 2}, 14, 0, 0, 40))
+AGENTIC_ITER1 = ({"torch": 71, "torch-seg": 16, "python": 38}, 16, 2, 0, 0)
+# iteration 2 depends on iteration 1's winner: the reference's counts for
+# each of the 8 possible winners
+AGENTIC_ITER2 = {
+    "manual+elasticnet": ({"torch": 33, "torch-seg": 36, "python": 39,
+                           "torch-vmap": 11}, 16, 3, 0, 0),
+    "manual+ridge": ({"torch": 26, "torch-seg": 48, "python": 35}, 14, 3,
+                     0, 0),
+    "table_vectorizer+ridge": ({"torch": 18, "torch-seg": 45,
+                                "python": 33}, 15, 3, 0, 7),
+    "table_vectorizer+elasticnet": ({"torch": 31, "torch-seg": 34,
+                                     "python": 37, "torch-vmap": 9}, 16, 3,
+                                    0, 2),
+    "manual+gbt_xgboost": ({"torch": 46, "torch-seg": 16, "python": 47}, 15,
+                           2, 0, 0),
+    "manual+gbt_lightgbm": ({"torch": 46, "torch-seg": 16, "python": 47},
+                            15, 2, 0, 0),
+    "table_vectorizer+gbt_xgboost": ({"torch": 41, "torch-seg": 15,
+                                      "python": 45}, 16, 2, 0, 2),
+    "table_vectorizer+gbt_lightgbm": ({"torch": 41, "torch-seg": 15,
+                                       "python": 45}, 16, 2, 0, 2),
+}
+
+
+def _plan_counts(rep):
+    return (dict(rep.run.per_backend), rep.run.waves,
+            rep.run.plan_cache_misses, rep.run.plan_cache_hits,
+            rep.run.ops_from_cache)
+
+
+def agentic_client(cache_dir, **kw):
+    """A local client at the client's defaults (compiled segments on) on
+    the card, with inductor's cache in ``cache_dir``."""
+    from repro_torch.client import StratumConfig, connect
+
+    kw.setdefault("memory_budget_bytes", AGENTIC_BUDGET)
+    return connect("local", StratumConfig.make(
+        hardware_threads=AGENTIC_THREADS, jit_cache_dir=cache_dir, **kw))
+
+
+def _segments_checked(client, rep, label, problems):
+    """Every run of the phase: no uncompilable segment, and every compiled
+    op's outputs on the card."""
+    st = client.stratum
+    unc = st.plan_cache.snapshot()["uncompilable"]
+    off = sorted({where for sig, where in rep.run.placement.items()
+                  if rep.run.sig_source.get(sig) == "torch-seg"
+                  and not all(w.startswith("cuda") for w in where)})
+    if unc or off:
+        problems.append(f"{label}: uncompilable {unc}, torch-seg outputs "
+                        f"off the card {off}")
+
+
+def _ridge_fan(T, alphas, rows):
+    from repro_torch.core import PipelineBatch
+
+    x = T.read("uk_housing", rows, seed=0)
+    y = T.project(x, [0])
+    Xs = T.scale(T.impute(T.project(x, [10, 11, 12, 13])))
+    sinks = [T.metric(y, T.predict(T.ridge_fit(Xs, y, alpha=a), Xs),
+                      kind="rmse") for a in alphas]
+    return PipelineBatch(sinks, [f"a{i}" for i in range(len(alphas))])
+
+
+def agentic_phase(torch, np, report):
+    import tempfile
+
+    from repro_torch.data import tabular as data
+    from repro_torch.kernels.common import launches, reset_launches
+
+    card = report.get("card", "")
+    t_phase = time.perf_counter()
+    data.ensure_files("uk_housing", AGENTIC_ROWS, 0)
+    cache_dir = tempfile.mkdtemp(prefix="inductor-")
+    out = report["agentic"] = {"rows": AGENTIC_ROWS, "card": card}
+    problems: list = []
+    reset_launches()
+    try:
+        _agentic_checks(torch, np, report, out, problems, cache_dir)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    counts = launches()
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches {counts}; phase {out['phase_s']:.1f} s ({card})")
+    if any(counts.values()):
+        problems.append(f"a hand kernel launched on the agentic path: "
+                        f"{counts}")
+    if problems:
+        fail("agentic: " + "; ".join(problems))
+    return counts
+
+
+def _agentic_checks(torch, np, report, out, problems, cache_dir):
+    """Checks (a)-(f) of the agentic phase; each failure is appended to
+    ``problems``."""
+    import repro_torch.tabular as T
+    from repro_torch.agents import (AIDEAgent, AsyncAIDESearch,
+                                    paper_workload_batches)
+    from repro_torch.agents.aide import second_iteration_batch
+    from repro_torch.core.runtime import crossings, reset_crossings
+    from repro_torch.data import tabular as data
+
+    card = out["card"]
+
+    def stats(client):
+        return client.stratum._backends["torch"].stats()
+
+    # (a) the quickstart batch at the client's defaults, twice
+    batch, _, _ = tabular_batch(T, data, AGENTIC_ROWS)
+    client = agentic_client(cache_dir)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        reset_crossings()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, rep = client.run_batch(batch)
+        torch.cuda.synchronize()
+        runs.append((res, rep, time.perf_counter() - t0, crossings()))
+        _segments_checked(client, rep, "quickstart", problems)
+    peak = torch.cuda.max_memory_allocated()
+    (res1, rep1, wall1, cross1), (res2, rep2, wall2, cross2) = runs
+    scores = {k: float(v) for k, v in res1.items()}
+    same = {k: float(res2[k]) == v for k, v in scores.items()}
+    got = [_plan_counts(rep1), _plan_counts(rep2)]
+    st = stats(client)
+    per_op = report.get("tabular", {}).get("scores")
+    if per_op is None:        # the tabular phase did not run: its per-op run
+        res, _ = tabular_client().run_batch(batch)
+        per_op = {k: float(v) for k, v in res.items()}
+    rel = {k: abs(scores[k] - v) / abs(v) for k, v in per_op.items()}
+    log(f"  (a) quickstart, {AGENTIC_ROWS} rows, compiled segments: "
+        f"scores {scores}")
+    log(f"      first run {wall1:.3f} s {got[0]}, second run {wall2:.4f} s "
+        f"{got[1]} (reference: {list(AGENTIC_QUICKSTART)})")
+    log(f"      traced {st['traces']} segment(s) in {st['trace_s']:.2f} s, "
+        f"compiled {st['compiles']} in {st['compile_s']:.2f} s; peak device "
+        f"memory {peak / 2**30:.2f} GiB; second run's scores equal bit for "
+        f"bit: {same}")
+    for label, cross in (("first", cross1), ("second", cross2)):
+        log(f"      crossings, {label} run: {cross['to_device']} to the card "
+            f"({cross['to_device_bytes'] / 2**20:.1f} MiB), "
+            f"{cross['to_host']} to the host "
+            f"({cross['to_host_bytes'] / 2**20:.1f} MiB)")
+    log(f"      against the tabular phase's per-op scores: relative "
+        f"difference {rel} (limit {TABULAR_TIER_RTOL:g}) ({card})")
+    out["quickstart"] = {
+        "scores": scores, "counts": got, "wall_s": [wall1, wall2],
+        "segment_stats": st, "peak_bytes": peak,
+        "crossings": [cross1, cross2], "second_run_equal": same,
+        "per_op_rel_diff": rel}
+    if tuple(got) != AGENTIC_QUICKSTART:
+        problems.append(f"quickstart counts {got}, the reference's "
+                        f"{AGENTIC_QUICKSTART}")
+    if not all(same.values()):
+        problems.append(f"quickstart second run differs: {same}")
+    if not all(r <= TABULAR_TIER_RTOL for r in rel.values()):
+        problems.append(f"quickstart against per-op {rel}")
+    client.close()
+
+    # (b) the paper workload as examples/agentic_search.py's run_sync
+    # runs it: iteration 1, then the grid on its winner
+    client = agentic_client(cache_dir)
+    _n, batch1, ctx = next(iter(paper_workload_batches(
+        n_rows=AGENTIC_ROWS, cv_k=3)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, rep = client.run_batch(batch1)
+    torch.cuda.synchronize()
+    wall_1 = time.perf_counter() - t0
+    _segments_checked(client, rep, "iteration 1", problems)
+    scores1 = {k: float(v) for k, v in res.items()}
+    best = min(scores1, key=scores1.get)
+    batch2, specs2 = second_iteration_batch(ctx["specs"][best])
+    t0 = time.perf_counter()
+    res2, rep2 = client.run_batch(batch2)
+    torch.cuda.synchronize()
+    wall_2 = time.perf_counter() - t0
+    _segments_checked(client, rep2, "iteration 2", problems)
+    scores2 = {k: float(v) for k, v in res2.items()}
+    it1, it2 = _plan_counts(rep), _plan_counts(rep2)
+    want2 = AGENTIC_ITER2.get(best)
+    st = stats(client)
+    log(f"  (b) paper workload, iteration 1 (8 pipelines) {wall_1:.2f} s: "
+        f"{it1} (reference {AGENTIC_ITER1}); winner {best}")
+    for k, v in sorted(scores1.items(), key=lambda kv: kv[1]):
+        log(f"      rmse {v:.6f}  {k}")
+    log(f"      iteration 2 ({len(scores2)} grid points) {wall_2:.2f} s: "
+        f"{it2} (reference for {best}: {want2}); best "
+        f"{min(scores2.values()):.6f}; segments traced {st['traces']}, "
+        f"compiled {st['compiles']} in {st['compile_s']:.2f} s ({card})")
+    out["paper"] = {"iteration1": {"counts": it1, "scores": scores1,
+                                   "wall_s": wall_1},
+                    "winner": best,
+                    "iteration2": {"counts": it2, "scores": scores2,
+                                   "wall_s": wall_2},
+                    "segment_stats": st}
+    if it1 != AGENTIC_ITER1:
+        problems.append(f"iteration 1 counts {it1}, reference "
+                        f"{AGENTIC_ITER1}")
+    if want2 is None:
+        problems.append(f"no reference counts for winner {best}")
+    elif it2 != want2:
+        problems.append(f"iteration 2 counts {it2}, reference {want2}")
+    if not all(np.isfinite(v) for v in (*scores1.values(),
+                                        *scores2.values())):
+        problems.append("a paper-workload score is not finite")
+    client.close()
+
+    # (c) reuse across hyperparameters: one ridge pipeline at four alphas,
+    # the intermediate cache off; then a fan of alphas as one program
+    no_cache = ("logical", "lowering", "selection", "parallel")
+    client = agentic_client(cache_dir, enable=no_cache)
+    compiles = []
+    for alpha in AGENTIC_ALPHAS:
+        res, rep = client.run_batch(_ridge_fan(T, (alpha,), AGENTIC_ROWS))
+        _segments_checked(client, rep, f"alpha {alpha}", problems)
+        compiles.append((client.stratum.plan_cache.snapshot()["compiles"],
+                         stats(client)["traces"]))
+    client.close()
+    vb = agentic_client(cache_dir, enable=no_cache, batch_variants=True)
+    fans = []
+    for alphas in ((0.5, 1.0, 2.0), (3.0, 5.0, 7.0)):
+        res, rep = vb.run_batch(_ridge_fan(T, alphas, AGENTIC_ROWS))
+        _segments_checked(vb, rep, f"fan {alphas}", problems)
+        fans.append((dict(rep.run.per_backend),
+                     vb.stratum.plan_cache.snapshot()["compiles"]))
+    batched = [p.batched for p in vb.stratum.plan_cache._entries.values()]
+    vb.close()
+    log(f"  (c) ridge at alphas {AGENTIC_ALPHAS}, cache off: (plan-cache "
+        f"compiles, traces) after each {compiles}; batch_variants fans: "
+        f"{fans}, programs batched {batched}")
+    out["reuse"] = {"compiles": compiles, "fans": fans, "batched": batched}
+    if len(set(compiles)) != 1 or compiles[0][0] < 1:
+        problems.append(f"alphas recompiled: {compiles}")
+    if fans[0][1] != fans[1][1] or not batched or not all(batched) or \
+            "torch-seg" not in fans[0][0]:
+        problems.append(f"fans {fans}, batched {batched}")
+
+    # (d) compile_async: the first touch runs per-op, the next one hits
+    client = agentic_client(cache_dir, enable=no_cache, compile_async=True)
+    _, rep_a = client.run_batch(_ridge_fan(T, (0.5, 1.5), AGENTIC_ROWS))
+    drained = client.stratum.plan_cache.executor.drain(timeout=600)
+    _, rep_b = client.run_batch(_ridge_fan(T, (2.5, 3.5), AGENTIC_ROWS))
+    _segments_checked(client, rep_b, "async", problems)
+    snap = client.stratum.plan_cache.snapshot()
+    client.close()
+    log(f"  (d) compile_async: first touch {dict(rep_a.run.per_backend)}, "
+        f"fallback rounds {rep_a.run.plan_cache_fallback_rounds}; after the "
+        f"drain {dict(rep_b.run.per_backend)}, hits "
+        f"{rep_b.run.plan_cache_hits}, background compile "
+        f"{snap['compile_time_s']:.2f} s")
+    out["async"] = {"first": dict(rep_a.run.per_backend),
+                    "fallback_rounds": rep_a.run.plan_cache_fallback_rounds,
+                    "second": dict(rep_b.run.per_backend),
+                    "hits": rep_b.run.plan_cache_hits, "snapshot": snap}
+    if not (drained and rep_a.run.plan_cache_fallback_rounds == 1
+            and "torch-seg" not in rep_a.run.per_backend
+            and rep_b.run.plan_cache_hits >= 1
+            and "torch-seg" in rep_b.run.per_backend
+            and snap["async_failures"] == 0):
+        problems.append(f"compile_async {out['async']}")
+
+    # (e) analyze_batch on iteration 1, then its run: no probe again
+    client = agentic_client(cache_dir)
+    t0 = time.perf_counter()
+    analysis = client.analyze(batch1)
+    analyze_s = time.perf_counter() - t0
+    before = stats(client)
+    _, rep = client.run_batch(batch1)
+    after = stats(client)
+    _segments_checked(client, rep, "after analysis", problems)
+    n_seg = sum(1 for seg in rep.plan.segments if seg.kind == "torch")
+    log(f"  (e) analyze_batch on iteration 1 in {analyze_s:.2f} s: "
+        f"{len(analysis.errors)} errors, {analysis.preverified_segments} "
+        f"segments pre-verified of the plan's {n_seg}; traces before the "
+        f"run {before['traces']}, after {after['traces']}")
+    out["analysis"] = {"errors": len(analysis.errors),
+                       "preverified": analysis.preverified_segments,
+                       "torch_segments": n_seg, "traces": [
+                           before["traces"], after["traces"]],
+                       "analyze_s": analyze_s}
+    if analysis.errors or analysis.preverified_segments != n_seg or \
+            after["traces"] != before["traces"]:
+        problems.append(f"analysis {out['analysis']}")
+    client.close()
+
+    # (f) AsyncAIDESearch on a local session: 2 rounds of 4
+    client = agentic_client(cache_dir)
+    search = AsyncAIDESearch(client.session("aide"),
+                             AIDEAgent(n_rows=AGENTIC_ROWS, seed=0),
+                             batch_size=4, max_inflight=2)
+    t0 = time.perf_counter()
+    node = search.run(n_rounds=2)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    for rep in search.reports:
+        _segments_checked(client, rep, "search", problems)
+    client.close()
+    ok = node is not None and np.isfinite(node.score)
+    log(f"  (f) AsyncAIDESearch, 2 rounds of 4, {search_s:.2f} s: best "
+        f"{node.spec.preproc + '+' + node.spec.model if node else None} "
+        f"rmse {node.score if node else None}")
+    out["search"] = {"best": None if node is None else node.score,
+                     "wall_s": search_s, "rounds": len(search.reports)}
+    if not ok:
+        problems.append(f"search best {node}")
+
+
 def profile_tabular(torch, np, report):
     """One cold run of the tabular batch (a new client: no cache) under
     torch.profiler: the device's busy share, the top device ops, and the
@@ -2285,6 +2629,51 @@ def profile_tabular(torch, np, report):
     lines.append(f"    GBT histogram kernels ({', '.join(HISTOGRAM_KERNELS)}"
                  f"): {hist / 1e3:.3f} ms, {hist / busy:.3f} of device time")
     report["profile"]["tabular_histogram_share"] = hist / busy
+    return lines
+
+
+def profile_agentic(torch, np, report):
+    """The quickstart batch at the client's defaults under torch.profiler:
+    a session whose compiled programs are warm (it shares the plan cache of
+    a client that ran the batch once) and whose intermediate cache is
+    cold: the device's busy share, the top device ops, and the share of
+    inductor's Triton kernels (the compiled segments' fused code)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.tabular as T
+    from repro_torch.client import LocalTarget, StratumConfig
+    from repro_torch.core import Stratum
+    from repro_torch.data import tabular as data
+
+    batch, _, _ = tabular_batch(T, data, AGENTIC_ROWS)
+    cache_dir = tempfile.mkdtemp(prefix="inductor-")
+    try:
+        warm = agentic_client(cache_dir)
+        warm.run_batch(batch)
+        cfg = StratumConfig.make(memory_budget_bytes=AGENTIC_BUDGET,
+                                 hardware_threads=AGENTIC_THREADS,
+                                 jit_cache_dir=cache_dir)
+        client = LocalTarget(cfg, stratum=Stratum(
+            **cfg.stratum_kwargs(), plan_cache=warm.stratum.plan_cache))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            client.run_batch(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    rows, busy, nk = _kernel_table(prof, 1)
+    fused = sum(us for name, _, us in rows if name.startswith("triton_"))
+    lines = _profile_lines(f"agentic quickstart, {AGENTIC_ROWS} rows, "
+                           f"compiled segments warm, cache cold", wall,
+                           busy, nk, rows, report)
+    lines.append(f"    inductor's Triton kernels (the compiled segments): "
+                 f"{fused / 1e3:.3f} ms, {fused / busy:.3f} of device time")
+    report["profile"]["agentic_fused_share"] = fused / busy
     return lines
 
 
@@ -2556,6 +2945,8 @@ def profile_phase(torch, np, report, phases):
         lines += profile_serving(torch, np, report, VLM_ARCH, VLM_LAYERS)
     if "tabular" in phases:
         lines += profile_tabular(torch, np, report)
+    if "agentic" in phases:
+        lines += profile_agentic(torch, np, report)
     for line in lines:
         log("  " + line)
     with open(OUT / "profile.txt", "w") as f:
@@ -2749,6 +3140,12 @@ def main() -> None:
         log(f"[tabular] examples/quickstart.py's batch through "
             f"connect(\"local\"), {TABULAR_ROWS} rows, on the card")
         by_path["tabular"] = timed("tabular", tabular_phase, torch, np,
+                                   report)
+    if "agentic" in phases:
+        log(f"[agentic] the paper's pipeline search through "
+            f"connect(\"local\") at the client's defaults (compiled "
+            f"segments), {AGENTIC_ROWS} rows, on the card")
+        by_path["agentic"] = timed("agentic", agentic_phase, torch, np,
                                    report)
     if args.profile:
         log("[profile] full width, torch.profiler")

@@ -25,8 +25,7 @@ is the session's torch device::
 
     from repro_torch.client import StratumConfig, SubmitOptions, connect
 
-    cfg = StratumConfig.make(memory_budget_bytes=1 << 30,
-                             compiled_segments=False, device="cpu")
+    cfg = StratumConfig.make(memory_budget_bytes=1 << 30, device="cpu")
     with connect("local", cfg) as client:
         results, report = client.submit(batch, SubmitOptions(
             deadline_s=60.0, tags=("probe",))).result()

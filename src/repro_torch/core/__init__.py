@@ -13,11 +13,9 @@ The paper's contribution (§4), as a composable library:
 * :mod:`repro_torch.core.cache`       intermediate reuse (RAM/device + disk spill)
 * :mod:`repro_torch.core.plan_cache`  compiled-plan cache (structural signatures)
 * :mod:`repro_torch.core.runtime`     segment executor, the boundary between tiers
-* :mod:`repro_torch.core.backends`    ExecutionBackend seam (per-op)
+* :mod:`repro_torch.core.backends`    ExecutionBackend seam (per-op, compiled)
+* :mod:`repro_torch.core.analysis`    pre-flight static analysis
 * :mod:`repro_torch.core.api`         the Stratum session
-
-The compiled-segment backend is ``ROADMAP.md`` A2b and the full pre-flight
-analysis A2c.
 """
 
 from .api import ALL_FEATURES, Stratum, StratumReport

@@ -64,7 +64,7 @@ class AnalysisReport:
     analysis_time_s: float = 0.0
     preverified_segments: int = 0        # compiled segments whose probe was
     #                                      statically discharged (see
-    #                                      JaxSegmentBackend.mark_preverified)
+    #                                      TorchSegmentBackend.mark_preverified)
 
     # -- views ----------------------------------------------------------
     @property

@@ -10,24 +10,23 @@ Every stage can be toggled via ``enable`` for the paper's ablation study
 backends), ``parallel`` (inter-op), ``cache`` (intermediate reuse).
 
 A session runs on one device: ``device=None`` is the CUDA device, and
-raises when there is none; ``device="cpu"`` runs the torch tier on the CPU.
-The compiled-segment backend (``compiled_segments=True``) is ``ROADMAP.md``
-A2b and the full pre-flight analysis (``analyze_batch``) A2c; both raise
-until they land.
+raises when there is none; ``device="cpu"`` runs the torch tier (and its
+compiled segments) on the CPU.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
 from ..kernels.common import resolve_device
-from .analysis import AnalysisError, AnalysisReport, validate_wiring
+from .analysis import AnalysisError, AnalysisReport, analyze, validate_wiring
 from .backends import make_backends
 from .cache import CacheStats, IntermediateCache, mark_cache_candidates
-from .dag import LazyRef, count_ops
+from .dag import LazyRef, count_ops, toposort
 from .fusion import PipelineBatch
 from .lowering import lower
 from .metadata import collect_metadata
@@ -118,11 +117,6 @@ class Stratum:
             raise ValueError(f"unknown features {unknown}")
         check_platform(platform)
         self.device = resolve_device(device)
-        if compiled_segments:
-            raise NotImplementedError(
-                "Stratum(compiled_segments=True) needs the compiled-segment "
-                "backend, which is not ported yet (ROADMAP.md A2b); pass "
-                "compiled_segments=False")
         # validate cross-feature kwargs instead of silently accepting them:
         # a tuned cache_fraction with "cache" disabled (or a plan-cache
         # size with compiled segments off) is a config bug, not a no-op
@@ -154,10 +148,13 @@ class Stratum:
         if plan_cache_entries is None:
             plan_cache_entries = _DEFAULT_PLAN_CACHE_ENTRIES
         if jit_cache_dir:
-            # the reference's persistent compilation cache serves its
-            # compiled segments, which the port does not have yet
-            _warn_once("Stratum(jit_cache_dir=...) has no effect until the "
-                       "compiled-segment backend lands (ROADMAP.md A2b)")
+            # persistent compilation cache, process-wide: inductor (and the
+            # Triton kernels it writes) keep each compiled segment graph
+            # there, so a long-lived stratum service compiles each (segment,
+            # shape) once across sessions/processes — the analogue of the
+            # paper's precompiled Rust kernels
+            os.environ["TORCHINDUCTOR_CACHE_DIR"] = os.path.abspath(
+                jit_cache_dir)
         self.enable = tuple(enable)
         self.memory_budget_bytes = memory_budget_bytes
         self.platform = platform
@@ -263,20 +260,57 @@ class Stratum:
                       verify_segments: bool = True,
                       extra_roots: Sequence[LazyRef] = ()
                       ) -> AnalysisReport:
-        """Static analysis of ``batch`` without executing it: the rest of
-        ``core/analysis/`` (shape inference, lint, feasibility) is
-        ``ROADMAP.md`` A2c.  ``compile_batch`` already runs the structural
-        wiring check on every batch."""
-        raise NotImplementedError(
-            "Stratum.analyze_batch needs the pre-flight analysis, which is "
-            "not ported yet (ROADMAP.md A2c)")
+        """Statically analyze ``batch`` without executing it.
+
+        With ``verify_segments`` (and compiled segments on), the torch
+        segments of the plan this session will dispatch (``compile_batch``:
+        the analyzer's prediction skips the logical rewrites, so its
+        segments can differ) are built and fake-traced against the
+        metadata's avals on the session's device; successful traces are
+        marked pre-verified on the backend, so the first real dispatch
+        compiles them without its execute-time probe."""
+        torch_be = (self._backends.get("torch")
+                    if verify_segments and self.compiled_segments else None)
+        allowed = (("python", "torch") if "selection" in self.enable
+                   else ("python",))
+        report = analyze(
+            batch, platform=self.platform,
+            memory_budget_bytes=self.memory_budget_bytes,
+            lowering="lowering" in self.enable,
+            feasibility=feasibility, allowed_backends=allowed,
+            segment_time_budget_s=self.segment_time_budget_s,
+            extra_roots=extra_roots, device=self.device,
+            hardware_threads=self.hardware_threads)
+        if torch_be is not None and feasibility and report.ok:
+            sinks, sel, p, *_ = self.compile_batch(batch)
+            infos = {op.signature: op.meta.outputs
+                     for op in toposort(sinks) if op.meta is not None}
+            report.preverified_segments = sum(
+                torch_be.preverify_segment(seg, sel, infos, self.device)
+                is not None
+                for seg in p.segments if seg.kind == "torch")
+        return report
 
     # ------------------------------------------------------------------
     def precompile_batch(self, batch: PipelineBatch) -> dict:
-        """Speculative warm-up of compiled segments: ``{}`` until the
-        compiled-segment backend lands (``ROADMAP.md`` A2b), as the
-        reference returns ``{}`` without ``compile_async``."""
-        return {}
+        """Speculative warm-up: plan ``batch`` WITHOUT executing it and
+        enqueue its torch segments on the background compile executor at low
+        priority, so a likely-next submission finds its programs warm.
+        No-op ({} of zero counts) unless ``compile_async=True``.  Returns
+        a status-count dict (``{"enqueued": n, "cached": m, ...}``)."""
+        counts: dict = {}
+        torch_be = self._backends.get("torch")
+        if torch_be is None or self.plan_cache is None \
+                or self.plan_cache.executor is None:
+            return counts
+        _sinks, sel, p, _cand, _rw, _n, _t = self.compile_batch(batch)
+        for seg in p.segments:
+            if seg.kind != "torch":
+                continue
+            status = torch_be.precompile_segment(seg, sel, cache=self.cache,
+                                                 device=self.device)
+            counts[status] = counts.get(status, 0) + 1
+        return counts
 
     def close(self, timeout: float = 5.0) -> None:
         """Release background resources (the async compile executor).

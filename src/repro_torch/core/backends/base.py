@@ -13,13 +13,11 @@ Backends shipped here:
 
 * ``"python"`` — :class:`~.python_thread.PythonThreadBackend`: the per-op
   path (bounded thread pool, vmap variant batching, intra-wave preemption
-  polls); it runs every op on its selected tier, ``"torch"`` segments
-  included.
-
-The compiled-segment backend (the reference's ``"jax"``, which runs a
-whole segment of traceable ops as ONE program cached by structural
-signature in a shared :class:`~repro_torch.core.plan_cache.PlanCache`) is
-``ROADMAP.md`` A2b; until it lands ``make_backends(compiled=True)`` raises.
+  polls); it runs every op on its selected tier;
+* ``"torch"``  — :class:`~.torch_segment.TorchSegmentBackend`: traces a
+  whole segment of traceable torch-tier ops into ONE compiled program with
+  tunable constants hoisted to arguments, cached by structural signature in
+  a shared :class:`~repro_torch.core.plan_cache.PlanCache`.
 
 A future out-of-process backend (the paper's Rust-runtime analogue) plugs
 in by registering a new kind here and teaching the scheduler's
@@ -85,16 +83,18 @@ def available_backends() -> tuple:
 def make_backends(plan_cache=None, compiled: bool = True,
                   batch_variants: bool = False
                   ) -> dict[str, ExecutionBackend]:
-    """Default backend set for a runtime: the per-op python path, which
-    runs ``"torch"`` segments op by op on their selected tiers.  The
-    compiled torch segment path (``compiled=True``, with ``plan_cache`` and
-    ``batch_variants``) is ``ROADMAP.md`` A2b and raises until it lands."""
+    """Default backend set for a runtime: the per-op python path, plus the
+    compiled torch segment path when ``compiled`` (sharing ``plan_cache``
+    when given; ``batch_variants`` turns on vmap-batched variant groups
+    inside compiled segments).  ``compiled=False`` reproduces the
+    pre-segment per-op runtime exactly — torch segments fall back to the
+    python backend, which runs each op on its selected tier."""
     from .python_thread import PythonThreadBackend
-    if compiled:
-        raise NotImplementedError(
-            "compiled segments are not ported yet (ROADMAP.md A2b, the "
-            "compiled-segment backend); pass compiled_segments=False")
+    from .torch_segment import TorchSegmentBackend
     backends: dict[str, ExecutionBackend] = {"python": PythonThreadBackend()}
+    if compiled:
+        backends["torch"] = TorchSegmentBackend(
+            plan_cache=plan_cache, batch_variants=batch_variants)
     for kind, factory in _FACTORIES.items():
         if kind not in backends:
             backends[kind] = factory(plan_cache=plan_cache)

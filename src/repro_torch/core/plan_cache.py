@@ -3,9 +3,9 @@
 Agentic searches emit thousands of structurally identical DAGs (AIDE
 refinements differ only in constants and hyperparameters).  A compiled
 segment backend traces a whole backend-homogeneous segment into one
-callable with tunable constants hoisted to arguments (the port's backend
-is ``ROADMAP.md`` A2b; until it lands nothing fills this cache, and the
-runtime only imports it); this module keeps those callables keyed by
+callable with tunable constants hoisted to arguments
+(:class:`~repro_torch.core.backends.torch_segment.TorchSegmentBackend`);
+this module keeps those callables keyed by
 the segment's *structural* signature (``dag.py``), so the second
 structurally identical plan — from any tenant of the same service shard —
 skips tracing and compilation entirely and pays one dispatch per segment.
@@ -252,6 +252,13 @@ class PlanCache:
                 old, _ = self._entries.popitem(last=False)
                 self._speculative.discard(old)
                 self.stats.evictions += 1
+
+    def discard(self, key: Hashable) -> None:
+        """Drop ``key``'s entry (a program whose graph at new input avals
+        failed to compile: the backend runs that key per-op from now on)."""
+        with self._lock:
+            if self._entries.pop(key, None) is not None:
+                self._speculative.discard(key)
 
     def note_uncompilable(self, n: int) -> None:
         """Backend gauge: current size of its bounded uncompilable set."""

@@ -10,8 +10,11 @@ the backend registered for its kind —
   per-op dispatch with cache probe before execution / insert-after for
   marked candidates (§4.3), late-bound physical impls (§4.2), inter-operator
   parallelism via a bounded thread pool, vmap variant batching, and
-  intra-wave preemption polls.  It runs ``"torch"`` segments too, op by op,
-  until the compiled-segment backend lands (``ROADMAP.md`` A2b).
+  intra-wave preemption polls;
+* ``"torch"`` (:class:`~repro_torch.core.backends.TorchSegmentBackend`):
+  the whole segment traced into ONE compiled program (tunable constants
+  hoisted to arguments), reused across structurally identical plans
+  through the shared :class:`~repro_torch.core.plan_cache.PlanCache`.
 
 **The boundary between tiers** is the runtime's: before it calls an impl it
 moves each input to that impl's side (:func:`to_tier`).  A ``"torch"`` impl
@@ -116,6 +119,40 @@ def to_device(value: Any, device: torch.device, *,
     if device.type == "cuda":
         count_crossing("to_device", t.nbytes)
     return t.to(device)
+
+
+_LINALG_LOCK = threading.Lock()
+_LINALG_READY: set = set()         # guarded-by: _LINALG_LOCK
+
+
+def linalg_ready(device: torch.device) -> None:
+    """torch loads its CUDA linear-algebra backend at the first
+    ``torch.linalg`` call, and that lazy load is not thread-safe: two
+    inter-op threads making their first Cholesky at once raise "lazy wrapper
+    should be called at most once".  The first call on a device is made
+    here, under a lock: by the torch impls before their first linear
+    algebra, and by the compiled-segment backend before a program's first
+    call (its trace runs on fake tensors and loads nothing)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    with _LINALG_LOCK:
+        if device not in _LINALG_READY:
+            eye = torch.eye(2, device=device)
+            torch.linalg.cholesky(eye)
+            torch.linalg.svd(eye)
+            _LINALG_READY.add(device)
+
+
+def tier_dtype(dtype) -> torch.dtype:
+    """The dtype in which a traceable torch impl receives a value of
+    ``dtype`` (a torch or numpy dtype, or its name): float64 as float32, as
+    :func:`to_device` moves a host array for it; the rest as they are."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).replace("torch.", "")
+    else:
+        name = str(np.dtype(dtype))
+    return torch.float32 if name == "float64" else getattr(torch, name)
 
 
 def to_tier(values: Sequence[Any], impl: Optional[PhysicalImpl],

@@ -22,11 +22,9 @@ signatures whose last consumer has now run, so the runtime can drop them
 Segment partitioning: after waves are laid out, contiguous runs of waves
 whose every op selected a *traceable* torch-tier implementation are
 grouped into maximal backend-homogeneous :class:`Segment`\\ s.  A
-``"torch"`` segment is meant for a compiled-segment backend that runs it as
-ONE program (``ROADMAP.md`` A2b); until that lands the runtime hands it to
-the per-op backend, op by op, each on its selected tier.  Everything else
-stays a ``"python"``
-segment executed by the per-op threaded backend.  Cache probes, liveness
+``"torch"`` segment is executed by the TorchSegmentBackend as ONE compiled
+program (per-op python dispatch disappears inside it); everything else
+stays a ``"python"`` segment executed by the per-op threaded backend.  Cache probes, liveness
 freeing and preemption yields happen at segment boundaries, so segmenting
 changes dispatch granularity, never semantics.
 """

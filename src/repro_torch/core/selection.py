@@ -69,7 +69,7 @@ class PhysicalImpl:
     platforms: tuple = ("cpu", "gpu")
     vmappable: bool = False      # homogeneous variants can batch via vmap
     # pure torch function of (tensor inputs, spec): safe to trace into a
-    # whole-segment compiled program (ROADMAP.md A2b).  False for impls
+    # whole-segment compiled program (TorchSegmentBackend).  False for impls
     # doing IO, host-side numpy, or data-dependent control flow.  The
     # runtime hands a traceable impl float64 host arrays as float32 on the
     # device, as the reference's jnp.asarray does with x64 off; a

@@ -162,15 +162,20 @@ def unpack(model: np.ndarray, F_expected: int):
 # torch ("native"-tier) implementation, on the input's device
 # ---------------------------------------------------------------------------
 
-def nanquantile_cols(X: torch.Tensor, qs: np.ndarray) -> torch.Tensor:
+def nanquantile_cols(X: torch.Tensor, qs) -> torch.Tensor:
     """(len(qs), F) quantiles of each column of ``X``, NaNs ignored: numpy's
     ``nanquantile(..., axis=0)`` with its default "linear" method, computed
     in float64 with numpy's own index and interpolation formulas, so the
-    result equals numpy's bit for bit.  An all-NaN column gives NaN."""
+    result equals numpy's bit for bit.  An all-NaN column gives NaN.
+
+    ``qs`` is a 1-D array or tensor (a tensor traces: a compiled segment
+    hoists ``clip_outliers``'s tunable ``q`` to a 0-d tensor argument)."""
     X = X.double()
     S = torch.sort(X, dim=0).values                      # NaNs sort last
     m = (~torch.isnan(X)).sum(dim=0)                     # (F,) valid counts
-    q = torch.as_tensor(np.asarray(qs, np.float64), device=X.device)[:, None]
+    if not isinstance(qs, torch.Tensor):
+        qs = torch.from_numpy(np.asarray(qs, np.float64))
+    q = qs.to(dtype=torch.float64, device=X.device)[:, None]
     v = (m - 1).double()[None, :] * q            # numpy's "linear" index
     prev = torch.floor(v)
     last = (m - 1).clamp(min=0).double()[None, :].expand_as(v)

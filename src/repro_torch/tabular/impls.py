@@ -16,15 +16,14 @@ declarations used by projection pushdown.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ..core.dag import LazyOp, declare_tunable
 from ..core.metadata import OpMetadata, TensorInfo, register_meta
 from ..core.rewrites import declare_columnwise
-from ..core.runtime import to_host
+from ..core.runtime import linalg_ready, to_host
 from ..core.selection import register_impl
 from ..data import tabular as datasets
 from . import gbt
@@ -167,11 +166,18 @@ def clip_py(op, ins):
     return (np.clip(X, lo, hi),)
 
 
+def _tunable(value, dtype, device):
+    """A tunable spec value (a python float on the per-op path, a 0-d
+    tensor when a compiled segment hoists it to an argument) as a 0-d tensor
+    of ``dtype``: both give the same bits for the same value."""
+    return torch.as_tensor(value, dtype=dtype, device=device)
+
+
 @register_impl("clip_outliers", "torch", traceable=True)
 def clip_torch(op, ins):
     X = _f32(ins[0])
-    q = op.spec.get("q", 0.01)
-    lo, hi = gbt.nanquantile_cols(X, np.array([q, 1 - q])).float()
+    q = _tunable(op.spec.get("q", 0.01), torch.float64, X.device)
+    lo, hi = gbt.nanquantile_cols(X, torch.stack([q, 1 - q])).float()
     return (torch.minimum(torch.maximum(X, lo), hi),)
 
 
@@ -387,10 +393,15 @@ def te_fit_py(op, ins):
 def te_fit_torch(op, ins):
     x = torch.nan_to_num(ins[0].reshape(-1))
     y = _f32(ins[1]).reshape(-1)
-    card, sm = op.spec["card"], op.spec.get("smoothing", 20.0)
+    card = op.spec["card"]
+    sm = _tunable(op.spec.get("smoothing", 20.0), y.dtype, y.device)
     ids = x.to(torch.int32).clamp(0, card - 1).long()
     sums = gbt.segment_sum(y, ids, card)          # exact, order-free
-    counts = torch.bincount(ids, minlength=card).float()
+    # bincount's output length depends on the data; the ids are clamped
+    # below card, so integer adds into card slots count the same, at a
+    # shape a compiled segment can trace
+    counts = torch.zeros(card, dtype=torch.int64, device=ids.device) \
+        .index_add_(0, ids, torch.ones_like(ids)).float()
     prior = y.mean()
     return ((sums + sm * prior) / (counts + sm),)
 
@@ -484,7 +495,7 @@ def svd_py(op, ins):
 
 
 def _svd_torch(X, k: int):
-    _linalg_ready(X.device)
+    _linalg_ready(X)
     U, s, _ = torch.linalg.svd(X, full_matrices=False)
     return U[:, :k] * s[:k]
 
@@ -499,7 +510,7 @@ def svd_fd_torch(op, ins):
     """Frequent-Directions sketch (paper cites Huang'19) — approximate,
     selectable under stage=explore."""
     X = _f32(ins[0])
-    _linalg_ready(X.device)
+    _linalg_ready(X)
     k = op.spec["k"]
     ell = min(2 * k, X.shape[1])
     sketch = torch.zeros((ell, X.shape[1]), dtype=torch.float32,
@@ -596,24 +607,14 @@ def ridge_py(op, ins):
     return (w,)
 
 
-_LINALG_LOCK = threading.Lock()
-_LINALG_READY: set = set()
-
-
-def _linalg_ready(device: torch.device) -> None:
-    """torch loads its CUDA linear-algebra backend at the first
-    ``torch.linalg`` call, and that lazy load is not thread-safe: two
-    inter-op threads making their first Cholesky at once raise "lazy wrapper
-    should be called at most once".  The first call on a device is made
-    here, under a lock."""
-    if device.type != "cuda" or device in _LINALG_READY:
-        return
-    with _LINALG_LOCK:
-        if device not in _LINALG_READY:
-            eye = torch.eye(2, device=device)
-            torch.linalg.cholesky(eye)
-            torch.linalg.svd(eye)
-            _LINALG_READY.add(device)
+def _linalg_ready(X: torch.Tensor) -> None:
+    """The CUDA linear-algebra backend loaded for ``X``'s device
+    (``core.runtime.linalg_ready``) before an impl's first ``torch.linalg``
+    call.  Under a compiled segment's fake trace nothing runs (the
+    compiled-segment backend makes the real call before the program's first
+    call on a device)."""
+    if not is_fake(X):
+        linalg_ready(X.device)
 
 
 def _ridge_normal(X, y):
@@ -633,7 +634,7 @@ def _ridge_solve(XtX, Xty, alphas):
     """Solve (XtX + α·I) w = Xty for each α of ``alphas`` (a 1-D tensor):
     the reference's ``solve(..., assume_a="pos")`` as a Cholesky factor and
     its solve, batched over the alphas.  Returns float32 (len(alphas), d)."""
-    _linalg_ready(XtX.device)
+    _linalg_ready(XtX)
     eye = torch.eye(XtX.shape[0], dtype=XtX.dtype, device=XtX.device)
     A = XtX[None] + alphas.to(XtX.dtype)[:, None, None] * eye
     L = torch.linalg.cholesky(A)
@@ -644,7 +645,7 @@ def _ridge_solve(XtX, Xty, alphas):
 @register_impl("ridge_fit", "torch", vmappable=True, traceable=True)
 def ridge_torch(op, ins):
     X, y = _f32(ins[0]), _f32(ins[1]).reshape(-1)
-    alpha = torch.tensor([op.spec["alpha"]], dtype=X.dtype, device=X.device)
+    alpha = _tunable(op.spec["alpha"], X.dtype, X.device).reshape(1)
     return (_ridge_solve(*_ridge_normal(X, y), alpha)[0],)
 
 
@@ -684,11 +685,20 @@ def enet_py(op, ins):
     return (w_out,)
 
 
-def _enet_fista(X, y, alphas, l1rs, iters: int):
+@torch.library.custom_op("repro_torch::enet_fista", mutates_args=())
+def _enet_fista(X: torch.Tensor, y: torch.Tensor, alphas: torch.Tensor,
+                l1rs: torch.Tensor, iters: int) -> torch.Tensor:
     """FISTA for the elastic net, for each (α, l1_ratio) pair of the 1-D
     tensors ``alphas`` and ``l1rs`` at once (the reference vmaps one pair):
     a loop of ``iters`` steps (the reference's ``lax.scan``).  Returns
-    (len(alphas), d + 1): the weights on X's scale and the bias last."""
+    (len(alphas), d + 1): the weights on X's scale and the bias last.
+
+    One operator (``torch.ops.repro_torch.enet_fista``): a compiled
+    segment's trace records it as one node and the compiled program calls
+    it, where tracing the python loop would unroll ``iters`` steps into the
+    graph (torch has no stable loop primitive that the compiler lowers, as
+    XLA lowers ``lax.scan``).  Its fake version gives the shape; its vmap
+    rule runs a batch of pairs as one call."""
     n, d = X.shape
     mu, sd = X.mean(0), X.std(0, correction=0)
     sd = torch.where(sd == 0, 1.0, sd)
@@ -698,7 +708,7 @@ def _enet_fista(X, y, alphas, l1rs, iters: int):
     l1 = (alphas * l1rs * n)[:, None]                    # (V, 1)
     l2 = (alphas * (1 - l1rs) * n)[:, None]
     G = Xs.T @ Xs
-    _linalg_ready(G.device)
+    _linalg_ready(G)
     L = torch.linalg.matrix_norm(G, ord=2) + l2 + 1e-6   # Lipschitz bound
     Xty = Xs.T @ yc
     V = len(alphas)
@@ -716,11 +726,39 @@ def _enet_fista(X, y, alphas, l1rs, iters: int):
     return torch.cat([w / sd, bias[:, None]], dim=1)
 
 
+@_enet_fista.register_fake
+def _enet_fista_fake(X, y, alphas, l1rs, iters):
+    return X.new_empty((alphas.shape[0], X.shape[1] + 1))
+
+
+def _enet_fista_vmap(info, in_dims, X, y, alphas, l1rs, iters):
+    """``torch.func.vmap`` of the operator: a batch of (α, l1_ratio)
+    columns over one shared (X, y) is one call over all the pairs; a batch
+    whose X or y varies runs one call a member."""
+    xd, yd, ad, ld, _ = in_dims
+    B = info.batch_size
+
+    def lead(t, dim):
+        return t.movedim(dim, 0) if dim is not None \
+            else t.expand(B, *t.shape)
+
+    a, l1 = lead(alphas, ad), lead(l1rs, ld)
+    if xd is None and yd is None:
+        out = _enet_fista(X, y, a.reshape(-1), l1.reshape(-1), iters)
+        return out.reshape(B, -1, out.shape[-1]), 0
+    Xs, ys = lead(X, xd), lead(y, yd)
+    return torch.stack([_enet_fista(Xs[i], ys[i], a[i], l1[i], iters)
+                        for i in range(B)]), 0
+
+
+_enet_fista.register_vmap(_enet_fista_vmap)
+
+
 def _enet_args(ops, X):
-    alphas = torch.tensor([op.spec["alpha"] for op in ops], dtype=X.dtype,
-                          device=X.device)
-    l1rs = torch.tensor([op.spec["l1_ratio"] for op in ops], dtype=X.dtype,
-                        device=X.device)
+    alphas = torch.stack([_tunable(op.spec["alpha"], X.dtype, X.device)
+                          for op in ops])
+    l1rs = torch.stack([_tunable(op.spec["l1_ratio"], X.dtype, X.device)
+                        for op in ops])
     return alphas, l1rs, ops[0].spec.get("iters", 200)
 
 
@@ -903,8 +941,8 @@ def _ridge_batch(ops, ins):
     """One batched Cholesky solve for the group's alphas (the reference's
     ``jax.vmap`` of the solve over them)."""
     X, y = _f32(ins[0]), _f32(ins[1]).reshape(-1)
-    alphas = torch.tensor([op.spec["alpha"] for op in ops],
-                          dtype=X.dtype, device=X.device)
+    alphas = torch.stack([_tunable(op.spec["alpha"], X.dtype, X.device)
+                          for op in ops])
     ws = _ridge_solve(*_ridge_normal(X, y), alphas)
     return [(ws[i],) for i in range(len(ops))]
 

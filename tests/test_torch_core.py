@@ -8,9 +8,11 @@ client of the port, against ``repro.core`` and ``repro.client``.
   place of "jax"), and the same second-run cache hits; the CV scores agree
   within 1e-3 relative (the torch tier sums the GBT's histograms exactly,
   so an exact tie between two splits can break the other way).
-* The session runs on one device and has no fallback: no CUDA raises,
-  compiled segments (``ROADMAP.md`` A2b) and ``analyze_batch`` (A2c)
-  raise, and a torch impl that raises ends the run.
+* The session runs on one device and has no fallback: no CUDA raises, the
+  service and fabric targets (``ROADMAP.md`` A2e, A5) raise, and a torch
+  impl that raises ends the run.  Compiled segments and ``analyze_batch``
+  are ported (``tests/test_torch_segments.py``,
+  ``tests/test_torch_preflight.py``).
 * The cache keeps tensors, spills and exports them as host arrays.
 
 Both packages get ``hardware_threads=8``, which shapes the waves.
@@ -253,15 +255,13 @@ def test_stratum_without_cuda_raises():
 
 
 def test_unported_parts_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A2b"):
-        Stratum(device="cpu")                 # compiled_segments=True
-    with pytest.raises(NotImplementedError, match="A2b"):
-        make_backends(compiled=True)
-    s = Stratum(device="cpu", compiled_segments=False)
+    # the compiled-segment backend (A2b) and the analysis (A2c) are ported
+    s = Stratum(device="cpu")                 # compiled_segments=True
+    assert set(s._backends) == {"python", "torch"}
+    assert set(make_backends(compiled=True)) == {"python", "torch"}
     x = T.read("uk_housing", 100)
-    with pytest.raises(NotImplementedError, match="A2c"):
-        s.analyze_batch(PipelineBatch([x], ["x"]))
-    assert s.precompile_batch(PipelineBatch([x], ["x"])) == {}
+    assert s.analyze_batch(PipelineBatch([x], ["x"])).ok
+    assert s.precompile_batch(PipelineBatch([x], ["x"])) == {}  # not async
     with pytest.raises(NotImplementedError, match="A2e"):
         connect("service")
     with pytest.raises(NotImplementedError, match="A5"):
@@ -276,13 +276,18 @@ def test_unported_parts_raise_naming_the_roadmap():
     assert SelectionConfig(device="cpu").resolved_platform() == "cpu"
 
 
-def test_jit_cache_dir_is_accepted_and_warns_once(monkeypatch):
+def test_jit_cache_dir_is_accepted_and_warns_once(monkeypatch, tmp_path):
+    """``jit_cache_dir`` points inductor's on-disk cache at the directory,
+    process-wide (the reference's persistent compilation cache); it has
+    an effect now, so it warns no time at all."""
+    import os
     monkeypatch.setattr(t_api, "_warned_once", set())
-    with pytest.warns(UserWarning, match="A2b"):
-        Stratum(device="cpu", compiled_segments=False, jit_cache_dir="d")
+    monkeypatch.setenv("TORCHINDUCTOR_CACHE_DIR", "unset")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
+        Stratum(device="cpu", jit_cache_dir=str(tmp_path / "d"))
         Stratum(device="cpu", compiled_segments=False, jit_cache_dir="d")
+    assert os.environ["TORCHINDUCTOR_CACHE_DIR"] == os.path.abspath("d")
 
 
 def test_local_client_config_and_deadline():

@@ -215,7 +215,9 @@ for name in names:
 assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
         "repro_torch.models.xlstm", "repro_torch.core.runtime",
         "repro_torch.tabular.impls", "repro_torch.data.tabular",
-        "repro_torch.client"} <= set(names)
+        "repro_torch.client", "repro_torch.core.backends.torch_segment",
+        "repro_torch.core.analysis.analyzer",
+        "repro_torch.agents.aide"} <= set(names)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
