@@ -121,6 +121,27 @@ Phases, each of which must pass:
              ``AsyncAIDESearch``, 2 rounds of 4.  On every run no segment
              is uncompilable, compiled ops' outputs live on the card, and
              no hand kernel launches.
+17. service — the paper's N concurrent agents through the single-process
+             service (``repro_torch.service``) at the client's defaults (2
+             executors, compiled segments, a fresh ``jit_cache_dir``), on
+             the same 1,000,000-row lake, 16 GiB, hardware_threads=8: (a)
+             iteration 1 split by model over four tenants, queued before
+             ``start()``: one super-batch, each job coalesced with 3 and
+             sharing 45 ops, 135 executions deduped, per-tier counts the
+             reference's, each tenant's scores its batch's alone on the
+             local target within 1e-4; (b) ``examples/agentic_search.py``'s
+             service mode (4 agents x 3 rounds of ``AsyncAIDESearch`` on
+             threads, ``connect("service")``, traced to a JSONL log): every
+             job done, each best its spec's score on the local target,
+             work shared across agents, the log replayed to ``completed``,
+             the ``top`` view printed; (c) one executor: iteration 1 as a
+             SCAVENGER sweep preempted by an INTERACTIVE quickstart probe
+             at 20,000 rows, resumed from its salvage with the unpreempted
+             scores; (d) a host-side poisoned batch coalesced with an
+             innocent one, a ``verify=True`` submission refused by the
+             analysis, then one more job.  Uncompilable 0 and no hand
+             kernel launches throughout; ``--profile`` adds the idle share
+             and device time by family of a warm pass of (b).
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the kernels line reports each kernel's launches in the
@@ -172,7 +193,7 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
           "train", "consistency_audio", "serve_audio", "consistency_vlm",
-          "serve_vlm", "tabular", "agentic")
+          "serve_vlm", "tabular", "agentic", "service")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -2602,6 +2623,474 @@ def _agentic_checks(torch, np, report, out, problems, cache_dir):
         problems.append(f"search best {node}")
 
 
+SERVICE_ROWS = AGENTIC_ROWS
+SERVICE_BUDGET = 16 << 30
+SERVICE_THREADS = 8
+SERVICE_AGENTS = 4
+SERVICE_ROUNDS = 3
+SERVICE_PROBE_ROWS = 20_000
+# compiled against per-op and service against local: the agentic phase's
+# limit
+SERVICE_RTOL = TABULAR_TIER_RTOL
+# the reference's four-tenant split of iteration 1 (repro's service on the
+# CPU, 16 GiB, 8 threads, coalesce_window_s 0.05; the same at 2,000 and
+# 200,000 rows): one super-batch, 135 executions deduped, and each job
+# (coalesced_with, ops_shared_cross_agent, cache_hits, per_backend) with
+# "jax" read as "torch"
+SERVICE_SPLIT = (1, 135, (3, 45, 0, {"torch": 35, "torch-seg": 16,
+                                     "python": 14}))
+
+
+def service_config(cache_dir, **kw):
+    """The client's defaults (compiled segments, 2 executors) on the card,
+    16 GiB, 8 threads, inductor's cache in ``cache_dir``."""
+    from repro_torch.client import StratumConfig
+
+    kw.setdefault("memory_budget_bytes", SERVICE_BUDGET)
+    return StratumConfig.make(hardware_threads=SERVICE_THREADS,
+                              jit_cache_dir=cache_dir, **kw)
+
+
+def _split_batches(rows):
+    """Iteration 1 split by model: tenant i submits the two pipelines of
+    MODELS[i], one for each preprocessing."""
+    from repro_torch.agents.aide import MODELS, PREPROCS, PipelineSpec
+    from repro_torch.core import PipelineBatch
+
+    out = []
+    for model in MODELS:
+        specs = [PipelineSpec(preproc=p, model=model, cv_k=3, n_rows=rows,
+                              seed=7) for p in PREPROCS]
+        out.append(PipelineBatch([s.build() for s in specs],
+                                 [f"{s.preproc}+{s.model}" for s in specs]))
+    return out
+
+
+def _worst_rel(got: dict, want: dict) -> float:
+    return max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+
+
+def _uncompilable(svc, label, problems):
+    unc = svc.plan_cache.snapshot()["uncompilable"]
+    if unc:
+        problems.append(f"{label}: {unc} uncompilable segment(s)")
+
+
+def service_phase(torch, np, report):
+    import tempfile
+
+    from repro_torch.data import tabular as data
+    from repro_torch.kernels.common import launches, reset_launches
+
+    card = report.get("card", "")
+    t_phase = time.perf_counter()
+    data.ensure_files("uk_housing", SERVICE_ROWS, 0)
+    cache_dir = tempfile.mkdtemp(prefix="inductor-")
+    out = report["service"] = {"rows": SERVICE_ROWS, "card": card}
+    problems: list = []
+    reset_launches()
+    try:
+        _service_checks(torch, np, out, problems, cache_dir)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    counts = launches()
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches {counts}; phase {out['phase_s']:.1f} s ({card})")
+    if any(counts.values()):
+        problems.append(f"a hand kernel launched on the service path: "
+                        f"{counts}")
+    if problems:
+        fail("service: " + "; ".join(problems))
+    return counts
+
+
+def _service_checks(torch, np, out, problems, cache_dir):
+    """Checks (a)-(d) of the service phase; each failure is appended to
+    ``problems``."""
+    from repro_torch.client import connect
+
+    # the port's local target at the client's defaults: each tenant's
+    # batch alone, the agents' best specs, the unpreempted sweep
+    local = connect("local", service_config(cache_dir))
+    try:
+        alone = _service_split(torch, np, out, problems, cache_dir, local)
+        _service_search(torch, np, out, problems, cache_dir, local)
+        _service_preempt(torch, np, out, problems, cache_dir, alone)
+        _service_isolation(torch, np, out, problems, cache_dir, local)
+    finally:
+        local.close()
+
+
+def _service_split(torch, np, out, problems, cache_dir, local):
+    """(a) four tenants, iteration 1 split by model, queued before
+    start(): one super-batch with the reference's sharing and counts, and
+    each tenant's scores its batch's alone on the local target."""
+    from repro_torch.service import StratumService
+
+    card = out["card"]
+    batches = _split_batches(SERVICE_ROWS)
+    svc = StratumService(config=service_config(
+        cache_dir, coalesce_window_s=0.05).service_config(),
+        autostart=False)
+    try:
+        futs = [svc.session(f"agent-{i}").submit(b)
+                for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svc.start()
+        done = [f.result(timeout=900) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        g = svc.telemetry.global_snapshot()
+        _uncompilable(svc, "split", problems)
+        gate = svc.mem_inflight_peak
+    finally:
+        svc.stop()
+    jobs = [(r.coalesced_with, r.ops_shared_cross_agent, r.cache_hits,
+             dict(r.per_backend)) for _, r in done]
+    got = (g["super_batches"], g["ops_deduped_cross_agent"], jobs)
+    want = (SERVICE_SPLIT[0], SERVICE_SPLIT[1], [SERVICE_SPLIT[2]] * 4)
+    scores = [{k: float(v) for k, v in res.items()} for res, _ in done]
+    alone, t_alone = {}, time.perf_counter()
+    for b in batches:
+        res, _ = local.run_batch(b)
+        alone.update({k: float(v) for k, v in res.items()})
+    t_alone = time.perf_counter() - t_alone
+    rel = max(_worst_rel(s, {k: alone[k] for k in s}) for s in scores)
+    log(f"  (a) 4 tenants, iteration 1 split by model, {SERVICE_ROWS} rows: "
+        f"{wall:.2f} s; super-batches {got[0]}, deduped {got[1]}, per job "
+        f"(coalesced_with, shared, cache hits, tiers) {jobs[0]} "
+        f"(reference {SERVICE_SPLIT}); memory gate's largest in-flight "
+        f"{gate / 2**30:.2f} GiB of {SERVICE_BUDGET / 2**30:.0f}, peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    log(f"      scores against each tenant's batch alone on the local "
+        f"target ({t_alone:.2f} s): largest relative difference {rel:.3g} "
+        f"(limit {SERVICE_RTOL:g}) ({card})")
+    out["split"] = {"wall_s": wall, "counts": got, "scores": scores,
+                    "alone": alone, "max_rel": rel, "gate_peak_bytes": gate,
+                    "peak_bytes": peak,
+                    "plan_cache": g["plan_cache"]}
+    if got != want:
+        problems.append(f"split {got}, the reference's {want}")
+    if not (rel <= SERVICE_RTOL and all(np.isfinite(v) for s in scores
+                                        for v in s.values())):
+        problems.append(f"split scores against the local target: {rel}")
+    return alone
+
+
+def _service_search(torch, np, out, problems, cache_dir, local):
+    """(b) examples/agentic_search.py's service mode: N agents, each an
+    AsyncAIDESearch on its own thread, through connect("service")."""
+    import tempfile
+    import threading
+
+    from repro_torch.agents import AIDEAgent, AsyncAIDESearch
+    from repro_torch.client import connect
+    from repro_torch.core.runtime import crossings, reset_crossings
+    from repro_torch.service.observability import (COMPLETED, percentile,
+                                                   replay, top)
+
+    card = out["card"]
+    trace_dir = tempfile.mkdtemp(prefix="traces-")
+    try:
+        cfg = service_config(cache_dir, coalesce_window_s=0.05, trace=True,
+                             trace_dir=trace_dir)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_crossings()
+        t0 = time.perf_counter()
+        with connect("service", cfg) as client:
+            bests, searches = _run_agents(client, SERVICE_AGENTS,
+                                          SERVICE_ROUNDS, AIDEAgent,
+                                          AsyncAIDESearch, threading)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            svc = client.service
+            snap, g = client.telemetry.snapshot(), \
+                client.telemetry.global_snapshot()
+            seg = svc._backends["torch"].stats()
+            gate = svc.mem_inflight_peak
+            frame = top.render(g)
+        cross = crossings()
+        peak = torch.cuda.max_memory_allocated()
+        timelines = replay.reassemble(replay.load_events(trace_dir))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    last = {key: hops[-1]["event"] for key, hops in timelines.items()}
+    waits = {f"agent-{i}": [r.queue_wait_s for r in s.reports]
+             for i, s in enumerate(searches)}
+    rel, rerun = {}, {}
+    for i, node in enumerate(bests):
+        if node is not None and np.isfinite(node.score):
+            value, _ = local.run(node.spec.build())
+            rerun[i] = float(value)
+            rel[i] = abs(node.score - rerun[i]) / abs(rerun[i])
+    log(f"  (b) {SERVICE_AGENTS} agents x {SERVICE_ROUNDS} rounds of "
+        f"AsyncAIDESearch(batch_size=4, max_inflight=2) through "
+        f"connect(\"service\"): {wall:.2f} s")
+    for i, node in enumerate(bests):
+        w = waits[f"agent-{i}"]
+        log(f"      agent-{i}: best "
+            f"{node.spec.preproc + '+' + node.spec.model if node else None}"
+            f" rmse {node.score if node else None} (local target "
+            f"{rerun.get(i)}, rel {rel.get(i)}); queue wait p50 "
+            f"{percentile(w, 50):.3f} s, p99 {percentile(w, 99):.3f} s; "
+            f"jobs {snap[f'agent-{i}']['jobs_completed']} done, "
+            f"{snap[f'agent-{i}']['jobs_failed']} failed")
+    log(f"      super-batches {g['super_batches']} (jobs coalesced "
+        f"{g['jobs_coalesced']}), cross-agent ops deduped "
+        f"{g['ops_deduped_cross_agent']}, cross-tenant cache hits "
+        f"{g['cache_cross_tenant_hits']}, plan cache: "
+        f"{g['plan_cache']['entries']} programs, "
+        f"{g['plan_cache']['compiles']} compiles, "
+        f"{g['plan_cache']['hits']} hits (rate "
+        f"{g['plan_cache']['hit_rate']:.3f}), uncompilable "
+        f"{g['plan_cache']['uncompilable']}")
+    log(f"      traced {seg['traces']} segment(s) in {seg['trace_s']:.2f} s,"
+        f" compiled {seg['compiles']} in {seg['compile_s']:.2f} s; "
+        f"crossings {cross['to_device']} to the card "
+        f"({cross['to_device_bytes'] / 2**20:.1f} MiB), {cross['to_host']} "
+        f"to the host ({cross['to_host_bytes'] / 2**20:.1f} MiB); peak "
+        f"device memory {peak / 2**30:.2f} GiB, the gate's largest "
+        f"in-flight {gate / 2**30:.2f} GiB of "
+        f"{SERVICE_BUDGET / 2**30:.0f} ({card})")
+    log(f"      trace log: {len(timelines)} jobs replayed, last hops "
+        f"{sorted(set(last.values()))}")
+    for line in frame.splitlines():
+        log(f"      | {line}")
+    out["search"] = {
+        "wall_s": wall, "best": [None if n is None else n.score
+                                 for n in bests],
+        "local": rerun, "rel": rel, "queue_wait_s": waits,
+        "telemetry": snap, "global": g, "segment_stats": seg,
+        "crossings": cross, "peak_bytes": peak, "gate_peak_bytes": gate,
+        "replayed_jobs": len(timelines)}
+    jobs = SERVICE_AGENTS * SERVICE_ROUNDS
+    resolved = all(len(s.reports) == SERVICE_ROUNDS
+                   and not s.deadlines_missed and not s.analysis_rejections
+                   for s in searches)
+    failed = sum(v["jobs_failed"] + v["deadline_shed"]
+                 for v in snap.values())
+    if not resolved or failed or sum(v["jobs_completed"]
+                                     for v in snap.values()) != jobs:
+        problems.append(f"search: rounds resolved {resolved}, failed or "
+                        f"shed {failed}")
+    if len(rel) != SERVICE_AGENTS or \
+            not all(r <= SERVICE_RTOL for r in rel.values()):
+        problems.append(f"search bests against the local target: {rel}")
+    # work merged across agents, then reused after the merge: by the
+    # shared cache or by a shared compiled program.  Which one depends on
+    # the cache's room: with 1.6 GiB of cache (16 GiB x 0.10) against
+    # 1,000,000 rows, an agent's intermediates are evicted before another
+    # agent reads them, and the recomputation reuses the programs; the
+    # reference does the same at the same data-to-cache ratio
+    # (tests/test_torch_service.py::test_cross_tenant_cache_hits_need_room)
+    pc = g["plan_cache"]
+    if not (g["ops_deduped_cross_agent"] > 0
+            and g["cache_cross_tenant_hits"] + pc["hits"] > 0):
+        problems.append(f"search: work not shared across agents (deduped "
+                        f"{g['ops_deduped_cross_agent']}, cross-tenant "
+                        f"hits {g['cache_cross_tenant_hits']}, plan cache "
+                        f"{pc})")
+    if g["plan_cache"]["uncompilable"]:
+        problems.append(f"search: {g['plan_cache']['uncompilable']} "
+                        f"uncompilable segment(s)")
+    if len(timelines) != jobs or set(last.values()) != {COMPLETED}:
+        problems.append(f"trace log: {len(timelines)} jobs, last hops "
+                        f"{sorted(set(last.values()))}")
+
+
+def _run_agents(client, n_agents, n_rounds, AIDEAgent, AsyncAIDESearch,
+                threading):
+    """examples/agentic_search.py's run_async: one AsyncAIDESearch a
+    thread, agent i seeded i."""
+    bests, searches, errors = [None] * n_agents, [None] * n_agents, []
+
+    def agent_main(i):
+        try:
+            searches[i] = AsyncAIDESearch(
+                client.session(f"agent-{i}"),
+                AIDEAgent(n_rows=SERVICE_ROWS, cv_k=3, seed=i),
+                batch_size=4, max_inflight=2)
+            bests[i] = searches[i].run(n_rounds=n_rounds)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=agent_main, args=(i,))
+               for i in range(n_agents)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"an agent failed: {errors}")
+    return bests, searches
+
+
+def _service_preempt(torch, np, out, problems, cache_dir, alone):
+    """(c) one executor: iteration 1 as a SCAVENGER sweep; once it is
+    dispatched and has polled its first wave boundary, an INTERACTIVE
+    quickstart probe; the probe first, the sweep preempted and resumed
+    from its salvage with the unpreempted scores."""
+    import threading
+
+    import repro_torch.tabular as T
+    from repro_torch.agents import paper_workload_batches
+    from repro_torch.data import tabular as data
+    from repro_torch.service import Priority, StratumService
+    from repro_torch.service.observability import DISPATCHED
+
+    card = out["card"]
+    _n, sweep_batch, _ctx = next(iter(paper_workload_batches(
+        n_rows=SERVICE_ROWS, cv_k=3)))
+    probe_batch, _, _ = tabular_batch(T, data, SERVICE_PROBE_ROWS)
+    svc = StratumService(config=service_config(
+        cache_dir, n_executors=1, coalesce_window_s=0.0,
+        trace=True).service_config(), autostart=False)
+    polled = threading.Event()
+    install = svc._preempt_check_for
+
+    def watched(live, band):
+        # the runtime polls the check only at a wave boundary after an op
+        # ran: its first call means the sweep's first wave is done
+        check = install(live, band)
+        if check is None:
+            return None
+
+        def poll():
+            polled.set()
+            return check()
+        return poll
+
+    svc._preempt_check_for = watched
+    order: list = []
+    try:
+        sweep = svc.session("sweep").submit(sweep_batch,
+                                            priority=Priority.SCAVENGER)
+        sweep.add_done_callback(lambda _f: order.append("sweep"))
+        t0 = time.perf_counter()
+        svc.start()
+        if not polled.wait(900):
+            raise RuntimeError("the sweep never reached a wave boundary")
+        hops = [h[0] for h in svc.traces.get(f"j{sweep.job_id}").hops]
+        t_probe = time.perf_counter()
+        probe = svc.session("probe").submit(probe_batch,
+                                            priority=Priority.INTERACTIVE)
+        probe.add_done_callback(lambda _f: order.append("probe"))
+        _, probe_rep = probe.result(timeout=900)
+        probe_s = time.perf_counter() - t_probe
+        res, rep = sweep.result(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _uncompilable(svc, "preemption", problems)
+    finally:
+        svc.stop()
+    scores = {k: float(v) for k, v in res.items()}
+    rel = _worst_rel(scores, alone)
+    log(f"  (c) one executor: iteration 1 as SCAVENGER ({wall:.2f} s); the "
+        f"sweep's hops when the probe came {hops}; INTERACTIVE quickstart "
+        f"probe at {SERVICE_PROBE_ROWS} rows: queue wait "
+        f"{probe_rep.queue_wait_s:.3f} s, done {probe_s:.2f} s after "
+        f"submit; order {order}")
+    log(f"      sweep preemptions {rep.preemptions}, ops salvaged "
+        f"{rep.ops_salvaged}; scores against the unpreempted run: largest "
+        f"relative difference {rel:.3g} (limit {SERVICE_RTOL:g}) ({card})")
+    out["preemption"] = {"wall_s": wall, "hops_at_probe": hops,
+                         "probe_wait_s": probe_rep.queue_wait_s,
+                         "probe_s": probe_s, "order": order,
+                         "preemptions": rep.preemptions,
+                         "ops_salvaged": rep.ops_salvaged, "max_rel": rel}
+    if DISPATCHED not in hops or order[:1] != ["probe"] or \
+            rep.preemptions < 1 or rep.ops_salvaged <= 0:
+        problems.append(f"preemption: hops {hops}, order {order}, "
+                        f"preemptions {rep.preemptions}, salvaged "
+                        f"{rep.ops_salvaged}")
+    if not rel <= SERVICE_RTOL:
+        problems.append(f"preempted sweep's scores: {rel}")
+
+
+def _boom(*_a, **_k):
+    raise ValueError("poisoned op")
+
+
+def _service_isolation(torch, np, out, problems, cache_dir, local):
+    """(d) a host-side poisoned batch coalesced with an innocent one, a
+    submission that fails the static analysis, then one more job."""
+    import repro_torch.tabular as T
+    from repro_torch.client import ServiceTarget, SubmitOptions
+    from repro_torch.core import GENERIC, TRANSFORM, LazyOp, PipelineBatch
+    from repro_torch.core.analysis import AnalysisError
+    from repro_torch.core.runtime import ExecutionError
+    from repro_torch.data import tabular as data
+    from repro_torch.service import StratumService
+
+    card = out["card"]
+    x = T.read("uk_housing", SERVICE_PROBE_ROWS, seed=0)
+    bad = PipelineBatch([LazyOp("boom", GENERIC, spec={"fn": _boom},
+                                inputs=(T.project(x, [0, 1]),)).out()],
+                        ["bad"])
+    good, _, _ = tabular_batch(T, data, SERVICE_PROBE_ROWS)
+    want, _ = local.run_batch(good)
+    cfg = service_config(cache_dir, coalesce_window_s=0.05)
+    svc = StratumService(config=cfg.service_config(), autostart=False)
+    client = ServiceTarget(cfg, service=svc)
+    try:
+        f_bad = client.submit(bad, SubmitOptions(tenant="bad"))
+        f_good = client.submit(good, SubmitOptions(tenant="good"))
+        svc.start()
+        try:
+            f_bad.result(timeout=900)
+            bad_error = None
+        except ExecutionError as e:
+            bad_error = type(e.cause).__name__
+        res, rep = f_good.result(timeout=900)
+        merged = client.telemetry.global_snapshot()
+        rel = _worst_rel({k: float(v) for k, v in res.items()},
+                         {k: float(v) for k, v in want.items()})
+        invalid = PipelineBatch([LazyOp("no_such_op", TRANSFORM,
+                                        inputs=(x,)).out()], ["invalid"])
+        depth = svc.queue.pending()
+        try:
+            client.submit(invalid, SubmitOptions(verify=True))
+            refused = None
+        except AnalysisError as e:
+            refused = sorted(e.rules)
+        depth_after = svc.queue.pending()
+        after, _ = client.run_batch(good, timeout=900)
+        snap = client.telemetry.snapshot()
+        _uncompilable(svc, "isolation", problems)
+    finally:
+        client.close()
+        svc.stop()
+    same_after = all(float(after[k]) == float(res[k]) for k in res)
+    log(f"  (d) poisoned batch coalesced with the quickstart at "
+        f"{SERVICE_PROBE_ROWS} rows: the bad job raised ExecutionError "
+        f"({bad_error}) in a super-batch of {merged['jobs_coalesced']} "
+        f"jobs, the innocent one re-ran alone, relative difference to the "
+        f"local target {rel:.3g}; verify=True on an "
+        f"invalid pipeline refused at submit {refused}, queue depth "
+        f"{depth} -> {depth_after}; a later job answered, equal "
+        f"{same_after} ({card})")
+    out["isolation"] = {"bad_error": bad_error, "good_rel": rel,
+                        "merged": [merged["super_batches"],
+                                   merged["jobs_coalesced"]],
+                        "refused": refused, "later_equal": same_after,
+                        "telemetry": snap}
+    if bad_error != "ValueError" or not rel <= SERVICE_RTOL or \
+            (merged["super_batches"], merged["jobs_coalesced"]) != (1, 2) \
+            or snap["bad"]["jobs_failed"] != 1 or \
+            snap["good"]["jobs_completed"] != 1:
+        problems.append(f"isolation: bad {bad_error}, good rel {rel}, "
+                        f"telemetry {snap}")
+    if refused != ["unknown-op"] or depth_after != depth or not same_after:
+        problems.append(f"admission: refused {refused}, depth {depth} -> "
+                        f"{depth_after}, later job equal {same_after}")
+
+
 def profile_tabular(torch, np, report):
     """One cold run of the tabular batch (a new client: no cache) under
     torch.profiler: the device's busy share, the top device ops, and the
@@ -2677,9 +3166,76 @@ def profile_agentic(torch, np, report):
     return lines
 
 
+def profile_service(torch, np, report):
+    """The service phase's (b) under torch.profiler: a first, unprofiled
+    pass of the agents compiles every program; the intermediate cache is
+    cleared; the same agents again, profiled.  The device's busy share
+    and device time by op family, beside the single-client quickstart's
+    idle share (the agentic profile, when it ran in this call)."""
+    import tempfile
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.agents import AIDEAgent, AsyncAIDESearch
+    from repro_torch.client import connect
+
+    cache_dir = tempfile.mkdtemp(prefix="inductor-")
+    try:
+        cfg = service_config(cache_dir, coalesce_window_s=0.05)
+        with connect("service", cfg) as client:
+            _run_agents(client, SERVICE_AGENTS, SERVICE_ROUNDS, AIDEAgent,
+                        AsyncAIDESearch, threading)
+            client.service.cache.clear_ram()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _run_agents(client, SERVICE_AGENTS, SERVICE_ROUNDS,
+                            AIDEAgent, AsyncAIDESearch, threading)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    rows, busy, nk = _kernel_table(prof, 1)
+    lines = _profile_lines(
+        f"service, {SERVICE_AGENTS} agents x {SERVICE_ROUNDS} rounds, "
+        f"{SERVICE_ROWS} rows, compiled programs warm, cache cold", wall,
+        busy, nk, rows, report)
+    fams: dict = {}
+    for name, cnt, us in rows:
+        fam = next(f for f, keys in TABULAR_FAMILIES
+                   if any(k in name for k in keys))
+        n, t = fams.get(fam, (0.0, 0.0))
+        fams[fam] = (n + cnt, t + us)
+    for fam, (cnt, us) in fams.items():
+        lines.append(f"    {fam}: {us / 1e3:.3f} ms ({us / busy:.3f} of "
+                     f"device time), {cnt:.0f} launches")
+    report["profile"]["service_families_us"] = {f: t for f, (_, t) in
+                                                fams.items()}
+    single = [v for k, v in report["profile"].items()
+              if k.startswith("agentic quickstart")]
+    if single:
+        idle = 1 - single[0]["device_busy_ms"] / single[0]["wall_ms"]
+        lines.append(f"    idle share {1 - busy / 1e6 / wall:.3f} against "
+                     f"the single-client quickstart's {idle:.3f} (this call)")
+    report["profile"]["service_idle_share"] = 1 - busy / 1e6 / wall
+    return lines
+
+
 # the kernels of the GBT's per-level histogram: index_add_ of the fixed-point
 # gradients and bincount of the counts
 HISTOGRAM_KERNELS = ("indexFunc", "index_add", "Histogram", "histogram")
+
+# kernel families of the tabular path, for the service profile
+TABULAR_FAMILIES = (
+    ("host<->device copies (pageable)", ("Memcpy",)),
+    ("GBT histograms (index_add_, bincount)", HISTOGRAM_KERNELS),
+    ("inductor's Triton kernels (the compiled segments)", ("triton_",)),
+    ("cuBLAS and cuSOLVER", ("gemm", "nvjet", "potrf", "syrk", "trsm",
+                             "splitKreduce")),
+    ("sorts, reductions, elementwise and the rest", ("",)),
+)
 
 
 def _kernel_table(prof, n_calls: int):
@@ -2947,6 +3503,8 @@ def profile_phase(torch, np, report, phases):
         lines += profile_tabular(torch, np, report)
     if "agentic" in phases:
         lines += profile_agentic(torch, np, report)
+    if "service" in phases:
+        lines += profile_service(torch, np, report)
     for line in lines:
         log("  " + line)
     with open(OUT / "profile.txt", "w") as f:
@@ -3146,6 +3704,12 @@ def main() -> None:
             f"connect(\"local\") at the client's defaults (compiled "
             f"segments), {AGENTIC_ROWS} rows, on the card")
         by_path["agentic"] = timed("agentic", agentic_phase, torch, np,
+                                   report)
+    if "service" in phases:
+        log(f"[service] the paper's N concurrent agents through "
+            f"connect(\"service\") at the client's defaults, "
+            f"{SERVICE_ROWS} rows, on the card")
+        by_path["service"] = timed("service", service_phase, torch, np,
                                    report)
     if args.profile:
         log("[profile] full width, torch.profiler")

@@ -360,9 +360,9 @@ class AsyncAIDESearch:
     ``result()`` returns ``(name→value, report)`` — preferably a
     :class:`repro_torch.client.StratumClient` (or one of its tenant-scoped
     sessions), which makes the driver **target-agnostic**: the same search
-    runs unchanged against any client target (the port has the local one;
-    the service and the fabric are ``ROADMAP.md`` A2e and A5).  Any object
-    with the reference's older keyword surface still works.
+    runs unchanged against a local session or a multi-tenant service (the
+    fabric is ``ROADMAP.md`` A5).  A :class:`repro_torch.service.Session`
+    (or any object with the older keyword surface) still works.
 
     When the session accepts :class:`repro_torch.client.SubmitOptions` (an
     ``options=`` parameter), the driver submits one options object per
@@ -373,7 +373,7 @@ class AsyncAIDESearch:
     frontier is actually blocked on — go in at ``refine_priority`` (default
     INTERACTIVE).  ``deadline_s`` (optional) attaches an SLO to every
     refinement submission: on a deadline-aware backend late refinements are
-    shed with :class:`~repro_torch.client.DeadlineExceeded` instead of
+    shed with :class:`~repro_torch.service.queue.DeadlineExceeded` instead of
     silently stalling the search frontier.
 
     Against a sharded fabric (the reference's ``ShardedStratum``),
@@ -393,9 +393,7 @@ class AsyncAIDESearch:
                  speculate: bool = False):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
-        # the port's copy of repro.service.priority.Priority, which moves to
-        # its service/ with ROADMAP.md A2e
-        from ..client import Priority
+        from ..service.priority import Priority
         self.session = session
         self.agent = agent
         self.batch_size = batch_size
@@ -426,7 +424,7 @@ class AsyncAIDESearch:
             raise ValueError(
                 "deadline_s requires a session accepting SubmitOptions "
                 "or the deadline_s keyword (a StratumClient target or a "
-                "service Session)")
+                "repro_torch.service Session)")
         self._affinity = None
         if shard_affinity and self._supports_affinity:
             # one stable key per search (NOT drawn from agent.rng — that
@@ -506,8 +504,8 @@ class AsyncAIDESearch:
         try:
             results, report = future.result()
         except Exception as e:  # noqa: BLE001 — narrow re-raise below
-            from ..client import DeadlineExceeded
             from ..core.analysis import AnalysisError
+            from ..service.queue import DeadlineExceeded
             if isinstance(e, AnalysisError):
                 # a shard-side analyzer rejected the round asynchronously
                 # (e.g. the out-of-process fabric, where the verdict rides

@@ -1,5 +1,5 @@
 """One submission surface: :class:`StratumClient` (the port of
-``repro.client``, its local target).
+``repro.client``: its local and service targets).
 
 The paper's core claim is that stratum "decouples pipeline execution from
 planning" behind a *single* integration point agents can target.  Agents
@@ -12,12 +12,10 @@ program against two objects —
   and ``run(sink)``.
 
 The port has the ``"local"`` target (:class:`LocalTarget`, one
-:class:`repro_torch.core.Stratum` session in this process).  The
-``"service"`` target is ``ROADMAP.md`` A2e and the ``"fabric"`` target A5:
-``connect`` raises for them until they land.  :class:`Priority`,
-:class:`DeadlineExceeded` and :class:`PipelineFuture` are copies of the
-reference's ``repro.service`` ones, which the local target needs; they move
-to the port's ``service/`` with A2e.
+:class:`repro_torch.core.Stratum` session in this process) and the
+``"service"`` target (:class:`ServiceTarget`, a multi-tenant
+:class:`repro_torch.service.StratumService`).  The ``"fabric"`` target is
+``ROADMAP.md`` A5: ``connect`` raises for it until it lands.
 
 Construction is uniform: one layered :class:`StratumConfig` (``optimizer``
 / ``runtime`` / ``cache`` / ``service`` sections), whose ``runtime.device``
@@ -26,7 +24,7 @@ is the session's torch device::
     from repro_torch.client import StratumConfig, SubmitOptions, connect
 
     cfg = StratumConfig.make(memory_budget_bytes=1 << 30, device="cpu")
-    with connect("local", cfg) as client:
+    with connect("service", cfg) as client:
         results, report = client.submit(batch, SubmitOptions(
             deadline_s=60.0, tags=("probe",))).result()
 """
@@ -34,161 +32,28 @@ is the session's torch device::
 from __future__ import annotations
 
 import itertools
-import threading
 import time
 from abc import ABC, abstractmethod
-from concurrent.futures import CancelledError
 from dataclasses import dataclass, field, replace
-from enum import IntEnum
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 from .core.analysis import AnalysisError, AnalysisReport
 from .core.api import (ALL_FEATURES, _DEFAULT_CACHE_FRACTION,
                        _DEFAULT_PLAN_CACHE_ENTRIES, Stratum)
 from .core.fusion import PipelineBatch
 from .core.dag import LazyRef
+from .service.control import ControlPolicy
+from .service.priority import Priority
+from .service.queue import DeadlineExceeded
+from .service.server import ServiceConfig, StratumService
+from .service.session import PipelineFuture
 
 __all__ = [
     "AnalysisError", "AnalysisReport", "CacheConfig", "DeadlineExceeded",
     "LocalTarget", "OptimizerConfig", "PipelineFuture", "Priority",
-    "RuntimeConfig", "ServiceTuning", "StratumClient", "StratumConfig",
-    "SubmitOptions", "connect",
+    "RuntimeConfig", "ServiceTarget", "ServiceTuning", "StratumClient",
+    "StratumConfig", "SubmitOptions", "connect",
 ]
-
-
-# ---------------------------------------------------------------------------
-# what the local target needs of repro.service (copies; ROADMAP.md A2e)
-# ---------------------------------------------------------------------------
-
-class Priority(IntEnum):
-    """Job priority band; lower value = more urgent."""
-
-    INTERACTIVE = 0
-    BATCH = 1
-    SCAVENGER = 2
-
-
-class DeadlineExceeded(RuntimeError):
-    """The job's ``deadline_s`` passed before a result could be produced:
-    raised out of ``PipelineFuture.result()`` when a local run finishes
-    past its deadline."""
-
-
-_PENDING = "pending"
-_RUNNING = "running"
-_DONE = "done"
-_CANCELLED = "cancelled"
-
-
-class PipelineFuture:
-    """Result handle for one submitted :class:`PipelineBatch`."""
-
-    def __init__(self, job_id: int, tenant: str,
-                 priority: Priority = Priority.BATCH):
-        self.job_id = job_id
-        self.tenant = tenant
-        self.priority = priority
-        self._event = threading.Event()
-        self._lock = threading.Lock()
-        self._state = _PENDING
-        self._results: Optional[dict[str, Any]] = None
-        self._report: Any = None
-        self._error: Optional[BaseException] = None
-        self._callbacks: list[Callable[["PipelineFuture"], None]] = []
-        self._cancel_hook: Optional[Callable[[int], bool]] = None
-
-    # -- service side ------------------------------------------------------
-    def _mark_running(self) -> bool:
-        """Claim the job for execution.  True for pending jobs and for jobs
-        already running (the failure-isolation retry re-executes innocent
-        bystanders of a poisoned super-batch); False once cancelled/done."""
-        with self._lock:
-            if self._state == _PENDING:
-                self._state = _RUNNING
-                return True
-            return self._state == _RUNNING
-
-    def _set_result(self, results: dict[str, Any], report: Any) -> None:
-        with self._lock:
-            if self._state == _CANCELLED:
-                return
-            self._results, self._report = results, report
-            self._state = _DONE
-        self._finish()
-
-    def _set_exception(self, exc: BaseException) -> None:
-        with self._lock:
-            if self._state == _CANCELLED:
-                return
-            self._error = exc
-            self._state = _DONE
-        self._finish()
-
-    def _set_cancelled(self) -> None:
-        with self._lock:
-            if self._state == _DONE:
-                return
-            self._state = _CANCELLED
-        self._finish()
-
-    def _finish(self) -> None:
-        self._event.set()
-        callbacks, self._callbacks = self._callbacks, []
-        for cb in callbacks:
-            try:
-                cb(self)
-            except Exception:
-                pass
-
-    # -- agent side --------------------------------------------------------
-    def done(self) -> bool:
-        return self._event.is_set()
-
-    def cancelled(self) -> bool:
-        with self._lock:
-            return self._state == _CANCELLED
-
-    def cancel(self) -> bool:
-        """Cancel iff the job is still queued (never pre-empts running work).
-
-        Returns True when the job was removed from the queue."""
-        hook = self._cancel_hook
-        if hook is None:
-            return False
-        return hook(self.job_id)
-
-    def result(self, timeout: Optional[float] = None
-               ) -> tuple[dict[str, Any], Any]:
-        if not self._event.wait(timeout):
-            raise TimeoutError(
-                f"job {self.job_id} (tenant {self.tenant!r}) not done "
-                f"after {timeout}s")
-        with self._lock:
-            if self._state == _CANCELLED:
-                raise CancelledError(f"job {self.job_id} was cancelled")
-            if self._error is not None:
-                raise self._error
-            return self._results, self._report
-
-    def exception(self, timeout: Optional[float] = None
-                  ) -> Optional[BaseException]:
-        if not self._event.wait(timeout):
-            raise TimeoutError(f"job {self.job_id} not done after {timeout}s")
-        with self._lock:
-            if self._state == _CANCELLED:
-                raise CancelledError(f"job {self.job_id} was cancelled")
-            return self._error
-
-    def add_done_callback(self, fn: Callable[["PipelineFuture"], None]
-                          ) -> None:
-        run_now = False
-        with self._lock:
-            if self._event.is_set():
-                run_now = True
-            else:
-                self._callbacks.append(fn)
-        if run_now:
-            fn(self)
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +201,7 @@ class ServiceTuning:
     # weights from the windowed collector (and, with processes=True, is
     # shipped to every worker shard inside its ServiceConfig); None =
     # every knob stays at its configured constant
-    control: Optional[Any] = None      # a ControlPolicy (service, A2e)
+    control: Optional[ControlPolicy] = None
 
 
 @dataclass(frozen=True)
@@ -407,9 +272,46 @@ class StratumConfig:
                 kw["speculative_depth"] = self.runtime.speculative_depth
         return kw
 
-    def service_config(self):
-        """The service's config: the service target is ROADMAP.md A2e."""
-        raise NotImplementedError(_NOT_PORTED["service"])
+    def service_config(self) -> ServiceConfig:
+        """The equivalent :class:`repro_torch.service.ServiceConfig` (the
+        service target), on the runtime section's device."""
+        s = self.service
+        return ServiceConfig(
+            memory_budget_bytes=self.runtime.memory_budget_bytes,
+            device=self.runtime.device,
+            cache_fraction=self.cache.fraction,
+            spill_dir=self.cache.spill_dir,
+            platform=self.optimizer.platform,
+            enable=self.optimizer.enable,
+            hardware_threads=self.runtime.hardware_threads,
+            jit_cache_dir=self.runtime.jit_cache_dir,
+            max_queued_total=s.max_queued_total,
+            max_queued_per_tenant=s.max_queued_per_tenant,
+            admission_analysis=s.admission_analysis,
+            coalesce_window_s=s.coalesce_window_s,
+            coalesce_max_jobs=s.coalesce_max_jobs,
+            max_jobs_per_tenant_per_round=s.max_jobs_per_tenant_per_round,
+            priority_aware=s.priority_aware,
+            priority_weights=s.priority_weights,
+            aging_s=s.aging_s,
+            preemption=s.preemption,
+            max_preemptions_per_job=s.max_preemptions_per_job,
+            deadline_aware=s.deadline_aware,
+            deadline_tight_slack_s=s.deadline_tight_slack_s,
+            segment_time_budget_s=self.runtime.segment_time_budget_s,
+            cache_arbitration=self.cache.arbitration,
+            cache_tenant_quota_fraction=self.cache.tenant_quota_fraction,
+            compiled_segments=self.runtime.compiled_segments,
+            plan_cache_entries=self.runtime.plan_cache_entries,
+            compile_async=self.runtime.compile_async,
+            batch_variants=self.runtime.batch_variants,
+            speculative_depth=self.runtime.speculative_depth,
+            n_executors=s.n_executors,
+            trace=s.trace,
+            trace_dir=s.trace_dir,
+            window_s=s.window_s,
+            n_windows=s.n_windows,
+            control=s.control)
 
 
 # ---------------------------------------------------------------------------
@@ -510,8 +412,8 @@ class StratumClient(ABC):
 class _ClientSession:
     """Tenant-pinning adapter: ``submit(batch, options)`` with the
     session's tenant filled in.  Duck-compatible with
-    :class:`repro.service.Session` (the service target, ROADMAP.md A2e)
-    for drivers like AsyncAIDESearch."""
+    :class:`repro_torch.service.Session` for drivers like
+    AsyncAIDESearch."""
 
     def __init__(self, client: StratumClient, tenant: str):
         self._client = client
@@ -658,16 +560,67 @@ class LocalTarget(StratumClient):
 
 
 # ---------------------------------------------------------------------------
+# service target
+# ---------------------------------------------------------------------------
+
+class ServiceTarget(StratumClient):
+    """Multi-tenant target: a persistent :class:`StratumService` behind
+    the client surface.  Owns the service it builds (closed with the
+    client); pass ``service=`` to front an existing one instead."""
+
+    target = "service"
+
+    def __init__(self, config: Optional[StratumConfig] = None,
+                 tenant: str = "default",
+                 service: Optional[StratumService] = None):
+        super().__init__(config, tenant)
+        self._owned = service is None
+        self._service = (service if service is not None
+                         else StratumService(
+                             config=self.config.service_config()))
+
+    def submit(self, batch: PipelineBatch,
+               options: Optional[SubmitOptions] = None) -> PipelineFuture:
+        opts = self._resolve(options)
+        return self._service.submit(
+            opts.tenant, batch, priority=opts.priority,
+            affinity=opts.affinity, deadline_s=opts.deadline_s,
+            tags=opts.tags, verify=opts.verify)
+
+    def precompile(self, batch: PipelineBatch) -> dict:
+        return self._service.precompile(self.tenant, batch)
+
+    def analyze(self, batch: PipelineBatch, *,
+                feasibility: bool = True) -> AnalysisReport:
+        return self._service.analyze(batch, feasibility=feasibility)
+
+    @property
+    def telemetry(self):
+        return self._service.telemetry
+
+    @property
+    def traces(self):
+        return self._service.traces
+
+    @property
+    def service(self) -> StratumService:
+        return self._service
+
+    def close(self) -> None:
+        if not self._closed and self._owned:
+            self._service.stop()
+        super().close()
+
+
+# ---------------------------------------------------------------------------
 # factory
 # ---------------------------------------------------------------------------
 
-TARGETS = {"local": LocalTarget}
+TARGETS = {"local": LocalTarget, "service": ServiceTarget}
 
 _NOT_PORTED = {
-    "service": "the multi-tenant service target is not ported yet "
-               "(ROADMAP.md A2e)",
     "fabric": "the sharded fabric target is not ported yet (ROADMAP.md "
-              "A5, after the service of A2e)",
+              "A5)",
 }
 
 
@@ -675,8 +628,8 @@ def connect(target: str = "local",
             config: Optional[StratumConfig] = None,
             tenant: str = "default", **kwargs) -> StratumClient:
     """Build a :class:`StratumClient` for ``target`` from one
-    :class:`StratumConfig`.  The port has the "local" target; "service"
-    and "fabric" raise ``NotImplementedError`` until they are ported.
+    :class:`StratumConfig`.  The port has the "local" and "service"
+    targets; "fabric" raises ``NotImplementedError`` until it is ported.
     Extra kwargs go to the target constructor (e.g. ``stratum=`` to front
     an existing session)."""
     if target in _NOT_PORTED:

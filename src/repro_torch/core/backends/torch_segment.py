@@ -200,6 +200,14 @@ class _Program:
             self._graphs[avals] = graph
 
 
+# make_fx keeps its current tracer in a module global, and a compiled
+# graph's first call runs dynamo and inductor: the service's executors, the
+# runtime's inter-op threads and the compile worker trace and first-call
+# graphs under this one lock, so two builds never interleave (a race there
+# would surface as a trace failure, i.e. a silent per-op fallback)
+_BUILD_LOCK = threading.RLock()
+
+
 def _trace(seg_fn, ext_specs, n_hoist: int, device) -> _Graph:
     """The probe and the compile unit: ``seg_fn`` traced by ``make_fx`` on
     fake tensors of ``ext_specs``' avals (and 0-d float64 hoists) — no data
@@ -221,13 +229,14 @@ def _trace(seg_fn, ext_specs, n_hoist: int, device) -> _Graph:
         lens[:] = [len(o) for o in outs]
         return [v for o in outs for v in o]
 
-    with FakeTensorMode():
-        args = [torch.empty(spec[1], dtype=spec[2], device=spec[3])
-                for spec, t in zip(ext_specs, is_tensor) if t]
-        args += [torch.empty((), dtype=torch.float64, device=device)
-                 for _ in range(n_hoist)]
-    gm = make_fx(flat_fn, tracing_mode="fake")(*args)
-    return _Graph(gm, tuple(lens), is_tensor)
+    with _BUILD_LOCK:
+        with FakeTensorMode():
+            args = [torch.empty(spec[1], dtype=spec[2], device=spec[3])
+                    for spec, t in zip(ext_specs, is_tensor) if t]
+            args += [torch.empty((), dtype=torch.float64, device=device)
+                     for _ in range(n_hoist)]
+        gm = make_fx(flat_fn, tracing_mode="fake")(*args)
+        return _Graph(gm, tuple(lens), is_tensor)
 
 
 class TorchSegmentBackend(ExecutionBackend):
@@ -563,15 +572,16 @@ class TorchSegmentBackend(ExecutionBackend):
         # the compiled program's first call must not be a thread's first
         # use of the lazily loaded CUDA linear algebra (not thread-safe)
         linalg_ready(device)
-        t0 = time.perf_counter()
-        try:
-            outs = graph(ext_vals, hoist_vals)
-        except Exception:  # noqa: BLE001 — compile (or first-run) failure
-            self._mark_uncompilable(key)
-            self.plan_cache.discard(key)
-            return None
-        self._count("compile", time.perf_counter() - t0)
-        graph.ready = True
+        with _BUILD_LOCK:
+            t0 = time.perf_counter()
+            try:
+                outs = graph(ext_vals, hoist_vals)
+            except Exception:  # noqa: BLE001 — compile or first-run failure
+                self._mark_uncompilable(key)
+                self.plan_cache.discard(key)
+                return None
+            self._count("compile", time.perf_counter() - t0)
+            graph.ready = True
         program.add(avals, graph)
         return outs
 

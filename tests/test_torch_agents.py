@@ -12,7 +12,10 @@ workload end to end at the client's defaults: the counterpart of
   iteration-2 cache hits are equal, the winner is the same, and the scores
   agree within 1e-3 relative (``tests/test_torch_core.py``'s tolerance).
 * ``AsyncAIDESearch`` runs on a local client session, with speculative
-  precompile hints when the session compiles asynchronously.
+  precompile hints when the session compiles asynchronously, and through
+  the service (``examples/agentic_search.py``'s service mode, cut down):
+  concurrent agents on threads, each best score the local target's for
+  its spec, work shared across agents, nothing uncompilable.
 
 Tables are 2,000 rows (the reference's test uses 6,000); sessions run on
 the CPU.
@@ -226,4 +229,62 @@ def test_async_aide_search_sends_speculative_hints():
         ex = client.stratum.plan_cache.executor
         assert ex.drain(timeout=300)
         snap = client.stratum.plan_cache.snapshot()
+        assert snap["async_failures"] == 0 and snap["uncompilable"] == 0
+
+
+def test_async_aide_search_runs_through_the_service():
+    """Three agents, two rounds of two each, on threads against one
+    ``connect("service")`` client (as ``examples/agentic_search.py``'s
+    run_async): every round resolves, each agent's best is its spec's
+    score on the local target, and the agents share work."""
+    import threading
+    cfg = StratumConfig.make(memory_budget_bytes=4 << 30, device="cpu",
+                             hardware_threads=8, coalesce_window_s=0.05)
+    bests, searches = [None] * 3, [None] * 3
+    with connect("service", cfg) as client:
+        def agent_main(i):
+            searches[i] = AsyncAIDESearch(
+                client.session(f"agent-{i}"),
+                AIDEAgent(n_rows=N_ROWS, cv_k=2, seed=i),
+                batch_size=2, max_inflight=2)
+            bests[i] = searches[i].run(n_rounds=2)
+
+        threads = [threading.Thread(target=agent_main, args=(i,))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+        snap = client.telemetry.snapshot()
+        g = client.telemetry.global_snapshot()
+        unc = client.service.plan_cache.snapshot()["uncompilable"]
+    assert [snap[f"agent-{i}"]["jobs_completed"] for i in range(3)] == \
+        [2, 2, 2]
+    assert g["ops_deduped_cross_agent"] + g["cache_cross_tenant_hits"] > 0
+    assert unc == 0
+    local = connect("local", StratumConfig.make(
+        memory_budget_bytes=4 << 30, device="cpu", hardware_threads=8))
+    for best, search in zip(bests, searches):
+        assert best is not None and np.isfinite(best.score)
+        assert len(search.reports) == 2
+        value, _ = local.run(best.spec.build())
+        np.testing.assert_allclose(best.score, float(value), rtol=1e-6)
+    local.close()
+
+
+def test_async_aide_search_sends_speculative_hints_to_the_service():
+    cfg = StratumConfig.make(memory_budget_bytes=1 << 30, device="cpu",
+                             compile_async=True, speculative_depth=4,
+                             n_executors=1, coalesce_window_s=0.0)
+    with connect("service", cfg) as client:
+        search = AsyncAIDESearch(client.session("aide"),
+                                 AIDEAgent(n_rows=1500, cv_k=2, seed=3),
+                                 batch_size=2, max_inflight=1,
+                                 speculate=True)
+        best = search.run(n_rounds=3)
+        assert best is not None and best.score is not None
+        assert search.speculative_batches >= 1
+        assert client.service.plan_cache.executor.drain(timeout=300)
+        snap = client.service.plan_cache.snapshot()
         assert snap["async_failures"] == 0 and snap["uncompilable"] == 0

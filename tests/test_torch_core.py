@@ -9,8 +9,9 @@ client of the port, against ``repro.core`` and ``repro.client``.
   within 1e-3 relative (the torch tier sums the GBT's histograms exactly,
   so an exact tie between two splits can break the other way).
 * The session runs on one device and has no fallback: no CUDA raises, the
-  service and fabric targets (``ROADMAP.md`` A2e, A5) raise, and a torch
-  impl that raises ends the run.  Compiled segments and ``analyze_batch``
+  fabric target (``ROADMAP.md`` A5) raises, and a torch impl that raises
+  ends the run.  The service target takes the runtime section's device,
+  and carries tags and deadlines as the local one does.  Compiled segments and ``analyze_batch``
   are ported (``tests/test_torch_segments.py``,
   ``tests/test_torch_preflight.py``).
 * The cache keeps tensors, spills and exports them as host arrays.
@@ -31,8 +32,9 @@ from repro.client import StratumConfig as JConfig
 from repro.client import connect as j_connect
 from repro.core import PipelineBatch as JBatch
 from repro.data.tabular import feature_target_indices, schema_dict
-from repro_torch.client import (LocalTarget, PipelineFuture, StratumConfig,
-                                SubmitOptions, connect)
+from repro_torch.client import (DeadlineExceeded, LocalTarget,
+                                PipelineFuture, Priority, ServiceTarget,
+                                StratumConfig, SubmitOptions, connect)
 from repro_torch.core import CONST, LazyOp, PipelineBatch, Stratum, toposort
 from repro_torch.core import api as t_api
 from repro_torch.core.backends import make_backends
@@ -252,6 +254,8 @@ def test_stratum_without_cuda_raises():
         Stratum()
     with pytest.raises(RuntimeError, match="CUDA"):
         connect("local", StratumConfig.make(compiled_segments=False))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        connect("service", StratumConfig.make(compiled_segments=False))
 
 
 def test_unported_parts_raise_naming_the_roadmap():
@@ -262,8 +266,6 @@ def test_unported_parts_raise_naming_the_roadmap():
     x = T.read("uk_housing", 100)
     assert s.analyze_batch(PipelineBatch([x], ["x"])).ok
     assert s.precompile_batch(PipelineBatch([x], ["x"])) == {}  # not async
-    with pytest.raises(NotImplementedError, match="A2e"):
-        connect("service")
     with pytest.raises(NotImplementedError, match="A5"):
         connect("fabric")
     with pytest.raises(ValueError, match="unknown target"):
@@ -304,6 +306,40 @@ def test_local_client_config_and_deadline():
         results, report = fut.result()
         assert tuple(results["y"].shape) == (100, 1)
         assert client.telemetry.global_snapshot()["deadline"]["met"] == 1
+
+
+def test_service_client_config_tags_and_deadlines():
+    cfg = StratumConfig.make(compiled_segments=False, device="cpu",
+                             hardware_threads=2, n_executors=1,
+                             coalesce_window_s=0.0, trace=True)
+    sc = cfg.service_config()
+    assert (sc.device, sc.hardware_threads, sc.n_executors, sc.trace) == \
+        ("cpu", 2, 1, True)
+    j_fields = set(JConfig().service_config().__dataclass_fields__)
+    assert set(sc.__dataclass_fields__) == j_fields | {"device"}
+    x = T.read("uk_housing", 100)
+    with connect("service", cfg, tenant="agent") as client:
+        assert isinstance(client, ServiceTarget)
+        assert client.service.device == torch.device("cpu")
+        fut = client.submit(PipelineBatch([T.project(x, [0])], ["y"]),
+                            SubmitOptions(deadline_s=600, tags=("t",),
+                                          priority=Priority.INTERACTIVE))
+        assert isinstance(fut, PipelineFuture)
+        results, report = fut.result(timeout=120)
+        assert tuple(results["y"].shape) == (100, 1)
+        assert (report.tags, report.deadline_s, report.deadline_met,
+                report.tenant, report.priority) == \
+            (("t",), 600, True, "agent", Priority.INTERACTIVE)
+        assert report.trace[-1][0] == "completed"
+        late = client.session("other").submit(
+            PipelineBatch([T.project(x, [1])], ["z"]),
+            SubmitOptions(deadline_s=1e-9))
+        with pytest.raises(DeadlineExceeded):
+            late.result(timeout=120)
+        g = client.telemetry.global_snapshot()["deadline"]
+        assert g == {"jobs": 2, "met": 1, "shed": 1, "attainment": 0.5}
+        assert set(client.telemetry.snapshot()) == {"agent", "other"}
+    assert client.service._running is False          # closed with it
 
 
 # ---------------------------------------------------------------------------

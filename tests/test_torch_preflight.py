@@ -1,6 +1,6 @@
 """The port's pre-flight analysis (``repro_torch.core.analysis``) on the
-local target: the counterpart of ``tests/test_preflight.py`` (the service,
-fabric and envelope cases wait for ``ROADMAP.md`` A2e and A5).
+local and service targets: the counterpart of ``tests/test_preflight.py``
+(the fabric and envelope cases wait for ``ROADMAP.md`` A5).
 
 * The analyzer's verdicts equal the reference's on the same batches: the
   same findings by rule, the same op count, and the same segment partition
@@ -10,6 +10,9 @@ fabric and envelope cases wait for ``ROADMAP.md`` A2e and A5).
   segments, and the run after the analysis traces nothing again.
 * ``SubmitOptions(verify=True)`` rejects at submit with ``AnalysisError``;
   the AIDE agent repairs around rejected specs.
+* The service's admission analysis: rejections before a queue slot, clean
+  verdicts cached by structure (the reference's telemetry for the same
+  submissions), an invalid job coalesced with valid ones failing alone.
 
 Tables are 2,000 rows; sessions run on the CPU.
 """
@@ -184,6 +187,81 @@ def test_wiring_error_is_structured_without_analysis():
 
 
 # ---------------------------------------------------------------------------
+# admission analysis in the service
+# ---------------------------------------------------------------------------
+
+def test_verify_rejects_at_submit_on_the_service_target():
+    with connect("service", _config(n_executors=1)) as client:
+        report = client.analyze(_invalid_batch())
+        assert not report.ok and "unknown-op" in {f.rule
+                                                  for f in report.errors}
+        with pytest.raises(AnalysisError):
+            client.submit(_invalid_batch(),
+                          options=SubmitOptions(verify=True))
+        assert client.service.queue.pending() == 0   # never took a slot
+        value, rep = client.run(_pipeline(), timeout=300,
+                                options=SubmitOptions(verify=True))
+        assert float(value) == float(value)
+        assert rep.per_backend.get("torch-seg", 0) > 0
+        ok = client.analyze(_valid_batch())
+        assert ok.ok and ok.preverified_segments >= 1
+
+
+def _admission_telemetry(svc, batch_of, invalid):
+    try:
+        ses = svc.session("t")
+        ses.submit(batch_of()).result(timeout=300)
+        ses.submit(batch_of()).result(timeout=300)    # cached verdict
+        with pytest.raises(Exception) as ei:
+            ses.submit(invalid)
+        snap = svc.telemetry.global_snapshot()["analysis"]
+        return (type(ei.value).__name__, snap["analyzed"], snap["rejected"],
+                snap["cached_verdicts"], snap["by_rule"])
+    finally:
+        svc.stop()
+
+
+def test_admission_analysis_caches_verdicts_as_the_reference_does():
+    from repro.service import StratumService as JService
+    from repro_torch.service import StratumService
+    kw = dict(memory_budget_bytes=1 << 30, n_executors=1,
+              coalesce_window_s=0.0, admission_analysis=True)
+    port = _admission_telemetry(
+        StratumService(device="cpu", **kw), _valid_batch, _invalid_batch())
+    ref = _admission_telemetry(
+        JService(**kw), lambda: JBatch([_pipeline(ops=JT)], ["p"]),
+        _invalid_batch(ops=JT, lazy=JLazyOp, batch=JBatch))
+    assert port == ref
+    assert port[:4] == ("AnalysisError", 3, 1, 1)
+    assert port[4].get("unknown-op", 0) >= 1
+
+
+def test_coalesced_blast_radius_is_isolated():
+    """An invalid job merged into a super-batch fails alone, with its own
+    findings; its coalesced valid bystanders complete with the scores of
+    a session that ran them alone."""
+    from repro_torch.service import StratumService
+    want, _ = _SHARED.run_batch(_valid_batch())
+    svc = StratumService(memory_budget_bytes=1 << 30, n_executors=1,
+                         coalesce_window_s=0.05, device="cpu",
+                         autostart=False)
+    try:
+        ses, bad_ses = svc.session("agent"), svc.session("adversary")
+        good = [ses.submit(_valid_batch(f"g{i}")) for i in range(2)]
+        bad = bad_ses.submit(_invalid_batch())
+        svc.start()
+        with pytest.raises(AnalysisError) as ei:
+            bad.result(timeout=300)
+        assert "unknown-op" in ei.value.rules
+        for f in good:
+            results, _ = f.result(timeout=300)
+            for v in results.values():
+                assert float(v) == pytest.approx(float(want["p"]))
+    finally:
+        svc.stop()
+
+
+# ---------------------------------------------------------------------------
 # feasibility classification pre-verifies compiled segments
 # ---------------------------------------------------------------------------
 
@@ -266,7 +344,7 @@ def test_async_search_survives_admission_analysis():
 def test_concurrency_lint_clean_on_the_port():
     paths = [str(REPO / "src" / "repro_torch" / p) for p in (
         "core/backends/torch_segment.py", "core/plan_cache.py",
-        "core/runtime.py", "core/analysis", "agents")]
+        "core/runtime.py", "core/analysis", "agents", "service")]
     out = subprocess.run([sys.executable, str(REPO / "scripts_check_"
                                               "concurrency.py"), *paths],
                          capture_output=True, text=True, cwd=REPO)

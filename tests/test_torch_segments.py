@@ -1,7 +1,7 @@
 """The port's compiled-segment backend (``repro_torch.core.backends.
 torch_segment``) against the reference's ``jax_segment``: the counterparts
 of ``tests/test_backends.py`` and ``tests/test_compile_async.py`` (all but
-the service and fabric snapshots, which wait for ``ROADMAP.md`` A2e).
+the fabric snapshots, which wait for ``ROADMAP.md`` A5).
 
 * The same batch, built from the same seeds, runs through ``repro`` at its
   defaults and through the port at its defaults (``device="cpu"``): the
@@ -16,6 +16,10 @@ the service and fabric snapshots, which wait for ``ROADMAP.md`` A2e).
 * More than 8 distinct segment structures in one process all run compiled
   (``"torch-seg"``): no structure meets the compiler's per-code recompile
   limit, and nothing falls back unnoticed.
+* Through the service: the plan cache's counters in its global snapshot
+  (the reference's numbers for the same submissions), the compile
+  executor closed at ``stop()``, ``Session.precompile``, and two executors
+  building structures at once without a trace failing.
 
 Tables are 2,000 rows; the torch tier runs on the CPU, inductor compiling.
 """
@@ -842,3 +846,93 @@ def test_scheduler_clusters_variant_fans_deterministically():
                 assert sig == seen[-1], f"non-contiguous fan in {wave}"
             else:
                 seen.append(sig)
+
+
+# ---------------------------------------------------------------------------
+# the service's plan cache and compile executor
+# ---------------------------------------------------------------------------
+
+def _svc(**kw):
+    from repro_torch.service import StratumService
+    kw.setdefault("memory_budget_bytes", MB)
+    kw.setdefault("n_executors", 1)
+    return StratumService(device="cpu", **kw)
+
+
+def test_plan_cache_hit_rate_in_service_snapshot():
+    """Two alphas of one structure through each package's service: the
+    second hits the first's program, and the snapshots' plan-cache
+    counters are the reference's."""
+    from repro.service import StratumService as JService
+    snaps = []
+    for svc, ops, batch in ((_svc(), T, PipelineBatch),
+                            (JService(memory_budget_bytes=MB, n_executors=1),
+                             JT, JBatch)):
+        try:
+            ses = svc.session("t")
+            for alpha in (0.2, 2.0):
+                ses.submit(batch([_variant_sink(alpha, ops=ops)], ["p"])
+                           ).result(timeout=300)
+            snaps.append(svc.telemetry.global_snapshot()["plan_cache"])
+        finally:
+            svc.stop()
+    port, ref = snaps
+    keys = ("hits", "misses", "compiles", "hit_rate", "entries")
+    assert {k: port[k] for k in keys} == {k: ref[k] for k in keys}
+    assert port["hits"] >= 1 and port["uncompilable"] == 0
+
+
+def test_service_stop_closes_compile_executor():
+    svc = _svc(coalesce_window_s=0.0, compile_async=True,
+               speculative_depth=2)
+    ses = svc.session("t0")
+    ses.submit(_variant_batch((0.5, 1.5))).result(timeout=300)
+    ex = svc.plan_cache.executor
+    assert ex is not None and ex.drain(timeout=300)
+    g = svc.telemetry.global_snapshot()
+    assert g["plan_cache"]["async"] is True
+    assert g["plan_cache"]["async_compiles"] >= 1
+    svc.stop()
+    assert ex._closed
+    assert ex._worker is None or not ex._worker.is_alive()
+    assert not ex.submit("late", lambda: None)
+
+
+def test_session_precompile_surface_and_compat():
+    from repro_torch.service.session import Session
+    svc = _svc(coalesce_window_s=0.0, compile_async=True,
+               speculative_depth=4)
+    try:
+        ses = svc.session("t0")
+        ses.submit(_variant_batch((0.5, 1.5))).result(timeout=300)
+        assert svc.plan_cache.executor.drain(timeout=300)
+        counts = ses.precompile(_variant_batch((1.0, 2.0), log1p=True))
+        assert isinstance(counts, dict) and counts
+    finally:
+        svc.stop()
+
+    class _Bare:
+        telemetry = None
+
+    assert Session(_Bare(), "t").precompile(_variant_batch((1.0,))) == {}
+
+
+def test_two_executors_build_at_once_without_a_trace_failing():
+    """Four tenants, each a structure of its own, released together onto
+    two executors: every job runs its segments compiled, and no key was
+    marked uncompilable (a race between two traces would surface as a
+    silent per-op fallback)."""
+    svc = _svc(n_executors=2, coalesce_window_s=0.0, coalesce_max_jobs=1,
+               autostart=False)
+    try:
+        futs = [svc.session(f"t{i}").submit(
+            _variant_batch((0.5, 1.0), log1p=bool(i % 2),
+                           n_rows=ROWS + 100 * (i // 2)))
+            for i in range(4)]
+        svc.start()
+        reps = [f.result(timeout=300)[1] for f in futs]
+        assert all("torch-seg" in r.per_backend for r in reps)
+        assert svc.plan_cache.snapshot()["uncompilable"] == 0
+        assert svc.telemetry.global_snapshot()["super_batches"] == 4
+    finally:
+        svc.stop()

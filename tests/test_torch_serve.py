@@ -11,7 +11,8 @@ port's isolation from JAX.
 * ``check_card_config`` refuses, before any parameter is allocated, a config
   that the CUDA kernels do not take (the reduced fp32, head-dim-32 ones) on
   a CUDA device, and takes every published config the port serves.
-* Importing every ``repro_torch`` module pulls in neither jax nor repro.
+* Importing every ``repro_torch`` module, and running the service's
+  ``replay`` and ``top`` CLIs, pulls in neither jax nor repro.
 """
 
 import dataclasses
@@ -217,7 +218,21 @@ assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
         "repro_torch.tabular.impls", "repro_torch.data.tabular",
         "repro_torch.client", "repro_torch.core.backends.torch_segment",
         "repro_torch.core.analysis.analyzer",
-        "repro_torch.agents.aide"} <= set(names)
+        "repro_torch.agents.aide", "repro_torch.service.server",
+        "repro_torch.service.observability.replay",
+        "repro_torch.service.observability.top",
+        "repro_torch.service.control.controller"} <= set(names)
+# the offline CLIs, as ``python -m`` runs them
+import contextlib, io, runpy, tempfile
+for mod, argv in (("repro_torch.service.observability.top", ["--demo"]),
+                  ("repro_torch.service.observability.replay",
+                   [tempfile.mkdtemp()])):
+    sys.argv = [mod, *argv]
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            runpy.run_module(mod, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            assert not e.code, (mod, e.code)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -229,7 +244,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25       # every module was imported
+    assert int(out.stdout.strip()) >= 40       # every module was imported
 
 
 def test_make_decode_step_takes_sample_as_the_reference_does():
