@@ -142,6 +142,33 @@ Phases, each of which must pass:
              analysis, then one more job.  Uncompilable 0 and no hand
              kernel launches throughout; ``--profile`` adds the idle share
              and device time by family of a warm pass of (b).
+18. fabric — the paper's agents across the sharded fabric
+             (``repro_torch.service.fabric``) on the same 1,000,000-row
+             lake at the client's defaults (compiled segments, a fresh
+             ``jit_cache_dir``, hardware_threads=8): (a) ``examples/
+             agentic_search.py --target fabric --shards 4``: 4 agents x 3
+             rounds of ``AsyncAIDESearch(shard_affinity=True)`` through
+             ``connect("fabric")``, 4 in-process shards of 4 GiB each:
+             every job done, each agent's jobs on one shard, locality 1.0,
+             every result a host numpy array, each best within 1e-4 of its
+             spec on the local target, uncompilable 0; then iteration 1
+             and (c)'s flood on the same fabric; (b) ``benchmarks/
+             e2e_agentic.py``'s cohort workload (16 agents in 4 cohorts, a
+             TableVectorizer prefix a cohort and a unique tail a job, one
+             executor a shard, per-op dispatch, the cache at 1.3 cohort
+             working sets read off a probe run) on 1 shard and on 4: equal
+             scores (1e-9 relative), locality 1.0 on 4, both walls and the
+             throughput ratio; (c) ``processes=True`` with 2 worker
+             processes on the card: iteration 1 within 1e-4 of the
+             in-process fabric's, a worker SIGKILLed with an 8-job flood in
+             flight (no job lost, every result the unkilled run's, one
+             failover), a new worker and the survivor's drain with its warm
+             cache hand-off (entries imported, a resubmitted job hits
+             them), a graceful stop (every surviving worker exits 0, none
+             left alive, the workers' process groups emptied); each
+             worker's start-up, compile seconds and largest heartbeat gap,
+             and the card's memory.used against the parent's reserved
+             memory.  No hand kernel launches.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the kernels line reports each kernel's launches in the
@@ -193,7 +220,7 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
           "train", "consistency_audio", "serve_audio", "consistency_vlm",
-          "serve_vlm", "tabular", "agentic", "service")
+          "serve_vlm", "tabular", "agentic", "service", "fabric")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -2905,9 +2932,10 @@ def _service_search(torch, np, out, problems, cache_dir, local):
 
 
 def _run_agents(client, n_agents, n_rounds, AIDEAgent, AsyncAIDESearch,
-                threading):
+                threading, **search_kw):
     """examples/agentic_search.py's run_async: one AsyncAIDESearch a
-    thread, agent i seeded i."""
+    thread, agent i seeded i (``search_kw``: e.g. the fabric mode's
+    ``shard_affinity=True``)."""
     bests, searches, errors = [None] * n_agents, [None] * n_agents, []
 
     def agent_main(i):
@@ -2915,7 +2943,7 @@ def _run_agents(client, n_agents, n_rounds, AIDEAgent, AsyncAIDESearch,
             searches[i] = AsyncAIDESearch(
                 client.session(f"agent-{i}"),
                 AIDEAgent(n_rows=SERVICE_ROWS, cv_k=3, seed=i),
-                batch_size=4, max_inflight=2)
+                batch_size=4, max_inflight=2, **search_kw)
             bests[i] = searches[i].run(n_rounds=n_rounds)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
@@ -3089,6 +3117,639 @@ def _service_isolation(torch, np, out, problems, cache_dir, local):
     if refused != ["unknown-op"] or depth_after != depth or not same_after:
         problems.append(f"admission: refused {refused}, depth {depth} -> "
                         f"{depth_after}, later job equal {same_after}")
+
+
+# ---------------------------------------------------------------------------
+# fabric: N agents across shards, in this process and in worker processes
+# ---------------------------------------------------------------------------
+
+FABRIC_ROWS = SERVICE_ROWS
+FABRIC_SHARDS = 4
+# the service phase's 16 GiB split over the shards: each shard has its own
+# memory gate and cache, and their sum stays the service's
+FABRIC_SHARD_BUDGET = SERVICE_BUDGET // FABRIC_SHARDS
+FABRIC_RTOL = SERVICE_RTOL
+# (b) benchmarks/e2e_agentic.py's cohort workload (_run_fabric_mode): 16
+# agents in 4 cohorts, one dataset each, an expensive TableVectorizer
+# prefix per cohort and a cheap unique tail per (agent, round), one
+# executor a shard, per-op dispatch, the cache at ~1.3 cohort working sets
+COHORT_AGENTS = 16
+COHORTS = 4
+COHORT_ROUNDS = 2
+COHORT_BUDGET = 8 << 30
+COHORT_SETS = 1.3
+COHORT_SCORE_RTOL = 1e-9          # the benchmark's scores_identical test
+# (c) the out-of-process fabric on the one card
+PROC_WORKERS = 2
+PROC_FLOOD = 8
+PROC_FLOOD_ROWS = SERVICE_PROBE_ROWS
+
+
+class _RecordingSession:
+    """A client session whose futures record, as they resolve, the type of
+    every result value that reached the caller."""
+
+    def __init__(self, session, seen):
+        self._session, self._seen = session, seen
+
+    def submit(self, batch, options=None):
+        fut = self._session.submit(batch, options)
+        fut.add_done_callback(self._record)
+        return fut
+
+    def _record(self, fut):
+        try:
+            results, _ = fut.result(timeout=0)
+        except BaseException:  # noqa: BLE001 — a failed job is counted apart
+            return
+        self._seen.extend(type(v) for v in results.values())
+
+
+class _RecordingClient:
+    def __init__(self, client, seen):
+        self._client, self._seen = client, seen
+
+    def session(self, tenant):
+        return _RecordingSession(self._client.session(tenant), self._seen)
+
+
+def _host_types(torch, np, types) -> bool:
+    """Every type a host value's: numpy (an array, or a scalar that the
+    codec made a 0-d array) or a Python number; never a tensor."""
+    return bool(types) and all(
+        not issubclass(t, torch.Tensor)
+        and issubclass(t, (np.ndarray, np.generic, float, int))
+        for t in types)
+
+
+def _flood_batches(T, rows):
+    """(c)'s flood: eight small distinct pipelines over the seed-0 lake."""
+    from repro_torch.core import PipelineBatch
+
+    out = []
+    for i in range(PROC_FLOOD):
+        x = T.read("uk_housing", rows, seed=0)
+        xs = T.scale(T.impute(T.project(x, [10 + i % 4, 11])))
+        out.append(PipelineBatch([T.metric(
+            T.project(xs, [0]), T.project(x, [0]),
+            kind=("mae", "rmse")[i // 4])], ["p"]))
+    return out
+
+
+class _Utilization:
+    """The card's ``utilization.gpu`` (the share of time a kernel ran),
+    sampled every 250 ms by one ``nvidia-smi -lms`` process while the block
+    runs: the busy share of work that no profiler in this process sees
+    (kernels of worker processes too)."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples: list = []
+        try:
+            self._proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "250"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self._proc = None
+            return self
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        return self
+
+    def _read(self):
+        for line in self._proc.stdout:
+            try:
+                self.samples.append(float(line.split(",")[0]))
+            except ValueError:
+                pass
+
+    def __exit__(self, *exc):
+        if self._proc is not None:
+            self._proc.terminate()
+            self._proc.wait(timeout=30)
+            self._reader.join(timeout=30)
+
+    def busy(self):
+        """The mean busy share over the block, or None without samples."""
+        return sum(self.samples) / len(self.samples) / 100 \
+            if self.samples else None
+
+
+def _share(x) -> str:
+    return "not measured" if x is None else f"{x:.3f}"
+
+
+def _smi(query: str) -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-{query}",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip() if r.returncode == 0 else \
+        f"nvidia-smi failed: {r.stderr.strip()}"
+
+
+def fabric_phase(torch, np, report):
+    import os
+    import tempfile
+
+    from repro_torch.kernels.common import launches, reset_launches
+
+    card = report.get("card", "")
+    t_phase = time.perf_counter()
+    # the workers read the lake: every file exists before any spawns.
+    # One process a lake, all at once (writing a 1,000,000-row CSV is
+    # host-bound Python, ~14 s each on the card's host)
+    writers = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; from repro_torch.data.tabular "
+         "import ensure_files; ensure_files('uk_housing', int(sys.argv[1]), "
+         "int(sys.argv[2]))", str(rows), str(seed)],
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+        for rows, seed in [(FABRIC_ROWS, c) for c in range(COHORTS)]
+        + [(PROC_FLOOD_ROWS, 0)]]
+    rcs = [w.wait(timeout=600) for w in writers]
+    if any(rcs):
+        fail(f"fabric: writing the lakes exited {rcs}")
+    cache_dir = tempfile.mkdtemp(prefix="inductor-")
+    out = report["fabric"] = {"rows": FABRIC_ROWS, "card": card,
+                              "lake_s": time.perf_counter() - t_phase}
+    log(f"  lakes: {COHORTS} x {FABRIC_ROWS} rows and {PROC_FLOOD_ROWS} "
+        f"rows in {out['lake_s']:.1f} s")
+    problems: list = []
+    reset_launches()
+    try:
+        _fabric_checks(torch, np, out, problems, cache_dir)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    counts = launches()
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches {counts}; phase {out['phase_s']:.1f} s ({card})")
+    if any(counts.values()):
+        problems.append(f"a hand kernel launched on the fabric path: "
+                        f"{counts}")
+    if problems:
+        fail("fabric: " + "; ".join(problems))
+    return counts
+
+
+def _fabric_checks(torch, np, out, problems, cache_dir):
+    """Checks (a)-(c) of the fabric phase; each failure is appended to
+    ``problems``."""
+    from repro_torch.client import connect
+
+    local = connect("local", service_config(cache_dir))
+    try:
+        matching = _fabric_agents(torch, np, out, problems, cache_dir, local)
+    finally:
+        local.close()
+    _fabric_cohorts(torch, np, out, problems)
+    _fabric_processes(torch, np, out, problems, cache_dir, matching)
+
+
+def _fabric_agents(torch, np, out, problems, cache_dir, local):
+    """(a) examples/agentic_search.py --target fabric --shards 4: N agents,
+    each an AsyncAIDESearch pinned to a shard, through connect("fabric");
+    then iteration 1 and (c)'s flood on the same fabric, the in-process
+    runs the worker processes are held to."""
+    import threading
+    from collections import Counter
+
+    import repro_torch.tabular as T
+    from repro_torch.agents import (AIDEAgent, AsyncAIDESearch,
+                                    paper_workload_batches)
+    from repro_torch.client import SubmitOptions, connect
+    from repro_torch.service.observability import percentile
+
+    card = out["card"]
+    cfg = service_config(cache_dir, coalesce_window_s=0.05,
+                         n_shards=FABRIC_SHARDS,
+                         memory_budget_bytes=FABRIC_SHARD_BUDGET)
+    _n, it1, _ctx = next(iter(paper_workload_batches(n_rows=FABRIC_ROWS,
+                                                     cv_k=3)))
+    seen: list = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with connect("fabric", cfg) as client:
+        with _Utilization() as util:
+            bests, searches = _run_agents(
+                _RecordingClient(client, seen), SERVICE_AGENTS,
+                SERVICE_ROUNDS, AIDEAgent, AsyncAIDESearch, threading,
+                shard_affinity=True)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fab = client.fabric
+        locality = fab.router.locality_hit_rate()
+        snap, g = client.telemetry.snapshot(), \
+            client.telemetry.global_snapshot()
+        peak = torch.cuda.max_memory_allocated()
+        t1 = time.perf_counter()
+        res, rep = client.run_batch(it1, timeout=900)
+        it1_s = time.perf_counter() - t1
+        it1_scores = {k: float(v) for k, v in res.items()}
+        futs = [client.submit(b, SubmitOptions(tenant="flood"))
+                for b in _flood_batches(T, PROC_FLOOD_ROWS)]
+        flood = [float(f.result(timeout=900)[0]["p"]) for f in futs]
+        g_after = client.telemetry.global_snapshot()
+    shards = {i: sorted({r.shard_id for r in s.reports})
+              for i, s in enumerate(searches)}
+    rel, rerun = {}, {}
+    for i, node in enumerate(bests):
+        if node is not None and np.isfinite(node.score):
+            value, _ = local.run(node.spec.build())
+            rerun[i] = float(value)
+            rel[i] = abs(node.score - rerun[i]) / abs(rerun[i])
+    unc = {sid: row.get("plan_cache", {}).get("uncompilable", 0)
+           for sid, row in g_after["per_shard"].items()}
+    routed = {sid: row["envelopes_routed"]
+              for sid, row in g["per_shard"].items()}
+    log(f"  (a) {SERVICE_AGENTS} agents x {SERVICE_ROUNDS} rounds of "
+        f"AsyncAIDESearch(batch_size=4, max_inflight=2, "
+        f"shard_affinity=True) through connect(\"fabric\"), "
+        f"{FABRIC_SHARDS} shards of {FABRIC_SHARD_BUDGET / 2**30:.0f} GiB: "
+        f"{wall:.2f} s; envelopes a shard {routed}, locality "
+        f"{locality:.3f}; peak device memory {peak / 2**30:.2f} GiB; card "
+        f"busy {_share(util.busy())} (nvidia-smi utilization.gpu)")
+    for i, node in enumerate(bests):
+        w = [r.queue_wait_s for r in searches[i].reports]
+        log(f"      agent-{i}: shard {shards[i]}, best "
+            f"{node.spec.preproc + '+' + node.spec.model if node else None}"
+            f" rmse {node.score if node else None} (local target "
+            f"{rerun.get(i)}, rel {rel.get(i)}); queue wait p50 "
+            f"{percentile(w, 50):.3f} s, p99 {percentile(w, 99):.3f} s")
+    log(f"      super-batches {g['super_batches']} (jobs coalesced "
+        f"{g['jobs_coalesced']}), deduped {g['ops_deduped_cross_agent']}, "
+        f"plan cache hits {g.get('plan_cache_hits')} misses "
+        f"{g.get('plan_cache_misses')}, compile "
+        f"{g.get('plan_cache_compile_time_s', 0.0):.2f} s; the "
+        f"{len(seen)} results' types {dict(Counter(t.__name__ for t in seen))}"
+        f"; uncompilable {unc}")
+    log(f"      then iteration 1 (8 pipelines) on the same fabric in "
+        f"{it1_s:.2f} s on {rep.shard_id}, and the {PROC_FLOOD}-job flood "
+        f"of (c) at {PROC_FLOOD_ROWS} rows ({card})")
+    out["agents"] = {
+        "wall_s": wall, "routed": routed, "locality": locality,
+        "shards": shards, "best": [None if n is None else n.score
+                                   for n in bests],
+        "local": rerun, "rel": rel, "telemetry": snap, "global": g,
+        "peak_bytes": peak, "busy": util.busy(), "iteration1_s": it1_s,
+        "iteration1": it1_scores, "flood": flood, "uncompilable": unc}
+    jobs = SERVICE_AGENTS * SERVICE_ROUNDS
+    resolved = all(len(s.reports) == SERVICE_ROUNDS
+                   and not s.deadlines_missed and not s.analysis_rejections
+                   for s in searches)
+    failed = sum(snap[f"agent-{i}"]["jobs_failed"]
+                 + snap[f"agent-{i}"]["deadline_shed"]
+                 for i in range(SERVICE_AGENTS))
+    done = sum(snap[f"agent-{i}"]["jobs_completed"]
+               for i in range(SERVICE_AGENTS))
+    if not resolved or failed or done != jobs:
+        problems.append(f"(a): rounds resolved {resolved}, done {done} of "
+                        f"{jobs}, failed or shed {failed}")
+    if any(len(v) != 1 for v in shards.values()):
+        problems.append(f"(a): an agent's jobs on several shards {shards}")
+    if locality != 1.0:
+        problems.append(f"(a): locality {locality}")
+    if not _host_types(torch, np, seen) or len(seen) != jobs * 4:
+        problems.append(f"(a): results' types {Counter(seen)}, not "
+                        f"{jobs * 4} host values")
+    if len(rel) != SERVICE_AGENTS or \
+            not all(r <= FABRIC_RTOL for r in rel.values()):
+        problems.append(f"(a): bests against the local target: {rel}")
+    if any(unc.values()):
+        problems.append(f"(a): uncompilable segments {unc}")
+    return {"iteration1": it1_scores, "flood": flood}
+
+
+def _cohort_job(T, data, cohort_seed, rows, tail_idx):
+    """benchmarks/e2e_agentic.py's _cohort_job: the cohort's read and
+    TableVectorizer fit (shared by the cohort), then a unique cheap tail."""
+    from repro_torch.core import PipelineBatch
+
+    feats, tgt = data.feature_target_indices()
+    x = T.read("uk_housing", rows, seed=cohort_seed)
+    Xv = T.table_vectorizer(T.project(x, feats), data.schema_dict(), feats)
+    y = T.project(x, [tgt])
+    col = tail_idx % len(feats)
+    kind = "mae" if (tail_idx // len(feats)) % 2 else "rmse"
+    return PipelineBatch([T.metric(T.project(Xv, [col]), y, kind=kind)],
+                         [f"tail{tail_idx}"])
+
+
+def _cohort_keys(n_cohorts, n_shards):
+    """Affinity keys placing the cohorts evenly on an ``n_shards`` ring
+    (the benchmark's _balanced_cohort_keys)."""
+    from repro_torch.service.fabric import ConsistentHashRing
+
+    ring = ConsistentHashRing([f"shard-{i}" for i in range(n_shards)])
+    keys, used, i = [], set(), 0
+    while len(keys) < n_cohorts and i < 100_000:
+        key = f"cohort-{i}"
+        shard = ring.route(key)
+        if shard not in used or len(used) == n_shards:
+            if shard in used:
+                used.clear()
+            used.add(shard)
+            keys.append(key)
+        i += 1
+    return keys
+
+
+def _cohort_config(cache_fraction):
+    from repro_torch.service import ServiceConfig
+
+    return ServiceConfig(
+        memory_budget_bytes=COHORT_BUDGET, cache_fraction=cache_fraction,
+        coalesce_window_s=0.005, coalesce_max_jobs=2,
+        max_jobs_per_tenant_per_round=1, n_executors=1,
+        compiled_segments=False, hardware_threads=SERVICE_THREADS)
+
+
+def _cohort_mode(torch, n_shards, keys, cache_fraction):
+    """The open-loop sweep: every agent's rounds submitted up front, round
+    by round in agent order (agent i in cohort i % COHORTS)."""
+    import repro_torch.tabular as T
+    from repro_torch.data import tabular as data
+    from repro_torch.service.fabric import ShardedStratum
+
+    fab = ShardedStratum(n_shards=n_shards,
+                         config=_cohort_config(cache_fraction))
+    try:
+        sessions = [fab.session(f"agent-{i}") for i in range(COHORT_AGENTS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _Utilization() as util:
+            futures = []
+            for r in range(COHORT_ROUNDS):
+                for i in range(COHORT_AGENTS):
+                    cohort, rank = i % COHORTS, i // COHORTS
+                    tail = rank * COHORT_ROUNDS + r
+                    futures.append((tail, sessions[i].submit(
+                        _cohort_job(T, data, cohort, FABRIC_ROWS, tail),
+                        affinity=keys[cohort])))
+            scores = [float(f.result(timeout=900)[0][f"tail{tail}"])
+                      for tail, f in futures]
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g = fab.telemetry.global_snapshot()
+        hits = {sid: svc.cache.stats.hits
+                for sid, svc in fab._shards_snapshot().items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        fab.stop()
+    return {"shards": n_shards, "wall_s": wall,
+            "jobs_per_s": len(futures) / wall,
+            "locality": g["signature_locality_hit_rate"],
+            "routed": {k: v["envelopes_routed"]
+                       for k, v in g["per_shard"].items()},
+            "cache_hits": hits, "super_batches": g["super_batches"],
+            "peak_bytes": peak, "busy": util.busy(), "scores": scores}
+
+
+def _fabric_cohorts(torch, np, out, problems):
+    """(b) the cohort workload once on 1 shard and once on 4: the same
+    scores, locality 1.0 on 4; the walls and the throughput ratio."""
+    import repro_torch.tabular as T
+    from repro_torch.data import tabular as data
+    from repro_torch.service import StratumService
+
+    card = out["card"]
+    # one cohort's cached working set on the card, read off a probe run
+    # with room to spare (it also loads the per-op paths once)
+    probe = StratumService(config=_cohort_config(0.5))
+    try:
+        t0 = time.perf_counter()
+        probe.session("probe").submit(
+            _cohort_job(T, data, 0, FABRIC_ROWS, 0)).result(timeout=900)
+        probe_s = time.perf_counter() - t0
+        per_cohort = probe.cache.stats.bytes_in_ram
+    finally:
+        probe.stop()
+    fraction = min(0.5, COHORT_SETS * per_cohort / COHORT_BUDGET)
+    keys = _cohort_keys(COHORTS, FABRIC_SHARDS)
+    modes = {n: _cohort_mode(torch, n, keys, fraction)
+             for n in (1, FABRIC_SHARDS)}
+    lo, hi = modes[1], modes[FABRIC_SHARDS]
+    rel = max(abs(a - b) / max(abs(a), 1.0)
+              for a, b in zip(lo["scores"], hi["scores"]))
+    ratio = hi["jobs_per_s"] / lo["jobs_per_s"]
+    jobs = COHORT_AGENTS * COHORT_ROUNDS
+    log(f"  (b) cohorts: {COHORT_AGENTS} agents in {COHORTS} cohorts x "
+        f"{COHORT_ROUNDS} rounds = {jobs} jobs at {FABRIC_ROWS} rows; one "
+        f"cohort's working set {per_cohort / 2**20:.1f} MiB (probe "
+        f"{probe_s:.2f} s), cache {fraction:.4f} of "
+        f"{COHORT_BUDGET / 2**30:.0f} GiB a shard")
+    for m in (lo, hi):
+        log(f"      {m['shards']} shard(s): {m['wall_s']:.2f} s, "
+            f"{m['jobs_per_s']:.3f} jobs/s, locality {m['locality']:.3f}, "
+            f"envelopes {m['routed']}, cache hits {m['cache_hits']}, "
+            f"super-batches {m['super_batches']}, peak device memory "
+            f"{m['peak_bytes'] / 2**30:.2f} GiB, card busy "
+            f"{_share(m['busy'])}")
+    log(f"      throughput ratio {FABRIC_SHARDS} shards / 1: {ratio:.3f}; "
+        f"scores' largest relative difference {rel:.3g} (limit "
+        f"{COHORT_SCORE_RTOL:g}) ({card})")
+    out["cohorts"] = {"per_cohort_bytes": per_cohort,
+                      "cache_fraction": fraction, "ratio": ratio,
+                      "max_rel": rel, "probe_s": probe_s,
+                      "modes": {str(k): {kk: vv for kk, vv in v.items()
+                                         if kk != "scores"}
+                                for k, v in modes.items()}}
+    if not rel <= COHORT_SCORE_RTOL or \
+            not all(np.isfinite(v) for v in lo["scores"]):
+        problems.append(f"(b): 1 and {FABRIC_SHARDS} shards' scores "
+                        f"differ by {rel}")
+    if hi["locality"] != 1.0:
+        problems.append(f"(b): locality {hi['locality']}")
+
+
+def _fabric_processes(torch, np, out, problems, cache_dir, matching):
+    """(c) processes=True with 2 workers on the card: iteration 1 against
+    the in-process fabric; a worker SIGKILLed mid-flood; a drain with its
+    warm hand-off; a graceful stop."""
+    import gc
+    import os
+    import signal
+
+    import repro_torch.tabular as T
+    from repro_torch.agents import paper_workload_batches
+    from repro_torch.client import SubmitOptions, connect
+
+    card = out["card"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    cfg = service_config(cache_dir, coalesce_window_s=0.05,
+                         n_shards=PROC_WORKERS, processes=True)
+    _n, it1, _ctx = next(iter(paper_workload_batches(n_rows=FABRIC_ROWS,
+                                                     cv_k=3)))
+    floods = _flood_batches(T, PROC_FLOOD_ROWS)
+    pids: dict = {}
+    t0 = time.perf_counter()
+    client = connect("fabric", cfg)
+    try:
+        fab = client.fabric
+        spawn_s = time.perf_counter() - t0
+        pids.update(fab.supervisor.live_workers())
+        t1 = time.perf_counter()
+        with _Utilization() as util:
+            res, rep = client.run_batch(it1, timeout=900)
+        it1_s = time.perf_counter() - t1
+        it1_rel = _worst_rel({k: float(v) for k, v in res.items()},
+                             matching["iteration1"])
+        smi_used = _smi("gpu=memory.used")
+        smi_apps = _smi("compute-apps=pid,used_memory")
+        # SIGKILL one worker with the flood in flight: its jobs are
+        # requeued on the ring successor, none is lost
+        victim = fab.shard_ids()[-1]
+        keys = {sid: [k for k in (f"flood-{sid}-{j}" for j in range(999))
+                      if fab.router._ring.route(k) == sid][:PROC_FLOOD]
+                for sid in fab.shard_ids()}
+        sids = fab.shard_ids()
+        t1 = time.perf_counter()
+        futs = [client.submit(b, SubmitOptions(
+            tenant="flood", affinity=keys[sids[i % 2]][i]))
+            for i, b in enumerate(floods)]
+        os.kill(pids[victim], signal.SIGKILL)
+        done = [f.result(timeout=900) for f in futs]
+        kill_s = time.perf_counter() - t1
+        _wait_until(lambda: victim not in fab.shard_ids())
+        flood = [float(r["p"]) for r, _ in done]
+        types = [type(v) for v in res.values()] + \
+            [type(r["p"]) for r, _ in done]
+        attempts = [rep.attempt for _, rep in done]
+        g = client.telemetry.global_snapshot()
+        failures = list(fab.supervisor.failures)
+        # drain the survivor with its warm hand-off to a new worker
+        (survivor,) = fab.shard_ids()
+        t1 = time.perf_counter()
+        new = fab.add_shard()
+        add_s = time.perf_counter() - t1
+        pids.update(fab.supervisor.live_workers())
+        t1 = time.perf_counter()
+        fab.scale_down(survivor)
+        drain_s = time.perf_counter() - t1
+        shipped = fab.supervisor.handoff_entries_shipped
+        _wait_until(lambda: fab.supervisor.worker_stats()[new][
+            "handoff_imported"] >= shipped)
+        res0, rep0 = client.submit(floods[0], SubmitOptions(
+            tenant="flood")).result(timeout=900)
+        types.append(type(res0["p"]))
+        g_end = client.telemetry.global_snapshot()
+        stats = fab.supervisor.worker_stats()
+    finally:
+        t1 = time.perf_counter()
+        client.close()
+        stop_s = time.perf_counter() - t1
+        left = _reap_worker_groups(os, signal, pids)
+    reaped = dict(fab.supervisor.reaped)
+    alive = [sid for sid, pid in pids.items() if _alive(os, pid)]
+    unc = {sid: row.get("plan_cache", {}).get("uncompilable", 0)
+           for sid, row in g_end["per_shard"].items()}
+    flood_equal = flood == matching["flood"]
+    log(f"  (c) processes=True, {PROC_WORKERS} workers on the card: spawned "
+        f"in {spawn_s:.2f} s; the parent's reserved device memory "
+        f"{reserved / 2**30:.2f} GiB; iteration 1 in {it1_s:.2f} s on "
+        f"{rep.shard_id} (card busy {_share(util.busy())}), against the "
+        f"in-process fabric: largest relative difference {it1_rel:.3g} "
+        f"(limit {FABRIC_RTOL:g})")
+    log(f"      card memory.used with the workers live {smi_used}; compute "
+        f"apps: {smi_apps or 'none listed'}")
+    log(f"      SIGKILL {victim} mid-flood ({PROC_FLOOD} jobs): all "
+        f"answered in {kill_s:.2f} s, attempts {attempts}, equal to the "
+        f"unkilled run {flood_equal}; shards failed {g['shards_failed']}, "
+        f"requeues {g['failover_requeues']}, supervisor failures "
+        f"{failures}; the results' types "
+        f"{sorted({t.__name__ for t in types})}")
+    log(f"      add_shard {new} in {add_s:.2f} s; scale_down {survivor} "
+        f"with its warm hand-off in {drain_s:.2f} s: {shipped} entries "
+        f"shipped, {stats[new]['handoff_imported']} imported; the "
+        f"resubmitted job on {rep0.shard_id}: cache hits "
+        f"{rep0.cache_hits}, equal {float(res0['p']) == flood[0]}")
+    for sid, st in sorted(stats.items()):
+        seg = st["segments"]
+        log(f"      worker {sid} (pid {st['pid']}): HELLO "
+            f"{st['hello_s']}, service ready {st['ready_s']} s after "
+            f"spawn; largest heartbeat gap {st['max_beat_gap_s']:.3f} s; "
+            f"traced {seg.get('traces')} segment(s) in "
+            f"{seg.get('trace_s', 0.0):.2f} s, compiled "
+            f"{seg.get('compiles')} in {seg.get('compile_s', 0.0):.2f} s; "
+            f"exit {reaped.get(sid)}")
+    log(f"      graceful stop {stop_s:.2f} s; workers left alive {alive}; "
+        f"stray processes killed in the workers' groups {left}; "
+        f"uncompilable {unc} ({card})")
+    out["processes"] = {
+        "spawn_s": spawn_s, "parent_reserved_bytes": reserved,
+        "iteration1_s": it1_s, "iteration1_rel": it1_rel,
+        "iteration1_busy": util.busy(),
+        "memory_used": smi_used, "compute_apps": smi_apps,
+        "victim": victim, "kill_s": kill_s, "attempts": attempts,
+        "flood_equal": flood_equal, "shards_failed": g["shards_failed"],
+        "failover_requeues": g["failover_requeues"], "failures": failures,
+        "add_s": add_s, "drain_s": drain_s, "shipped": shipped,
+        "resubmitted_cache_hits": rep0.cache_hits, "workers": stats,
+        "reaped": reaped, "alive": alive, "stray": left,
+        "uncompilable": unc, "stop_s": stop_s}
+    if not it1_rel <= FABRIC_RTOL:
+        problems.append(f"(c): iteration 1 against the in-process fabric "
+                        f"{it1_rel}")
+    if not _host_types(torch, np, types):
+        problems.append(f"(c): results' types {types}")
+    if len(done) != PROC_FLOOD or not flood_equal:
+        problems.append(f"(c): flood {flood} against the unkilled "
+                        f"{matching['flood']}")
+    if g["shards_failed"] != 1 or [s for s, _ in failures] != [victim]:
+        problems.append(f"(c): failovers {failures}, shards failed "
+                        f"{g['shards_failed']}")
+    if g_end["shards_failed"] != 1 or len(fab.supervisor.failures) != 1:
+        problems.append(f"(c): an unasked-for failover "
+                        f"{fab.supervisor.failures}")
+    if not (shipped > 0 and stats[new]["handoff_imported"] > 0
+            and rep0.shard_id == new and rep0.cache_hits > 0):
+        problems.append(f"(c): hand-off shipped {shipped}, imported "
+                        f"{stats[new]['handoff_imported']}, resubmitted on "
+                        f"{rep0.shard_id} with {rep0.cache_hits} hits")
+    survivors = {sid: rc for sid, rc in reaped.items() if sid != victim}
+    if any(rc != 0 for rc in survivors.values()) or alive:
+        problems.append(f"(c): exits {reaped}, left alive {alive}")
+    if any(unc.values()):
+        problems.append(f"(c): uncompilable segments {unc}")
+
+
+def _wait_until(cond, timeout_s: float = 60.0) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def _alive(os, pid) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def _reap_worker_groups(os, signal, pids) -> int:
+    """Kill what is left of each worker's process group (a worker starts
+    a session of its own; inductor's compile workers join it): the script
+    leaves no process behind.  Returns how many groups still had one."""
+    left = 0
+    for pid in pids.values():
+        try:
+            os.killpg(pid, signal.SIGKILL)
+            left += 1
+        except (ProcessLookupError, PermissionError):
+            pass
+    return left
 
 
 def profile_tabular(torch, np, report):
@@ -3711,6 +4372,11 @@ def main() -> None:
             f"{SERVICE_ROWS} rows, on the card")
         by_path["service"] = timed("service", service_phase, torch, np,
                                    report)
+    if "fabric" in phases:
+        log(f"[fabric] the paper's agents across shards through "
+            f"connect(\"fabric\"), in this process and in worker "
+            f"processes, {FABRIC_ROWS} rows, on the card")
+        by_path["fabric"] = timed("fabric", fabric_phase, torch, np, report)
     if args.profile:
         log("[profile] full width, torch.profiler")
         profile_phase(torch, np, report, phases)

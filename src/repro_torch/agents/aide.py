@@ -360,8 +360,8 @@ class AsyncAIDESearch:
     ``result()`` returns ``(name→value, report)`` — preferably a
     :class:`repro_torch.client.StratumClient` (or one of its tenant-scoped
     sessions), which makes the driver **target-agnostic**: the same search
-    runs unchanged against a local session or a multi-tenant service (the
-    fabric is ``ROADMAP.md`` A5).  A :class:`repro_torch.service.Session`
+    runs unchanged against a local session, a multi-tenant service or a
+    sharded fabric.  A :class:`repro_torch.service.Session`
     (or any object with the older keyword surface) still works.
 
     When the session accepts :class:`repro_torch.client.SubmitOptions` (an
@@ -376,7 +376,7 @@ class AsyncAIDESearch:
     shed with :class:`~repro_torch.service.queue.DeadlineExceeded` instead of
     silently stalling the search frontier.
 
-    Against a sharded fabric (the reference's ``ShardedStratum``),
+    Against a sharded fabric (:class:`repro_torch.service.ShardedStratum`),
     ``shard_affinity=True`` tags every submission of this search with one
     stable affinity key, pinning the whole search tree to a single shard:
     successive rounds mutate the same pipeline prefix, so the shard that

@@ -1,5 +1,5 @@
-"""One submission surface: :class:`StratumClient` (the port of
-``repro.client``: its local and service targets).
+"""One submission surface: :class:`StratumClient` over every target (the
+port of ``repro.client``).
 
 The paper's core claim is that stratum "decouples pipeline execution from
 planning" behind a *single* integration point agents can target.  Agents
@@ -11,11 +11,21 @@ program against two objects —
 * :class:`StratumClient` — ``submit(batch, options) -> PipelineFuture``
   and ``run(sink)``.
 
-The port has the ``"local"`` target (:class:`LocalTarget`, one
-:class:`repro_torch.core.Stratum` session in this process) and the
-``"service"`` target (:class:`ServiceTarget`, a multi-tenant
-:class:`repro_torch.service.StratumService`).  The ``"fabric"`` target is
-``ROADMAP.md`` A5: ``connect`` raises for it until it lands.
+Three interchangeable targets:
+
+  ============== =========================================== ==============
+  target         wraps                                       scale point
+  ============== =========================================== ==============
+  ``"local"``    :class:`repro_torch.core.Stratum`           one process,
+                                                             one run
+  ``"service"``  :class:`repro_torch.service.StratumService` multi-tenant
+                                                             server
+  ``"fabric"``   :class:`repro_torch.service.ShardedStratum` N consistent-
+                                                             hash shards
+  ============== =========================================== ==============
+
+The fabric's shards live in this process, or with ``processes=True`` one
+worker process each; every shard runs on the configured device.
 
 Construction is uniform: one layered :class:`StratumConfig` (``optimizer``
 / ``runtime`` / ``cache`` / ``service`` sections), whose ``runtime.device``
@@ -38,11 +48,13 @@ from dataclasses import dataclass, field, replace
 from typing import Any, Optional, Tuple
 
 from .core.analysis import AnalysisError, AnalysisReport
+from .core.analysis import analyze as _static_analyze
 from .core.api import (ALL_FEATURES, _DEFAULT_CACHE_FRACTION,
                        _DEFAULT_PLAN_CACHE_ENTRIES, Stratum)
 from .core.fusion import PipelineBatch
 from .core.dag import LazyRef
 from .service.control import ControlPolicy
+from .service.fabric import StratumFabric
 from .service.priority import Priority
 from .service.queue import DeadlineExceeded
 from .service.server import ServiceConfig, StratumService
@@ -50,7 +62,8 @@ from .service.session import PipelineFuture
 
 __all__ = [
     "AnalysisError", "AnalysisReport", "CacheConfig", "DeadlineExceeded",
-    "LocalTarget", "OptimizerConfig", "PipelineFuture", "Priority",
+    "FabricTarget", "LocalTarget", "OptimizerConfig", "PipelineFuture",
+    "Priority",
     "RuntimeConfig", "ServiceTarget", "ServiceTuning", "StratumClient",
     "StratumConfig", "SubmitOptions", "connect",
 ]
@@ -273,8 +286,9 @@ class StratumConfig:
         return kw
 
     def service_config(self) -> ServiceConfig:
-        """The equivalent :class:`repro_torch.service.ServiceConfig` (the
-        service target), on the runtime section's device."""
+        """The equivalent :class:`repro_torch.service.ServiceConfig` (service
+        and fabric targets; the fabric copies it per shard), on the runtime
+        section's device."""
         s = self.service
         return ServiceConfig(
             memory_budget_bytes=self.runtime.memory_budget_bytes,
@@ -613,30 +627,120 @@ class ServiceTarget(StratumClient):
 
 
 # ---------------------------------------------------------------------------
+# fabric target
+# ---------------------------------------------------------------------------
+
+class FabricTarget(StratumClient):
+    """Sharded target: a consistent-hash :class:`StratumFabric`
+    (``config.service.n_shards`` shards) behind the client surface.
+    Every submission crosses the serializable envelope boundary; deadline
+    and tags travel on the :class:`~repro_torch.service.fabric.JobEnvelope`.
+    Each shard's ``ServiceConfig`` carries the runtime section's device,
+    into a worker process too (``processes=True``), where it crosses the
+    CONFIG frame as a string."""
+
+    target = "fabric"
+
+    def __init__(self, config: Optional[StratumConfig] = None,
+                 tenant: str = "default",
+                 fabric: Optional[StratumFabric] = None):
+        super().__init__(config, tenant)
+        self._owned = fabric is None
+        if fabric is None:
+            s = self.config.service
+            if s.processes:
+                # out-of-process shards: same router/ring/Session surface,
+                # each shard a supervised worker process
+                from .service.fabric.proc import (ProcConfig,
+                                                  ProcStratumFabric)
+                fabric = ProcStratumFabric(
+                    n_shards=s.n_shards,
+                    config=self.config.service_config(),
+                    routing=s.routing, vnodes=s.vnodes,
+                    autoscale=s.autoscale,
+                    proc=ProcConfig(
+                        heartbeat_s=s.worker_heartbeat_s,
+                        heartbeat_timeout_s=s.worker_heartbeat_timeout_s))
+            else:
+                if s.autoscale is not None:
+                    raise ValueError(
+                        "autoscale requires processes=True (only the "
+                        "out-of-process fabric can grow and shrink)")
+                fabric = StratumFabric(n_shards=s.n_shards,
+                                       config=self.config.service_config(),
+                                       routing=s.routing, vnodes=s.vnodes)
+        self._fabric = fabric
+
+    def submit(self, batch: PipelineBatch,
+               options: Optional[SubmitOptions] = None) -> PipelineFuture:
+        opts = self._resolve(options)
+        do_verify = (opts.verify if opts.verify is not None
+                     else self.config.service.admission_analysis)
+        if do_verify:
+            # verify on the client side of the envelope boundary: a
+            # statically-invalid pipeline never pays the fabric round trip
+            # (worker shards additionally enforce admission_analysis from
+            # their own ServiceConfig)
+            self.analyze(batch, feasibility=False).raise_if_invalid()
+        return self._fabric.submit(
+            opts.tenant, batch, priority=opts.priority,
+            affinity=opts.affinity, deadline_s=opts.deadline_s,
+            tags=opts.tags)
+
+    def analyze(self, batch: PipelineBatch, *,
+                feasibility: bool = True) -> AnalysisReport:
+        # the shards live behind the wire (possibly in other processes),
+        # so analysis runs client-side against the same config, on fake
+        # tensors: the fabric's device is only named, never touched
+        return _static_analyze(
+            batch,
+            platform=self.config.optimizer.platform,
+            memory_budget_bytes=self.config.runtime.memory_budget_bytes,
+            lowering="lowering" in self.config.optimizer.enable,
+            feasibility=feasibility,
+            segment_time_budget_s=self.config.runtime.segment_time_budget_s,
+            device=self._fabric.device,
+            hardware_threads=self.config.runtime.hardware_threads)
+
+    @property
+    def telemetry(self):
+        return self._fabric.telemetry
+
+    @property
+    def traces(self):
+        return self._fabric.traces
+
+    @property
+    def fabric(self) -> StratumFabric:
+        return self._fabric
+
+    def close(self) -> None:
+        if not self._closed and self._owned:
+            self._fabric.stop()
+        super().close()
+
+
+# ---------------------------------------------------------------------------
 # factory
 # ---------------------------------------------------------------------------
 
-TARGETS = {"local": LocalTarget, "service": ServiceTarget}
-
-_NOT_PORTED = {
-    "fabric": "the sharded fabric target is not ported yet (ROADMAP.md "
-              "A5)",
+TARGETS = {
+    "local": LocalTarget,
+    "service": ServiceTarget,
+    "fabric": FabricTarget,
 }
 
 
 def connect(target: str = "local",
             config: Optional[StratumConfig] = None,
             tenant: str = "default", **kwargs) -> StratumClient:
-    """Build a :class:`StratumClient` for ``target`` from one
-    :class:`StratumConfig`.  The port has the "local" and "service"
-    targets; "fabric" raises ``NotImplementedError`` until it is ported.
-    Extra kwargs go to the target constructor (e.g. ``stratum=`` to front
-    an existing session)."""
-    if target in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[target])
+    """Build a :class:`StratumClient` for ``target`` ("local", "service"
+    or "fabric") from one :class:`StratumConfig`.  Extra kwargs go to the
+    target constructor (e.g. ``service=`` / ``fabric=`` / ``stratum=`` to
+    front an existing backend)."""
     try:
         cls = TARGETS[target]
     except KeyError:
         raise ValueError(f"unknown target {target!r}; expected one of "
-                         f"{sorted(TARGETS) + sorted(_NOT_PORTED)}") from None
+                         f"{sorted(TARGETS)}") from None
     return cls(config=config, tenant=tenant, **kwargs)

@@ -37,7 +37,7 @@ class ControlPolicy:
       (``weight_decay``) once it recovers;
     * **autoscale signal** — the proc-fabric autoscaler consumes the
       merged windowed attainment trend (see
-      the reference's ``AutoscalePolicy``; the fabric is ``ROADMAP.md`` A5);
+      :class:`~repro_torch.service.fabric.proc.autoscale.AutoscalePolicy`);
       this policy only governs the per-shard knobs above.
 
     Guards: a window carrying fewer than ``min_window_jobs`` dispatch

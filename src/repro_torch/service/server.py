@@ -145,7 +145,7 @@ class ServiceConfig:
     # concurrency
     n_executors: int = 2
     # identity when the service runs as one shard of a sharded fabric
-    # (the reference's service/fabric/, ROADMAP.md A5); "" standalone
+    # (service/fabric/); "" standalone
     shard_id: str = ""
     # observability (docs/OBSERVABILITY.md): trace=True keeps per-job hop
     # logs in memory and returns them on every JobReport; trace_dir also

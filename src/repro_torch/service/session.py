@@ -16,7 +16,7 @@ bulk sweeps as ``BATCH`` (default) or ``SCAVENGER`` — see
 
 A ``Session`` is backend-agnostic: the same handle fronts a standalone
 :class:`~repro_torch.service.server.StratumService` or a sharded fabric
-(the reference's ``StratumFabric``, ``ROADMAP.md`` A5) — anything exposing
+(:class:`~repro_torch.service.fabric.StratumFabric`) — anything exposing
 ``submit(tenant, batch, priority=..., affinity=...) -> PipelineFuture``
 and a ``telemetry`` object with ``snapshot()``.  Against the fabric every
 submission crosses the serializable envelope boundary; ``affinity`` (an

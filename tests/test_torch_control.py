@@ -1,7 +1,6 @@
 """The port's closed-loop controller (``repro_torch.service.control``)
 against ``repro.service.control``: the counterpart of
-``tests/test_control.py`` without its fabric and autoscaler cases (the
-fabric is ``ROADMAP.md`` A5).
+``tests/test_control.py``, its autoscaler cases included.
 
 Each script feeds the windowed collector on a scripted clock and ticks the
 controller; after every tick it records what the controller did and what
@@ -9,7 +8,10 @@ the queue's knobs read (admission limits, band gates, the INTERACTIVE
 reserve, the WFQ weights, the controller's counters).  The same script
 on both packages must leave the same record.  The actuations' RETUNED hops,
 the snapshot and its ``top`` row, and the service's control block are held
-to the reference's too.
+to the reference's too.  The proc fabric's autoscaler, ticked by hand on
+a fake fabric fed scripted windows, spawns exactly where the reference's
+does: on a sustained windowed attainment sag, never on a single bad
+window, and not once a window without SLO evidence has reset the trend.
 """
 
 import json
@@ -282,3 +284,80 @@ def test_service_control_block_equals_the_references(control):
     else:
         assert blocks[0] == (True, None, 0)
     json.dumps(blocks[0][1])
+
+
+# ---------------------------------------------------------------------------
+# the proc fabric's autoscaler: windowed attainment trend, not whipsaw
+# ---------------------------------------------------------------------------
+
+class _FakeFabric:
+    """Just enough fabric surface for ``Autoscaler._tick``."""
+
+    def __init__(self, windows_seq):
+        self._windows_seq = list(windows_seq)
+        self.added = []
+        self.router = SimpleNamespace(pending_count=lambda *a: 3)
+        self.telemetry = self
+
+    def shard_ids(self):
+        return ["s0"]
+
+    def shards(self):
+        return {}
+
+    def global_snapshot(self):
+        return {"windows": (self._windows_seq.pop(0) if self._windows_seq
+                            else {"deadline_jobs": 0})}
+
+    def add_shard(self, sid):
+        self.added.append(sid)
+
+    def newest_shard(self):
+        return None
+
+
+def _autoscale_spawns(pkg, windows, ticks, trend_len=3):
+    """The spawns of ``pkg``'s autoscaler after ``ticks`` hand ticks."""
+    if pkg == "port":
+        from repro_torch.service.fabric.proc.autoscale import (
+            Autoscaler, AutoscalePolicy)
+    else:
+        from repro.service.fabric.proc.autoscale import (Autoscaler,
+                                                         AutoscalePolicy)
+    fab = _FakeFabric(windows)
+    scaler = Autoscaler(fab, AutoscalePolicy(
+        min_shards=1, max_shards=4, scale_up_backlog_per_shard=100.0,
+        attainment_floor=0.9, attainment_trend_len=trend_len,
+        scale_up_cooldown_s=0.0))           # never start()ed
+    out = []
+    for _ in range(ticks):
+        scaler._tick()
+        out.append(list(fab.added))
+    return out
+
+
+SAG = {"deadline_jobs": 5, "attainment": 0.5}
+GOOD = {"deadline_jobs": 5, "attainment": 1.0}
+BAD = {"deadline_jobs": 5, "attainment": 0.2}
+IDLE = {"deadline_jobs": 0}
+
+
+def test_autoscaler_needs_a_sustained_windowed_sag():
+    port = _autoscale_spawns("port", [SAG] * 4, 4)
+    assert port == _autoscale_spawns("ref", [SAG] * 4, 4)
+    # two sags set no trend; the third spawns; the trend restarts after
+    assert port == [[], [], ["auto-1"], ["auto-1"]]
+
+
+def test_autoscaler_ignores_single_window_whipsaw():
+    seq = [GOOD, BAD] * 3
+    port = _autoscale_spawns("port", seq, 6)
+    assert port == _autoscale_spawns("ref", seq, 6)
+    assert port[-1] == []
+
+
+def test_autoscaler_trend_clears_without_slo_evidence():
+    seq = [SAG, SAG, IDLE, SAG]
+    port = _autoscale_spawns("port", seq, 4)
+    assert port == _autoscale_spawns("ref", seq, 4)
+    assert port[-1] == []            # the idle window reset the trend

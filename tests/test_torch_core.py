@@ -256,6 +256,8 @@ def test_stratum_without_cuda_raises():
         connect("local", StratumConfig.make(compiled_segments=False))
     with pytest.raises(RuntimeError, match="CUDA"):
         connect("service", StratumConfig.make(compiled_segments=False))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        connect("fabric", StratumConfig.make(compiled_segments=False))
 
 
 def test_unported_parts_raise_naming_the_roadmap():
@@ -266,8 +268,9 @@ def test_unported_parts_raise_naming_the_roadmap():
     x = T.read("uk_housing", 100)
     assert s.analyze_batch(PipelineBatch([x], ["x"])).ok
     assert s.precompile_batch(PipelineBatch([x], ["x"])) == {}  # not async
-    with pytest.raises(NotImplementedError, match="A5"):
-        connect("fabric")
+    # the fabric target (A5) is ported: connect("fabric") builds it, and
+    # without a card raises as the other targets do (above)
+    assert connect.__globals__["TARGETS"]["fabric"].target == "fabric"
     with pytest.raises(ValueError, match="unknown target"):
         connect("nowhere")
     with pytest.raises(ValueError, match="TPU"):

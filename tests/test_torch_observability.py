@@ -1,6 +1,6 @@
 """The port's observability layer (``repro_torch.service.observability``)
 against ``repro.service.observability``: the counterpart of
-``tests/test_observability.py`` without its fabric cases.
+``tests/test_observability.py``, its fabric cases included.
 
 * Hop tuples, ``JobTrace`` stamps, the JSONL ``TraceLog`` / ``TraceSink``
   and the windowed ``ThroughputCollector`` (on a scripted clock) give the
@@ -10,6 +10,11 @@ against ``repro.service.observability``: the counterpart of
 * The port's service stamps the reference's hop sequences: a lifecycle,
   a coalesced pair, a cancel, a shed, a failure and a preemption chain;
   its JSONL log replays to the reported trace.
+* A killed worker's open span closes as ``lost`` in the gantt view.  On
+  the fabric, the hop log crosses the wire codec, the client and shard
+  hops reassemble into the reference's sequence, an untraced report has
+  none, a failover keeps the trace continuous, and a drained shard's
+  windows stay in the fabric's snapshot.
 
 Services run on the CPU with compiled segments off; every wait has a
 timeout and the preemption waits on an event.
@@ -452,3 +457,158 @@ def test_preempted_job_trace_has_one_preempt_requeue_chain():
         assert rep.trace[-1][4]["salvaged"] == rep.ops_salvaged > 0
     finally:
         svc.stop()
+
+
+# ---------------------------------------------------------------------------
+# the fabric: hops across the wire, failover, retired shards
+# ---------------------------------------------------------------------------
+
+def _fabric(pkg, n_shards=2, **kw):
+    from repro.service.fabric import ShardedStratum as JShardedStratum
+    from repro_torch.service.fabric import ShardedStratum
+    kw.setdefault("memory_budget_bytes", 1 << 30)
+    kw.setdefault("n_executors", 1)
+    kw.setdefault("coalesce_window_s", 0.0)
+    kw.setdefault("compiled_segments", False)
+    if pkg == "port":
+        return ShardedStratum(n_shards=n_shards, device="cpu", **kw)
+    return JShardedStratum(n_shards=n_shards, **kw)
+
+
+def _key_for_shard(fab, shard_id, tag="k"):
+    for i in range(10_000):
+        key = f"{tag}-{i}"
+        if fab.router._ring.route(key) == shard_id:
+            return key
+    raise AssertionError("no key found")  # pragma: no cover
+
+
+def _assert_slack_non_increasing(hops, eps=0.25):
+    slacks = [h[3] for h in hops if h[3] is not None]
+    for a, b in zip(slacks, slacks[1:]):
+        assert b <= a + eps, slacks
+
+
+def test_shard_gantt_spans_preemption_and_lost_workers():
+    """A preempted job's two spans, and the open span of a job whose
+    worker was killed closed as ``lost``: equal on both packages."""
+    views = []
+    for m, mod in ((O, replay), (JO, j_replay)):
+        timelines = mod.reassemble([
+            m.hop_record("j1", "t", h) for h in (
+                m.make_hop(m.DISPATCHED, shard="s0", t=1.0),
+                m.make_hop(m.PREEMPTED, shard="s0", t=2.0),
+                m.make_hop(m.DISPATCHED, shard="s0", t=4.0),
+                m.make_hop(m.COMPLETED, shard="s0", t=5.0))
+        ] + [m.hop_record("j2", "t", m.make_hop(m.DISPATCHED, shard="s1",
+                                                t=1.0))])
+        views.append(mod.shard_gantt(timelines))
+    assert views[0] == views[1]
+    assert [(j, t0, t1, o) for j, t0, t1, o in views[0]["s0"]] == \
+        [("j1", 1.0, 2.0, O.PREEMPTED), ("j1", 4.0, 5.0, O.COMPLETED)]
+    assert views[0]["s1"] == [("j2", 1.0, 1.0, "lost")]
+
+
+def test_envelope_hops_survive_the_wire_codec():
+    from repro_torch.service.fabric import JobEnvelope, decode_job, encode_job
+    hops = (O.make_hop(O.SUBMITTED, t=1.0, slack=9.0, tenant="t"),
+            O.make_hop(O.ROUTED, shard="shard-1", t=1.5, slack=8.5,
+                       attempt=0, requeue=False))
+    env = JobEnvelope(envelope_id="e-7", tenant="t", priority=1,
+                      routing_key="k", batch=_batch(), deadline_s=9.0,
+                      hops=hops)
+    out = decode_job(encode_job(env))
+    assert out.hops == hops
+    bare = decode_job(encode_job(JobEnvelope(
+        envelope_id="e-8", tenant="t", priority=1, routing_key="k",
+        batch=_batch())))
+    assert bare.hops == ()
+
+
+def _fabric_trace(pkg):
+    tab, Batch = (T, PipelineBatch) if pkg == "port" else (JT, JBatch)
+    fab = _fabric(pkg, trace=True)
+    try:
+        _, rep = fab.session("t").submit(
+            Batch([_pipeline(tab)], ["p"]), deadline_s=300.0).result(
+            timeout=TIMEOUT)
+        tr = fab.traces.get(rep.envelope_id)
+        return rep, tr
+    finally:
+        fab.stop()
+
+
+def test_fabric_trace_reassembles_client_and_shard_hops():
+    rep, tr = _fabric_trace("port")
+    ev = _events(rep.hops)
+    assert ev == [O.SUBMITTED, O.ROUTED, O.ADMITTED, O.QUEUED, O.DISPATCHED,
+                  O.COMPLETED], ev
+    _assert_monotone(rep.hops)
+    _assert_slack_non_increasing(rep.hops)
+    assert rep.hops[1][2] == rep.shard_id
+    assert rep.hops[-1][2] == rep.shard_id
+    assert tr is not None and tr.as_hops() == rep.hops
+    j_rep, _ = _fabric_trace("ref")
+    assert _events(j_rep.hops) == ev
+    assert j_rep.shard_id == rep.shard_id
+
+
+def test_fabric_untraced_reports_have_no_hops():
+    fab = _fabric("port")
+    try:
+        _, rep = fab.session("t").submit(_batch()).result(timeout=TIMEOUT)
+        assert rep.hops == ()
+        assert fab.traces.enabled is False
+    finally:
+        fab.stop()
+
+
+def _failover_events(pkg):
+    tab, Batch = (T, PipelineBatch) if pkg == "port" else (JT, JBatch)
+    fab = _fabric(pkg, autostart=False, trace=True)
+    try:
+        victim, survivor = fab.shard_ids()
+        fut = fab.session("t").submit(
+            Batch([_pipeline(tab)], ["p"]), deadline_s=300.0,
+            affinity=_key_for_shard(fab, victim))
+        assert fab.router.pending_count(victim) == 1
+        assert fab.fail_shard(victim) == 1
+        fab.start()
+        _, rep = fut.result(timeout=TIMEOUT)
+        return victim, survivor, rep
+    finally:
+        fab.stop()
+
+
+def test_failover_trace_continuity_under_fail_shard():
+    victim, survivor, rep = _failover_events("port")
+    assert rep.shard_id == survivor
+    ev = _events(rep.hops)
+    assert ev[:2] == [O.SUBMITTED, O.ROUTED]
+    fo = ev.index(O.FAILOVER)
+    assert ev[fo + 1:] == [O.ROUTED, O.ADMITTED, O.QUEUED, O.DISPATCHED,
+                           O.COMPLETED], ev
+    assert rep.hops[fo][2] == victim
+    assert rep.hops[1][2] == victim
+    assert rep.hops[fo + 1][2] == survivor
+    assert rep.hops[-1][2] == survivor
+    _assert_monotone(rep.hops)
+    _assert_slack_non_increasing(rep.hops)
+    j_victim, j_survivor, j_rep = _failover_events("ref")
+    assert (j_victim, j_survivor) == (victim, survivor)
+    assert _events(j_rep.hops) == ev
+
+
+def test_retired_shard_freezes_its_windows_snapshot():
+    fab = _fabric("port")
+    try:
+        victim = fab.shard_ids()[0]
+        fab.session("t").submit(_batch(), affinity=_key_for_shard(
+            fab, victim)).result(timeout=TIMEOUT)
+        fab.drain_shard(victim)
+        per = fab.telemetry.per_shard()
+        assert per[victim]["retired"] is True
+        assert per[victim]["windows"]["completed"] >= 1
+        assert fab.telemetry.global_snapshot()["windows"]["completed"] >= 1
+    finally:
+        fab.stop()

@@ -221,7 +221,10 @@ assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
         "repro_torch.agents.aide", "repro_torch.service.server",
         "repro_torch.service.observability.replay",
         "repro_torch.service.observability.top",
-        "repro_torch.service.control.controller"} <= set(names)
+        "repro_torch.service.control.controller",
+        "repro_torch.service.fabric.router",
+        "repro_torch.service.fabric.proc.worker",
+        "repro_torch.service.fabric.proc.supervisor"} <= set(names)
 # the offline CLIs, as ``python -m`` runs them
 import contextlib, io, runpy, tempfile
 for mod, argv in (("repro_torch.service.observability.top", ["--demo"]),

@@ -298,8 +298,7 @@ def test_priority_and_weights_equal_the_references():
         [(p.name, int(p)) for p in JS.Priority]
     assert {int(k): v for k, v in S.DEFAULT_WEIGHTS.items()} == \
         {int(k): v for k, v in JS.DEFAULT_WEIGHTS.items()}
-    assert sorted(S.__all__) == sorted(
-        set(JS.__all__) - {"ShardedStratum", "StratumFabric"})
+    assert sorted(S.__all__) == sorted(JS.__all__)
 
 
 # ---------------------------------------------------------------------------
