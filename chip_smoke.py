@@ -169,6 +169,28 @@ Phases, each of which must pass:
              worker's start-up, compile seconds and largest heartbeat gap,
              and the card's memory.used against the parent's reserved
              memory.  No hand kernel launches.
+19. distributed — the LM substrate sharded over 4 ranks sharing the card
+             (one ``repro_torch.distributed.spawn`` of 4 processes over
+             gloo: NCCL refuses two ranks on one device), bf16, seeded
+             weights each rank draws only its shards of, one layer at a
+             time; meshes built per part from the one world.  First the
+             single-process references in this process.  (a) qwen2-7b at
+             full width and depth on (1, 4), tp on: prefill 8 x 1024 into a
+             2048 cache sharded by sequence, then 16 decode steps fed the
+             reference's greedy tokens; every call's logits within rel L2
+             2e-2 of one process and the tokens within its tie band; rank
+             3's slice empty (local length 0).  (b) granite-moe-3b-a800m at
+             full width and depth on (1, 4), EP (12 local experts a rank):
+             the same, within twice the run's own bf16 floor.  (c) qwen2-7b
+             at 4 layers on (2, 2), tp and fsdp, on the train phase's
+             batch: 2 steps within a band of ``make_train_step``'s loss and
+             grad norm; the params checkpointed on (2, 2) and restored on
+             (1, 4) with equal leaf sums; 4 steps with grad_compress, the
+             loss falling at each.  (d) ``vocab_parallel_ce`` at qwen2's
+             vocab (T 8192) against the CE kernel's loss and the plain
+             backward's dx.  Each rank's launches of every kernel are
+             exact in every part; the phase reports each part's wall, each
+             rank's peak memory and the bytes each collective sent.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the kernels line reports each kernel's launches in the
@@ -185,8 +207,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -220,7 +244,8 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
           "train", "consistency_audio", "serve_audio", "consistency_vlm",
-          "serve_vlm", "tabular", "agentic", "service", "fabric")
+          "serve_vlm", "tabular", "agentic", "service", "fabric",
+          "distributed")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -2142,6 +2167,512 @@ def loop_phase(torch, report):
     if resumed.resumed_from != 2 or got != whole.losses:
         fail("the resumed TrainLoop's losses differ from the uninterrupted "
              "run's")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: distributed — the LM substrate on 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 4
+DIST_LANES, DIST_PROMPT, DIST_CACHE, DIST_STEPS = 8, 1024, 2048, 16
+# (a): qwen2's consistency bound; (b): this many times the run's own bf16
+# floor for the call (the single-process run with its embedding table
+# perturbed by ~1/2 ulp, fed the same tokens, against the plain one), and
+# as many times the call's tie band for its tokens
+DIST_QWEN_LIMIT = CONSISTENCY_LIMIT[ARCH, None]
+DIST_MOE_FLOOR_FACTOR = 2.0
+# (c): 2 steps against the single-process step, then 4 with grad_compress
+DIST_TRAIN_STEPS, DIST_COMPRESS_STEPS = 2, 4
+DIST_LOSS_RTOL, DIST_GNORM_RTOL = 2e-3, 2e-2
+DIST_CKPT_RTOL = 1e-5
+# (d): vocab_parallel_ce at qwen2's vocab against the CE kernel's loss and
+# the plain backward's dx
+DIST_CE_TOKENS = 8192
+DIST_CE_LOSS_ATOL, DIST_CE_DX_REL_L2 = 1e-4, 1e-3
+DIST_TIMEOUT_S = 900
+
+
+def _dist_expected(part: str) -> dict:
+    """Exact launches a rank makes in each part."""
+    calls = 1 + DIST_STEPS                     # prefill + decode steps
+    if part == "a":                            # qwen2-7b, 28 layers
+        n = 28
+        return {"rmsnorm": (2 * n + 1) * calls, "flash_attention": n,
+                "decode_attention": n * DIST_STEPS}
+    if part == "b":                            # granite, 32 layers, EP
+        n = 32
+        return {"rmsnorm": (2 * n + 1) * calls, "flash_attention": n,
+                "decode_attention": n * DIST_STEPS, "moe_gmm": 3 * n * calls}
+    if part == "c":                            # train, 4 layers, M 2
+        steps = DIST_TRAIN_STEPS + DIST_COMPRESS_STEPS
+        return {k: v * steps for k, v in TRAIN_EXPECTED.items()
+                if k != "cross_entropy" and v}   # the TP loss is plain torch
+    return {}
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _dist_serve_ref(torch, np, arch):
+    """Single-process prefill of 8 x 1024 seeded tokens into a 2048 cache,
+    then 16 greedy decode steps: the tokens fed (prompt, then each step's
+    greedy token), every call's fp32 logits, and each call's bf16 floor:
+    the same calls, fed the same tokens, with the embedding table perturbed
+    by ~1/2 ulp (its rel L2 and, per lane, the tie band sqrt(2) x rms of
+    the change)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config(arch)
+    rng = np.random.default_rng(7)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (DIST_LANES, DIST_PROMPT))).cuda()
+    with torch.inference_mode():
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), device="cuda")
+        t0 = time.perf_counter()
+        logits, st = prefill(params, {"tokens": prompt}, cfg, DIST_CACHE)
+        fed, out = [prompt], [logits.cpu()]
+        for _ in range(DIST_STEPS):
+            nxt = logits.argmax(-1, keepdim=True)
+            fed.append(nxt)
+            logits, st = decode_step(params, st, nxt, cfg)
+            out.append(logits.cpu())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del st
+        perturb_half_ulp(torch, params["embed"]["tok"])
+        pert, st = prefill(params, {"tokens": prompt}, cfg, DIST_CACHE)
+        perts = [pert.cpu()]
+        for nxt in fed[1:]:
+            pert, st = decode_step(params, st, nxt, cfg)
+            perts.append(pert.cpu())
+        del st
+    del params
+    torch.cuda.empty_cache()
+    logits, perts = torch.stack(out), torch.stack(perts)
+    return {"tokens": torch.cat(fed, dim=1).cpu(), "logits": logits,
+            "wall_s": wall,
+            "floor": [_rel_l2(p, o) for p, o in zip(perts, logits)],
+            "band": 2 ** 0.5 * (perts - logits).pow(2).mean(-1).sqrt()}
+
+
+def _dist_train_ref(torch):
+    """The single-process step on the train phase's batch, 2 steps."""
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = train_config()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    step = make_train_step(cfg, adamw(lr=TRAIN_LR))
+    opt = step.init_opt_state(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in global_batch_at(
+        DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH, microbatches=TRAIN_MB, seed=0),
+        0).items()}
+    losses, norms = [], []
+    for _ in range(DIST_TRAIN_STEPS):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms}
+
+
+def _dist_ce_inputs(torch, device):
+    """x (T, D) bf16, w (D, V) bf16 at qwen2's width and vocab, labels and
+    a valid mask with every 17th token padding: from seeds, on ``device``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(5)
+    D, V, T = cfg.d_model, cfg.vocab_padded, DIST_CE_TOKENS
+    x = torch.randn(T, D, generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn(D, V, generator=gen, device=device) * D ** -0.5).to(
+        torch.bfloat16)
+    lab = torch.randint(0, cfg.vocab, (T,), generator=gen, device=device,
+                        dtype=torch.int32)
+    valid = torch.arange(T, device=device) % 17 != 0
+    return cfg, x, w, lab, valid
+
+
+def _dist_ce_ref(torch):
+    """The CE kernel's loss and the plain backward's dx."""
+    from repro_torch.kernels.cross_entropy.ops import ce_forward
+    from repro_torch.kernels.cross_entropy.ref import ce_backward_chunked
+    cfg, x, w, lab, valid = _dist_ce_inputs(torch, "cuda")
+    lse, ll = ce_forward(x, w, lab, cfg.vocab)
+    vf = valid.float()
+    loss = float(((lse - ll) * vf).sum() / vf.sum())
+    dx, _ = ce_backward_chunked(x, w, lab, valid, lse,
+                                torch.ones((), device="cuda"), cfg.vocab)
+    out = {"loss": loss, "dx": dx.cpu()}
+    del x, w, lse, ll, dx
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_part(torch, fn):
+    """Run one part on this rank: launches, collective bytes, peak memory
+    and wall, each read just after."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import (COLLECTIVE_BYTES,
+                                                     reset_collective_bytes)
+    from repro_torch.kernels.common import launches, reset_launches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_launches()
+    reset_collective_bytes()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = launches()
+    res["collective_bytes"] = dict(COLLECTIVE_BYTES)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    dist.barrier()
+    return res
+
+
+def _dist_serve(torch, arch, mesh, ref, band_factor):
+    """(a) / (b): the arch's shards drawn one layer at a time, prefill and
+    16 teacher-forced decode steps under the decode policy; every call's
+    logits against the single-process ones, on this rank, and its token
+    within ``band_factor`` x the call's tie band (plus the top's ulp)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import use_context
+    from repro_torch.distributed.policy import (make_policy, param_pspecs,
+                                                shard_placer)
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import param_specs
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = get_config(arch)
+    pol = make_policy(cfg, ShapeConfig("decode", DIST_CACHE, DIST_LANES,
+                                       "decode"), mesh)
+    params = init_params(
+        cfg, torch.Generator(device=mesh.device).manual_seed(0),
+        device=mesh.device,
+        place=shard_placer(param_pspecs(param_specs(cfg), pol, cfg), mesh))
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    toks = ref["tokens"].to(mesh.device)
+    s_loc = DIST_CACHE // mesh.shape["model"]
+    lo = mesh.index("model") * s_loc
+    rels, within, gaps, local_lens = [], [], [], []
+    t0 = time.perf_counter()
+    with torch.inference_mode(), use_context(pol.context()):
+        got, st = prefill(params, {"tokens": toks[:, :DIST_PROMPT]}, cfg,
+                          DIST_CACHE)
+        t_prefill = time.perf_counter() - t0
+        outs = [got]
+        for i in range(DIST_STEPS):
+            lens = st["len"]
+            local_lens.append(int((lens + 1 - lo).clamp(0, s_loc).min()))
+            col = DIST_PROMPT + i
+            got, st = decode_step(params, st, toks[:, col:col + 1], cfg)
+            outs.append(got)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for got, want, band in zip(outs, ref["logits"], ref["band"]):
+            want = want.to(mesh.device)
+            rels.append(_rel_l2(got, want))
+            pick = want.gather(-1, got.argmax(-1, keepdim=True))[:, 0]
+            top = want.max(-1).values
+            gap = top - pick
+            # the logits are bf16 products: two a bf16 ulp apart may differ
+            # by nothing before rounding, so the band adds the top's ulp
+            ulp = torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+            gaps.append(float(gap.max()))
+            within.append(bool((gap <= band_factor * band.to(mesh.device)
+                                + ulp).all()))
+    del params, st, outs
+    return {"tp": pol.tp, "ep_axis": pol.ep_axis, "weights_bytes": weights,
+            "rel_l2": rels, "within_band": within, "max_gap": gaps,
+            "min_local_length": min(local_lens), "prefill_s": t_prefill,
+            "decode_s": (wall - t_prefill) / DIST_STEPS}
+
+
+def _dist_train(torch, device, ref, ckpt_dir):
+    """(c): qwen2 at 4 layers on (2, 2) with tp and fsdp: 2 steps against
+    the single-process step; the params checkpointed on (2, 2) and restored
+    on (1, 4); then 4 steps with grad_compress on the repeated batch."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.collectives import gather_full
+    from repro_torch.distributed.policy import (make_policy, param_pspecs,
+                                                shard_placer,
+                                                tree_leaves_with_path,
+                                                tree_shardings)
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import param_specs
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = train_config()
+    mesh = Mesh.over_world((2, 2), ("data", "model"), device)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    pol = make_policy(cfg, shape, mesh, tp=True, fsdp=True,
+                      microbatches=TRAIN_MB)
+    specs = param_pspecs(param_specs(cfg), pol, cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in global_batch_at(
+        DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH, microbatches=TRAIN_MB, seed=0),
+        0).items()}
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device, place=shard_placer(specs, mesh))
+
+    params = fresh()
+    step = make_train_step(cfg, adamw(lr=TRAIN_LR), policy=pol)
+    opt = step.init_opt_state(params)
+    losses, norms, times = [], [], []
+    for _ in range(DIST_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    del opt
+
+    def sums(tree, specs_of, on):
+        return {p: float(gather_full(t.detach(), specs_of[p], on).double()
+                         .abs().sum())
+                for p, t in tree_leaves_with_path(tree)}
+
+    flat_specs = dict(tree_leaves_with_path(param_pspecs(params, pol, cfg)))
+    before = sums(params, flat_specs, mesh)
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt_dir, DIST_TRAIN_STEPS, params, shardings=
+                    tree_shardings(param_pspecs(params, pol, cfg), pol)).wait()
+    save_s = time.perf_counter() - t0
+    del params
+    mesh14 = Mesh.over_world((1, 4), ("data", "model"), device)
+    pol14 = make_policy(cfg, shape, mesh14, tp=True, fsdp=True,
+                        microbatches=TRAIN_MB)
+    specs14 = param_pspecs(param_specs(cfg), pol14, cfg)
+    t0 = time.perf_counter()
+    restored, _ = load_checkpoint(ckpt_dir, DIST_TRAIN_STEPS,
+                                  param_specs(cfg),
+                                  shardings=tree_shardings(specs14, pol14))
+    load_s = time.perf_counter() - t0
+    after = sums(restored, dict(tree_leaves_with_path(specs14)), mesh14)
+    ckpt_rel = max(abs(after[p] - before[p]) / max(before[p], 1e-30)
+                   for p in before)
+    del restored
+    dist.barrier()
+
+    params = fresh()
+    step = make_train_step(cfg, adamw(lr=TRAIN_LR), policy=pol,
+                           grad_compress=True)
+    opt = step.init_opt_state(params)
+    compressed = []
+    for _ in range(DIST_COMPRESS_STEPS):
+        params, opt, m = step(params, opt, batch)
+        compressed.append(float(m["loss"]))
+    del params, opt
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       ref["losses"]))
+    norm_rel = max(abs(a - b) / abs(b) for a, b in zip(norms,
+                                                       ref["grad_norms"]))
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+            "ckpt_leaves": len(before), "ckpt_sum_rel": ckpt_rel,
+            "ckpt_save_s": save_s, "ckpt_load_s": load_s,
+            "compressed_losses": compressed}
+
+
+def _dist_ce(torch, mesh, ref):
+    """(d): vocab_parallel_ce at qwen2's vocab over 4 model ranks."""
+    from repro_torch.distributed.collectives import local_shard
+    from repro_torch.distributed.context import ShardingContext, use_context
+    from repro_torch.distributed.vocab_ce import vocab_parallel_ce
+    cfg, x, w, lab, valid = _dist_ce_inputs(torch, mesh.device)
+    w = local_shard(w, (None, "model"), mesh).clone()
+    torch.cuda.empty_cache()
+    x.requires_grad_(True)
+    with use_context(ShardingContext(mesh=mesh, rules={})):
+        loss = vocab_parallel_ce(x, w, lab, valid, n_valid=cfg.vocab,
+                                 vocab_size=cfg.vocab_padded)
+        (dx,) = torch.autograd.grad(loss, x)
+    want = ref["dx"].to(mesh.device)
+    loss = float(loss.detach())
+    return {"loss": loss, "loss_err": abs(loss - ref["loss"]),
+            "dx_rel_l2": _rel_l2(dx, want),
+            "dx_max_abs_err": float((dx.float() - want.float()).abs().max())}
+
+
+def distributed_rank(rank, world, device, ref_path, ckpt_dir):
+    """One rank of the distributed phase (spawned; gloo on the one card):
+    parts (a)-(d), each with its own mesh over the same 4 ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import Mesh
+    if device.type != "cuda":
+        raise RuntimeError(f"rank {rank} is on {device}, not the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(ref_path, weights_only=False)
+    mesh = Mesh.over_world((1, DIST_RANKS), ("data", "model"), device)
+    out = {"device": str(device), "backend": dist.get_backend()}
+    parts = {"a": lambda: _dist_serve(torch, ARCH, mesh, ref["a"], 1.0),
+             "b": lambda: _dist_serve(torch, MOE_ARCH, mesh, ref["b"],
+                                      DIST_MOE_FLOOR_FACTOR),
+             "c": lambda: _dist_train(torch, device, ref["c"], ckpt_dir),
+             "d": lambda: _dist_ce(torch, mesh, ref["d"])}
+    for part, fn in parts.items():
+        out[part] = _dist_part(torch, fn)
+        if rank == 0:             # as it goes; the verdicts come at the end
+            log(f"  rank 0 ({part}) done in {out[part]['wall_s']:.1f} s: " +
+                ", ".join(f"{k} {v}" for k, v in out[part].items()
+                          if k not in ("launches", "wall_s")))
+    out["loaded"] = sorted(m for m in ("jax", "repro") if m in sys.modules)
+    return out
+
+
+def distributed_phase(torch, np, report):
+    """Single-process references first, then one spawn of 4 ranks on the
+    card over gloo; every rank's checks, launches, bytes and peaks."""
+    from repro_torch.distributed import spawn
+    from repro_torch.kernels.common import LAUNCHES
+
+    t0 = time.perf_counter()
+    ref = {"a": _dist_serve_ref(torch, np, ARCH),
+           "b": _dist_serve_ref(torch, np, MOE_ARCH),
+           "c": _dist_train_ref(torch), "d": _dist_ce_ref(torch)}
+    ref_s = time.perf_counter() - t0
+    limits = {"a": [DIST_QWEN_LIMIT] * (DIST_STEPS + 1),
+              "b": [DIST_MOE_FLOOR_FACTOR * f for f in ref["b"]["floor"]]}
+    log(f"  single-process references in {ref_s:.1f} s: qwen2 prefill + "
+        f"{DIST_STEPS} steps {ref['a']['wall_s']:.2f} s (bf16 floor, each "
+        f"call: {min(ref['a']['floor']):.4e} to "
+        f"{max(ref['a']['floor']):.4e}), granite {ref['b']['wall_s']:.2f} s "
+        f"(floor {min(ref['b']['floor']):.4e} to "
+        f"{max(ref['b']['floor']):.4e}; the limit {DIST_MOE_FLOOR_FACTOR:g} "
+        f"x each call's), train losses {ref['c']['losses']} grad norms "
+        f"{[round(v, 4) for v in ref['c']['grad_norms']]}, CE loss "
+        f"{ref['d']['loss']:.6f}")
+    OUT.mkdir(exist_ok=True)
+    ref_path = ROOT / "build" / "distributed_ref.pt"
+    ckpt_dir = ROOT / "build" / "distributed_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ref_path.parent.mkdir(exist_ok=True)
+    torch.save(ref, ref_path)
+    del ref["d"]["dx"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB on the card ({torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"reserved) as the ranks start")
+    # the ranks' allocators: 4 processes share 80 GB, so return freed
+    # segments to the pool instead of keeping each size's blocks
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t0 = time.perf_counter()
+    ranks = spawn(distributed_rank, DIST_RANKS, (str(ref_path),
+                                                 str(ckpt_dir)),
+                  device_type="cuda", timeout=DIST_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ref_path.unlink()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    problems = []
+    names = {"a": ARCH, "b": MOE_ARCH, "c": "train", "d": "vocab CE"}
+    total = {k: 0 for k in LAUNCHES}
+    for r, res in enumerate(ranks):
+        if res["loaded"]:
+            problems.append(f"rank {r} loaded {res['loaded']}")
+        for part in "abcd":
+            got = res[part]["launches"]
+            want = {k: _dist_expected(part).get(k, 0) for k in got}
+            for k, v in got.items():
+                total[k] += v
+            if got != want:
+                problems.append(f"rank {r} part ({part}) {names[part]} "
+                                f"launches {got}, expected {want}")
+    log(f"  4 ranks on {ranks[0]['device']} over {ranks[0]['backend']} "
+        f"(NCCL refuses two ranks on one device); spawn + parts "
+        f"{spawn_s:.1f} s")
+    for part, arch in (("a", ARCH), ("b", MOE_ARCH)):
+        res = [r[part] for r in ranks]
+        worst = max(max(x["rel_l2"]) for x in res)
+        over = [i for x in res for i, (v, lim) in
+                enumerate(zip(x["rel_l2"], limits[part])) if v > lim]
+        limit = max(limits[part])
+        within = all(all(x["within_band"]) for x in res)
+        zero = [x["min_local_length"] for x in res]
+        log(f"  ({part}) {arch}: tp {res[0]['tp']} ep {res[0]['ep_axis']}; "
+            f"weights a rank {res[0]['weights_bytes'] / 2**30:.2f} GiB; "
+            f"prefill {res[0]['prefill_s']:.2f} s, decode "
+            f"{res[0]['decode_s'] * 1e3:.1f} ms a step; logits' rel L2 "
+            f"against one process, worst of {DIST_STEPS + 1} calls and 4 "
+            f"ranks {worst:.4e} (limit {limit:.4e}{' at most' if part == 'b' else ''}; "
+            f"calls over their limit {sorted(set(over))}); tokens within the "
+            f"tie band {within} (largest gap {max(max(x['max_gap']) for x in res):.4g}); "
+            f"least local length a rank saw {zero}")
+        if over or not within:
+            problems.append(f"({part}) {arch}: rel L2 over the limit at "
+                            f"calls {sorted(set(over))}, within band "
+                            f"{within}")
+        if min(zero) != 0:
+            problems.append(f"({part}) no rank saw a local length 0: {zero}")
+    c = [r["c"] for r in ranks]
+    log(f"  (c) train (2, 2) tp fsdp: losses {c[0]['losses']} against "
+        f"{ref['c']['losses']} (rel {c[0]['loss_rel']:.3e}, limit "
+        f"{DIST_LOSS_RTOL:g}); grad norms {[round(v, 4) for v in c[0]['grad_norms']]} "
+        f"(rel {c[0]['grad_norm_rel']:.3e}, limit {DIST_GNORM_RTOL:g}); "
+        f"step s {[round(v, 2) for v in c[0]['step_s']]}; checkpoint of "
+        f"{c[0]['ckpt_leaves']} leaves saved on (2, 2) in "
+        f"{c[0]['ckpt_save_s']:.1f} s, restored on (1, 4) in "
+        f"{c[0]['ckpt_load_s']:.1f} s, leaf sums' worst rel "
+        f"{max(x['ckpt_sum_rel'] for x in c):.2e}; grad_compress losses "
+        f"{[round(v, 5) for v in c[0]['compressed_losses']]}")
+    if c[0]["loss_rel"] > DIST_LOSS_RTOL or \
+            c[0]["grad_norm_rel"] > DIST_GNORM_RTOL:
+        problems.append("(c) the sharded step disagrees with one process")
+    if max(x["ckpt_sum_rel"] for x in c) > DIST_CKPT_RTOL:
+        problems.append("(c) the restore on (1, 4) changed the parameters")
+    cl = c[0]["compressed_losses"]
+    if not all(b < a for a, b in zip(cl, cl[1:])):
+        problems.append(f"(c) the loss did not fall with grad_compress: {cl}")
+    d = [r["d"] for r in ranks]
+    log(f"  (d) vocab_parallel_ce at {ARCH}'s width and vocab, T "
+        f"{DIST_CE_TOKENS}, over 4 ranks: "
+        f"loss {d[0]['loss']:.6f} (err {max(x['loss_err'] for x in d):.2e}, "
+        f"limit {DIST_CE_LOSS_ATOL:g}); dx rel L2 "
+        f"{max(x['dx_rel_l2'] for x in d):.2e} (limit {DIST_CE_DX_REL_L2:g}), "
+        f"max abs err {max(x['dx_max_abs_err'] for x in d):.3g}")
+    if max(x["loss_err"] for x in d) > DIST_CE_LOSS_ATOL or \
+            max(x["dx_rel_l2"] for x in d) > DIST_CE_DX_REL_L2:
+        problems.append("(d) vocab_parallel_ce disagrees with the CE kernel")
+    for part in "abcd":
+        walls = [round(r[part]["wall_s"], 1) for r in ranks]
+        peaks = [round(r[part]["peak_bytes"] / 2**30, 2) for r in ranks]
+        sent = {k: round(v / 1e6, 1)
+                for k, v in ranks[0][part]["collective_bytes"].items()}
+        log(f"  ({part}) per rank: wall {walls} s, peak memory {peaks} GiB; "
+            f"rank 0 sent MB {sent} (copied through host memory by the "
+            f"port: 0 — gloo takes every collective here on CUDA tensors)")
+    report["distributed"] = {"reference_s": ref_s, "spawn_s": spawn_s,
+                             "limits": limits,
+                             "floors": {"a": ref["a"]["floor"],
+                                        "b": ref["b"]["floor"]},
+                             "ranks": ranks}
+    if problems:
+        fail("distributed: " + "; ".join(problems))
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4377,6 +4908,12 @@ def main() -> None:
             f"connect(\"fabric\"), in this process and in worker "
             f"processes, {FABRIC_ROWS} rows, on the card")
         by_path["fabric"] = timed("fabric", fabric_phase, torch, np, report)
+    if "distributed" in phases:
+        log(f"[distributed] the LM substrate sharded over {DIST_RANKS} ranks "
+            f"sharing the card (gloo): qwen2-7b TP + sequence-sharded "
+            f"decode, granite EP, a (2, 2) train step, vocab-parallel CE")
+        by_path["distributed"] = timed("distributed", distributed_phase,
+                                       torch, np, report)
     if args.profile:
         log("[profile] full width, torch.profiler")
         profile_phase(torch, np, report, phases)

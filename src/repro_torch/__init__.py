@@ -8,5 +8,7 @@ hand-written kernels for RMSNorm (Triton), flash attention and decode
 attention (CUDA C++).  Slice 2 covers dense training (``launch.train.
 build_trainer``, ``train.make_train_step``) with the fused LM-head cross
 entropy forward and the flash-attention backward (CUDA C++) and the RMSNorm
-backward (Triton).
+backward (Triton).  Later slices add every family, the tabular path,
+the service and the fabric, and (slice 15) the sharded LM substrate:
+``distributed`` (one process per rank over ``torch.distributed``).
 """

@@ -23,6 +23,12 @@ Fault-tolerance contract, as in the JAX package:
 numpy has no bfloat16: a bf16 leaf is stored as its 16-bit pattern (uint16)
 and the manifest records ``"bfloat16"``; ``load`` views the bits back.
 Leaves come back on the device of the target tree's leaves.
+
+Sharded trees (one process per rank, ``repro_torch.distributed``): given
+``shardings`` (a tree of ``NamedSharding`` matching the tree), ``save``
+gathers each leaf from the ranks and rank 0 writes it, in the same on-disk
+format; ``load`` cuts each full leaf to this rank's shard on the mesh it is
+given, which need not be the mesh that saved it (an elastic restart).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> list:
@@ -65,10 +72,22 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 
 def save_checkpoint(root: str, step: int, tree, extras: Optional[dict] = None,
-                    async_write: bool = False):
-    """Returns a handle with ``.wait()`` (a no-op when synchronous)."""
+                    async_write: bool = False, shardings=None):
+    """Returns a handle with ``.wait()`` (a no-op when synchronous).  With
+    ``shardings`` every rank calls it: each leaf is gathered from its
+    shards, rank 0 writes, and ``.wait()`` is also a barrier of the
+    ranks."""
     flat = _flatten_with_paths(tree)
-    host = [(path, *_to_host(leaf)) for path, leaf in flat]
+    writer = True
+    if shardings is not None:
+        from ..distributed.collectives import gather_full
+        writer = dist.get_rank() == 0
+        by_path = dict(_flatten_with_paths(shardings))
+        full = [gather_full(leaf.detach(), by_path[path].spec,
+                            by_path[path].mesh) for path, leaf in flat]
+        flat = [(path, t) for (path, _), t in zip(flat, full)]
+    host = [(path, *_to_host(leaf)) for path, leaf in flat] if writer \
+        else []
 
     final = os.path.join(root, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -98,6 +117,13 @@ def save_checkpoint(root: str, step: int, tree, extras: Optional[dict] = None,
             f.flush()
             os.fsync(f.fileno())
 
+    barrier = dist.barrier if shardings is not None else (lambda: None)
+    if not writer:
+        class Peer:
+            def wait(self):
+                barrier()
+        return Peer()
+
     if async_write:
         t = threading.Thread(target=_write, daemon=True)
         t.start()
@@ -105,13 +131,14 @@ def save_checkpoint(root: str, step: int, tree, extras: Optional[dict] = None,
         class Handle:
             def wait(self):
                 t.join()
+                barrier()
         return Handle()
 
     _write()
 
     class Done:
         def wait(self):
-            pass
+            barrier()
     return Done()
 
 
@@ -129,28 +156,49 @@ def find_latest(root: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def load_checkpoint(root: str, step: int, target_tree):
+def load_checkpoint(root: str, step: int, target_tree, shardings=None):
     """Restore into the structure of ``target_tree``; each leaf goes to the
-    device of the target's leaf.  Returns (tree, manifest)."""
+    device of the target's leaf.  Returns (tree, manifest).
+
+    ``shardings``: a matching tree of ``NamedSharding`` on the NEW mesh
+    (an elastic, resharded restart): each leaf comes back as this rank's
+    shard of it, on the mesh's device.  The target's leaves then have the
+    full shapes (``models.model.param_specs``' meta tensors) or this
+    rank's shard shapes (a live tree)."""
     d = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
-
-    def restore(node, prefix):
-        if isinstance(node, dict):
-            return {k: restore(v, f"{prefix}{k}/") for k, v in node.items()}
-        path = prefix[:-1]
+    shard_of = dict(_flatten_with_paths(shardings)) if shardings else {}
+    restored = {}
+    for path, node in _flatten_with_paths(target_tree):
+        sh = shard_of.get(path)
         entry = by_path.get(path)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {path!r}")
         arr = np.load(os.path.join(d, entry["file"]))["data"]
-        want_shape = tuple(node.shape)
-        if tuple(arr.shape) != want_shape:
-            raise ValueError(f"{path}: shape {arr.shape} != {want_shape}")
-        return _from_host(arr, entry["dtype"], node.device)
+        if sh is None:
+            if tuple(arr.shape) != tuple(node.shape):
+                raise ValueError(f"{path}: shape {arr.shape} != "
+                                 f"{tuple(node.shape)}")
+            restored[path] = _from_host(arr, entry["dtype"], node.device)
+            continue
+        from ..distributed.collectives import local_shard, shard_shape
+        if tuple(node.shape) not in (tuple(arr.shape), shard_shape(
+                arr.shape, sh.spec, sh.mesh)):
+            raise ValueError(f"{path}: shape {arr.shape} (its shard "
+                             f"{shard_shape(arr.shape, sh.spec, sh.mesh)}) "
+                             f"!= {tuple(node.shape)}")
+        full = _from_host(arr, entry["dtype"], "cpu")
+        restored[path] = local_shard(full, sh.spec, sh.mesh).to(
+            sh.mesh.device, copy=True)
 
-    return restore(target_tree, ""), manifest
+    def rebuild(node, prefix):
+        if isinstance(node, dict):
+            return {k: rebuild(v, f"{prefix}{k}/") for k, v in node.items()}
+        return restored[prefix[:-1]]
+
+    return rebuild(target_tree, ""), manifest
 
 
 class CheckpointManager:
@@ -163,10 +211,12 @@ class CheckpointManager:
         self._pending = None
         os.makedirs(root, exist_ok=True)
 
-    def save(self, step: int, tree, extras: Optional[dict] = None):
+    def save(self, step: int, tree, extras: Optional[dict] = None,
+             shardings=None):
         self.wait()
         self._pending = save_checkpoint(self.root, step, tree, extras,
-                                        async_write=self.async_write)
+                                        async_write=self.async_write,
+                                        shardings=shardings)
         self._gc()
         return self._pending
 
@@ -178,12 +228,13 @@ class CheckpointManager:
     def latest(self) -> Optional[int]:
         return find_latest(self.root)
 
-    def restore_latest(self, target_tree):
+    def restore_latest(self, target_tree, shardings=None):
         self.wait()
         step = self.latest()
         if step is None:
             return None
-        tree, manifest = load_checkpoint(self.root, step, target_tree)
+        tree, manifest = load_checkpoint(self.root, step, target_tree,
+                                         shardings)
         return step, tree, manifest
 
     def _gc(self):

@@ -26,13 +26,19 @@ JAX package too, so they have no embedding table; ``forward`` takes
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.collectives import gather_full
+from ..distributed.context import current_context, use_context
+from ..distributed.policy import (params_for_use, strip_lead,
+                                  tree_map_with_path)
 from ..kernels import fused_cross_entropy
 from ..kernels.common import resolve_device
+from ..optim.optimizers import tree_map
 from .config import ModelConfig
 from .layers import (attention_block, attention_decode, dtype_of, embed,
                      mlp_block, norm)
@@ -95,6 +101,8 @@ def _mamba_layers(params, cfg: ModelConfig) -> tuple[list, list]:
 def _dense_(out: torch.Tensor, gen: torch.Generator, scale=None):
     """Fill ``out`` (in, out)-shaped with N(0, 1)·scale drawn in fp32, the
     scales of the JAX package's ``_dense``; scale defaults to in**-0.5."""
+    if out.is_meta:                      # param_specs: shapes only
+        return out
     scale = scale if scale is not None else out.shape[0] ** -0.5
     tmp = torch.randn(out.shape, generator=gen, dtype=torch.float32,
                       device=out.device)
@@ -240,8 +248,30 @@ def _slstm_params(cfg: ModelConfig, lead: tuple, gen, device):
     return p
 
 
+def _placed(fn, cfg: ModelConfig, lead: tuple, gen, device, place,
+            path: str):
+    """``fn(cfg, lead, gen, device)``'s tree; with ``place``, each layer is
+    drawn whole (``lead == ()``, the same draws in the same order as one
+    slot of the stacked call) and only ``place(path/key, len(lead), t)``,
+    this rank's shard of it, is kept in the stacked tensors."""
+    if place is None:
+        return fn(cfg, lead, gen, device)
+    out = None
+    for i in range(math.prod(lead)):
+        layer = fn(cfg, (), gen, device)
+        local = tree_map_with_path(
+            lambda p, t: place(p, len(lead), t), layer, f"{path}/")
+        if out is None:
+            out = tree_map(lambda t: torch.empty(
+                lead + t.shape, dtype=t.dtype, device=t.device), local)
+        tree_map(lambda o, t: o.view(-1, *t.shape)[i].copy_(t), out, local)
+        del layer, local
+    return out
+
+
 def init_params(cfg: ModelConfig,
-                generator: Optional[torch.Generator] = None, *, device=None):
+                generator: Optional[torch.Generator] = None, *, device=None,
+                place=None):
     """Random parameters on ``device``, drawn from ``generator`` (by
     default a new one seeded with 0, as JAX's default key is PRNGKey(0)).
     Shapes, dtypes and scales follow the JAX package's ``init_params``,
@@ -254,49 +284,82 @@ def init_params(cfg: ModelConfig,
     to compare the two).  Each layer is drawn straight into its slot of the
     stacked tensor, so the fp32 draw is one layer at a time: a full-width
     model needs no more than its bf16 size plus one layer's largest fp32
-    matrix."""
+    matrix.  On ``device="meta"`` nothing is drawn (:func:`param_specs`).
+
+    ``place(path, lead, tensor)`` keeps a rank's shard: each layer is drawn
+    whole, one at a time, and only ``place``'s result is kept (``lead`` is
+    the number of stacked layer dims the full leaf at ``path`` has and the
+    drawn one lacks).  The numbers are those of the unsharded call with
+    the same generator, so every rank of a mesh draws its shards of one
+    model without holding the whole of it."""
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
     dt = dtype_of(cfg)
     D = cfg.d_model
+    args = (generator, device, place)
     if cfg.family in ("dense", "moe", "vlm", "audio"):
-        trunk = {"layers": _attn_layer_params(cfg, (cfg.n_layers,),
-                                              generator, device)}
+        trunk = {"layers": _placed(_attn_layer_params, cfg, (cfg.n_layers,),
+                                   *args, "layers")}
     elif cfg.family == "ssm":
         n_seg, per = ssm_layout(cfg)
-        trunk = {"mlstm": _mlstm_params(cfg, (n_seg, per), generator,
-                                        device),
-                 "slstm": _slstm_params(cfg, (n_seg,), generator, device)}
+        trunk = {"mlstm": _placed(_mlstm_params, cfg, (n_seg, per), *args,
+                                  "mlstm"),
+                 "slstm": _placed(_slstm_params, cfg, (n_seg,), *args,
+                                  "slstm")}
     elif cfg.family == "hybrid":
         n_groups, per, tail = hybrid_layout(cfg)
-        trunk = {"groups": _mamba_params(cfg, (n_groups, per), generator,
-                                         device)}
+        trunk = {"groups": _placed(_mamba_params, cfg, (n_groups, per),
+                                   *args, "groups")}
         if tail:
-            trunk["tail"] = _mamba_params(cfg, (tail,), generator, device)
-        trunk["shared_attn"] = _attn_layer_params(cfg, (), generator, device)
+            trunk["tail"] = _placed(_mamba_params, cfg, (tail,), *args,
+                                    "tail")
+        trunk["shared_attn"] = _placed(_attn_layer_params, cfg, (), *args,
+                                       "shared_attn")
     else:
         raise ValueError(cfg.family)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=dt, device=device)
+    def drawn(path, shape, scale):
+        t = _dense_(torch.empty(shape, dtype=dt, device=device), generator,
+                    scale=scale)
+        return t if place is None else place(path, 0, t)
 
     params: dict[str, Any] = {}
     if cfg.frontend == "none":
-        params["embed"] = {"tok": _dense_(empty(cfg.vocab_padded, D),
-                                          generator, scale=0.02)}
+        params["embed"] = {"tok": drawn("embed/tok", (cfg.vocab_padded, D),
+                                        0.02)}
     params.update(trunk)
     params["final_norm"] = {"w": torch.ones(D, dtype=torch.float32,
                                             device=device)}
-    params["lm_head"] = _dense_(empty(D, cfg.vocab_padded), generator,
-                                scale=D ** -0.5)
+    params["lm_head"] = drawn("lm_head", (D, cfg.vocab_padded), D ** -0.5)
     return params
+
+
+def param_specs(cfg: ModelConfig):
+    """The parameter tree as meta tensors: shapes and dtypes of
+    :func:`init_params` without allocation (the reference's
+    ``jax.eval_shape`` over it)."""
+    return init_params(cfg, device="meta")
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill trunk)
 # ---------------------------------------------------------------------------
+
+
+def _specs(key: str, lead: int):
+    """The specs of one layer of ``params[key]`` under the context (None
+    without one): each layer gathers what it computes whole
+    (``distributed.policy.params_for_use``)."""
+    ctx = current_context()
+    if ctx is None or ctx.param_specs is None:
+        return None
+    return strip_lead(ctx.param_specs[key], lead)
+
+
+def _use(tree, specs, cfg: ModelConfig):
+    return tree if specs is None else params_for_use(tree, specs, cfg)
 
 
 def _ffn(lp, x, cfg: ModelConfig):
@@ -308,7 +371,8 @@ def _ffn(lp, x, cfg: ModelConfig):
     return mlp_block(lp["mlp"], h, cfg)
 
 
-def _attn_mlp_block(lp, x, cfg: ModelConfig, positions):
+def _attn_mlp_block(lp, x, cfg: ModelConfig, positions, specs=None):
+    lp = _use(lp, specs, cfg)
     h, k, v = attention_block(lp["attn"], norm(lp["attn_norm"], x,
                                                cfg.norm_eps), cfg, positions)
     x = x + h
@@ -316,7 +380,7 @@ def _attn_mlp_block(lp, x, cfg: ModelConfig, positions):
     return x, (k, v)
 
 
-def _remat_layer(lp, x, cfg: ModelConfig, positions):
+def _remat_layer(lp, x, cfg: ModelConfig, positions, specs=None):
     """One layer that keeps only its input for the backward and runs its
     forward again there (layer-granular remat, JAX's ``remat_policy
     "full"``).  Under it each layer's 2 rmsnorm and 1 flash-attention
@@ -326,9 +390,17 @@ def _remat_layer(lp, x, cfg: ModelConfig, positions):
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r}: only 'full' is ported; the "
             "'dots' policy (save the matmul outputs) is queued in ROADMAP.md")
-    x, _ = checkpoint(_attn_mlp_block, lp, x, cfg, positions,
-                      use_reentrant=False)
+    x, _ = checkpoint(_in_context, current_context(), lp, x, cfg, positions,
+                      specs, use_reentrant=False)
     return x
+
+
+def _in_context(ctx, *args):
+    """``_attn_mlp_block`` under ``ctx``: the backward recomputes the layer
+    on autograd's device thread, where the caller's (thread-local) sharding
+    context is not set."""
+    with use_context(ctx):
+        return _attn_mlp_block(*args)
 
 
 def _hybrid_trunk(params, x, cfg: ModelConfig, positions, collect: bool):
@@ -337,8 +409,11 @@ def _hybrid_trunk(params, x, cfg: ModelConfig, positions, collect: bool):
     tail.  With ``collect`` also its states (see :func:`forward`)."""
     groups, tail = _mamba_layers(params, cfg)
     mamba_states, kvs = [], []
+    g_specs, t_specs = _specs("groups", 2), _specs("tail", 1) if tail \
+        else None
 
-    def mamba(lp, x):
+    def mamba(lp, x, specs):
+        lp = _use(lp, specs, cfg)
         h = norm(lp["norm"], x, cfg.norm_eps)
         if collect:
             y, st = mamba_block(lp, h, cfg, return_state=True)
@@ -348,12 +423,13 @@ def _hybrid_trunk(params, x, cfg: ModelConfig, positions, collect: bool):
 
     for group in groups:
         for lp in group:
-            x = mamba(lp, x)
-        x, kv = _attn_mlp_block(params["shared_attn"], x, cfg, positions)
+            x = mamba(lp, x, g_specs)
+        x, kv = _attn_mlp_block(params["shared_attn"], x, cfg, positions,
+                                _specs("shared_attn", 0))
         if collect:
             kvs.append(kv)
     for lp in tail:
-        x = mamba(lp, x)
+        x = mamba(lp, x, t_specs)
     return x, ({"mamba": mamba_states, "kv": kvs} if collect else None)
 
 
@@ -362,8 +438,10 @@ def _ssm_trunk(params, x, cfg: ModelConfig, collect: bool):
     block, each pre-normed and residual.  With ``collect`` also its states
     (see :func:`forward`)."""
     m_states, s_states = [], []
+    m_specs, s_specs = _specs("mlstm", 2), _specs("slstm", 1)
     for mlstm, slp in _xlstm_layers(params, cfg):
         for lp in mlstm:
+            lp = _use(lp, m_specs, cfg)
             h = norm(lp["norm"], x, cfg.norm_eps)
             if collect:
                 y, st = mlstm_block(lp, h, cfg, return_state=True)
@@ -371,6 +449,7 @@ def _ssm_trunk(params, x, cfg: ModelConfig, collect: bool):
             else:
                 y = mlstm_block(lp, h, cfg)
             x = x + y
+        slp = _use(slp, s_specs, cfg)
         h = norm(slp["norm"], x, cfg.norm_eps)
         if collect:
             y, st = slstm_block(slp, h, cfg, return_state=True)
@@ -391,8 +470,30 @@ def _trunk_input(params, token_or_embed, cfg: ModelConfig):
     """The trunk's input in the model's dtype: (B, S) tokens embedded, or
     (B, S, D) precomputed embeddings cast."""
     if cfg.frontend == "none":
-        return embed(params["embed"], token_or_embed, cfg)
+        return embed(_use(params["embed"], _specs("embed", 0), cfg),
+                     token_or_embed, cfg)
     return token_or_embed.to(dtype_of(cfg))
+
+
+def lm_head(params, cfg: ModelConfig, keep_vocab: bool = True):
+    """The unembedding as the caller computes with it: under a context its
+    FSDP dim gathered, and its vocab dim the rank's slice where
+    ``keep_vocab`` (else gathered too)."""
+    ctx = current_context()
+    if ctx is None or ctx.param_specs is None:
+        return params["lm_head"]
+    return params_for_use({"lm_head": params["lm_head"]},
+                          {"lm_head": ctx.param_specs["lm_head"]}, cfg,
+                          keep_vocab=keep_vocab)["lm_head"]
+
+
+def _logits(params, h, cfg: ModelConfig):
+    """fp32 logits (B, vocab_padded) of the hidden states h (B, D); under a
+    context the ranks' vocab slices are gathered."""
+    logits = (h @ lm_head(params, cfg)).float()
+    if logits.shape[-1] != cfg.vocab_padded:
+        logits = gather_full(logits, (None, "model"), current_context().mesh)
+    return logits
 
 
 def forward(params, inputs: dict, cfg: ModelConfig, collect: bool = False):
@@ -417,11 +518,12 @@ def forward(params, inputs: dict, cfg: ModelConfig, collect: bool = False):
         return norm(params["final_norm"], x, cfg.norm_eps), states
     remat = cfg.remat and not collect and torch.is_grad_enabled()
     kvs = []
+    specs = _specs("layers", 1)
     for lp in _layers(params["layers"], cfg.n_layers):
         if remat:
-            x = _remat_layer(lp, x, cfg, positions)
+            x = _remat_layer(lp, x, cfg, positions, specs)
             continue
-        x, kv = _attn_mlp_block(lp, x, cfg, positions)
+        x, kv = _attn_mlp_block(lp, x, cfg, positions, specs)
         if collect:
             kvs.append(kv)
     x = norm(params["final_norm"], x, cfg.norm_eps)
@@ -487,10 +589,13 @@ def _hybrid_decode(params, state: dict, x, cfg: ModelConfig):
     groups, tail = _mamba_layers(params, cfg)
     conv_all, ssd_all = state["conv"], state["ssd"]
     kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
-    sa = params["shared_attn"]
+    sa = _use(params["shared_attn"], _specs("shared_attn", 0), cfg)
+    g_specs, t_specs = _specs("groups", 2), _specs("tail", 1) if tail \
+        else None
     li = 0
 
-    def mamba(lp, x, i):
+    def mamba(lp, x, i, specs):
+        lp = _use(lp, specs, cfg)
         y, cs, ss = mamba_decode_step(lp, norm(lp["norm"], x, cfg.norm_eps),
                                       cfg, conv_all[i], ssd_all[i])
         conv_all[i].copy_(cs)
@@ -499,7 +604,7 @@ def _hybrid_decode(params, state: dict, x, cfg: ModelConfig):
 
     for g, group in enumerate(groups):
         for lp in group:
-            x = mamba(lp, x, li)
+            x = mamba(lp, x, li, g_specs)
             li += 1
         a, _, _ = attention_decode(
             sa["attn"], norm(sa["attn_norm"], x, cfg.norm_eps), cfg,
@@ -508,7 +613,7 @@ def _hybrid_decode(params, state: dict, x, cfg: ModelConfig):
         x = x + mlp_block(sa["mlp"], norm(sa["mlp_norm"], x, cfg.norm_eps),
                           cfg)
     for lp in tail:
-        x = mamba(lp, x, li)
+        x = mamba(lp, x, li, t_specs)
         li += 1
     return x
 
@@ -517,8 +622,11 @@ def _ssm_decode(params, state: dict, x, cfg: ModelConfig):
     """The ssm trunk for one token, updating the state's mLSTM memories and
     sLSTM (h, c, n, m) in place."""
     m_all, s_all = state["mlstm"], state["slstm"]
+    m_specs, s_specs = _specs("mlstm", 2), _specs("slstm", 1)
     for g, (mlstm, slp) in enumerate(_xlstm_layers(params, cfg)):
+        slp = _use(slp, s_specs, cfg)
         for j, lp in enumerate(mlstm):
+            lp = _use(lp, m_specs, cfg)
             y, st = mlstm_decode_step(lp, norm(lp["norm"], x, cfg.norm_eps),
                                       cfg, m_all[g, j])
             m_all[g, j].copy_(st)
@@ -551,15 +659,16 @@ def decode_step(params, state: dict, token_or_embed, cfg: ModelConfig):
         x = _ssm_decode(params, state, x, cfg)
     else:
         kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
+        specs = _specs("layers", 1)
         for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+            lp = _use(lp, specs, cfg)
             a, _, _ = attention_decode(
                 lp["attn"], norm(lp["attn_norm"], x, cfg.norm_eps), cfg,
                 kc_all[i], vc_all[i], cache_len)
             x = x + a
             x = x + _ffn(lp, x, cfg)
     x = norm(params["final_norm"], x, cfg.norm_eps)
-    logits = (x[:, 0] @ params["lm_head"]).float()
-    return logits, {**state, "len": cache_len + 1}
+    return _logits(params, x[:, 0], cfg), {**state, "len": cache_len + 1}
 
 
 def prefill(params, inputs: dict, cfg: ModelConfig, max_len: int):
@@ -567,13 +676,29 @@ def prefill(params, inputs: dict, cfg: ModelConfig, max_len: int):
     the vlm and audio families), returning (last_logits, decode state): the
     K/V of the trunk written into a ``max_len`` cache; for the hybrid family
     also the conv and SSD states of each Mamba2 layer; for the ssm family
-    the mLSTM and sLSTM states of each block (no cache)."""
+    the mLSTM and sLSTM states of each block (no cache).
+
+    Under a context whose kv_cache rule shards S over ``model``, the state
+    is this rank's part (``decode_state_pspecs``): the rank's lanes, and of
+    each cache its S/tp slice, into which the rank writes the prompt's K/V
+    of every head (gathered over ``model`` under TP)."""
     prompt = inputs[_input_key(cfg)]
     B, S = prompt.shape[:2]
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}")
     hidden, states = forward(params, inputs, cfg, collect=True)
-    state = init_decode_state(cfg, B, max_len, device=prompt.device)
+    ctx = current_context()
+    kv_rule = ctx.spec("kv_cache_stacked") if ctx is not None else None
+    lo, s_loc = 0, max_len
+    if kv_rule is not None and kv_rule[2] == "model":
+        mesh = ctx.mesh
+        tp = mesh.axes_size("model")
+        if max_len % tp:
+            raise ValueError(f"a cache of {max_len} does not split over "
+                             f"{tp} model ranks")
+        s_loc = max_len // tp
+        lo = mesh.index("model") * s_loc
+    state = init_decode_state(cfg, B, s_loc, device=prompt.device)
     kvs = states
     if cfg.family == "ssm":
         per = ssm_layout(cfg)[1]
@@ -588,10 +713,14 @@ def prefill(params, inputs: dict, cfg: ModelConfig, max_len: int):
             state["conv"][i].copy_(conv)
             state["ssd"][i].copy_(ssd)
         kvs = states["kv"]
+    hi = min(S, lo + s_loc)
     for i, (k, v) in enumerate(kvs):
-        state["kv"]["k"][i, :, :S] = k        # in place into the new cache
-        state["kv"]["v"][i, :, :S] = v
+        if k.shape[2] != cfg.n_kv_heads:           # the rank's heads (TP)
+            k, v = (gather_full(t, (None, None, "model", None), ctx.mesh)
+                    for t in (k, v))
+        if hi > lo:                   # in place into the new cache
+            state["kv"]["k"][i, :, :hi - lo] = k[:, lo:hi]
+            state["kv"]["v"][i, :, :hi - lo] = v[:, lo:hi]
     state["len"] = torch.full((B,), S, dtype=torch.int32,
                               device=prompt.device)
-    logits = (hidden[:, -1] @ params["lm_head"]).float()
-    return logits, state
+    return _logits(params, hidden[:, -1], cfg), state

@@ -1,6 +1,5 @@
-"""Mixture-of-Experts FFN, the local path (the counterpart of
-``repro.models.moe`` without its expert- and data-parallel ``shard_map``
-branches, which come with the distributed slice).
+"""Mixture-of-Experts FFN (the counterpart of ``repro.models.moe``), with
+its expert- and data-parallel branches.
 
 Routing: top-k softmax over the real experts (the padding experts masked
 to -inf: granite's 40 experts are padded to 48).  Capacity: each expert
@@ -14,6 +13,15 @@ The combine is deterministic: each assignment's weighted contribution goes
 back to its (token, k) place, zero where dropped, and the k axis is summed
 in fp32 in a fixed order (the JAX package scatter-adds; ``index_add_`` on
 CUDA would add in another order on every run).
+
+Expert parallelism (a context with ``ep_axis``): every rank routes the same
+tokens, serves its E/ep experts (at offset idx·E/ep) and the ranks sum
+their partial outputs — one all-reduce a layer.  The capacity is sized from
+all the tokens routed, so where the batch is split over the data axes the
+rank first gathers it, as the reference's region sees the whole batch.
+Data parallelism without EP (a context with ``dp_axes``): each rank routes
+only its own tokens with all experts, its capacity sized from its own T, so
+the drops follow the shard.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import (enter_split, gather_on_use,
+                                       leave_split)
+from ..distributed.context import current_context
 from ..kernels import moe_gmm
 from .config import ModelConfig
 from .layers import mlp_block
@@ -63,9 +74,10 @@ def _expert_compute(params, xe, n_local: int, cap: int):
 
 
 def _moe_local(params, x_flat, cfg: ModelConfig, n_local: int,
-               expert_offset: int):
-    """Dispatch, compute and combine for the local experts (all of them
-    here: n_local = E_padded, expert_offset = 0)."""
+               expert_offset: int, out_dtype=None):
+    """Dispatch, compute and combine for the local experts: all of them
+    (n_local = E_padded, expert_offset = 0), or a rank's slice under EP.
+    The combine is fp32, returned in ``out_dtype`` (x's by default)."""
     T, D = x_flat.shape
     k = cfg.top_k
     cap = capacity(cfg, T)
@@ -106,14 +118,76 @@ def _moe_local(params, x_flat, cfg: ModelConfig, n_local: int,
     rows = ye[slot[inv].clamp(max=n_local * cap - 1)]
     wgt_kept = torch.where(keep[inv], wgt, 0.0)     # ye's rows are finite
     return (rows * wgt_kept[:, None]).view(T, k, D).sum(dim=1).to(
-        x_flat.dtype)
+        out_dtype or x_flat.dtype)
+
+
+def _batch_axes(ctx):
+    """The axes the activations' batch dim is split over (None: whole)."""
+    rule = ctx.spec("act_btd")
+    entry = rule[0] if rule is not None else None
+    return entry if entry is not None and ctx.mesh.axes_size(entry) > 1 \
+        else None
+
+
+def _moe_ep(params, x_flat, cfg: ModelConfig, ctx):
+    """EP: this rank's experts over every token; partial outputs summed."""
+    mesh, axis = ctx.mesh, ctx.ep_axis
+    E = cfg.n_experts_padded
+    n_local = E // mesh.axes_size(axis)
+    idx = mesh.index(axis)
+    local = {"router": enter_split(params["router"], axis, mesh)}
+    for name in ("w_gate", "w_up", "w_down"):
+        w = params[name]
+        local[name] = w if w.shape[0] == n_local else \
+            w.narrow(0, idx * n_local, n_local)
+    bdp = _batch_axes(ctx)
+    T = x_flat.shape[0]
+    xs = x_flat
+    if bdp is not None:            # the whole batch, as the region sees it
+        xs = gather_on_use(x_flat, 0, bdp, mesh, T * mesh.axes_size(bdp),
+                           ctx.dp_axes)
+    # the ranks' partial combines summed in fp32 and rounded once, as the
+    # one-device combine is (the reference rounds each to bf16 first)
+    y = _moe_local(local, enter_split(xs, axis, mesh), cfg, n_local,
+                   idx * n_local, out_dtype=torch.float32)
+    y = leave_split(y, axis, mesh).to(x_flat.dtype)
+    if bdp is not None:
+        y = y.narrow(0, mesh.index(bdp) * T, T)
+    return y
+
+
+def _moe_dp(params, x_flat, cfg: ModelConfig, ctx):
+    """DP: each rank routes its own tokens with every expert.  Where the
+    activations arrive whole, the rank takes its 1/dp of the rows and the
+    ranks' outputs are gathered back."""
+    E = cfg.n_experts_padded
+    if _batch_axes(ctx) is not None:      # already the rank's own tokens
+        return _moe_local(params, x_flat, cfg, E, 0)
+    mesh, axes = ctx.mesh, ctx.dp_axes
+    T = x_flat.shape[0]
+    n = T // mesh.axes_size(axes)
+    mine = enter_split(x_flat, axes, mesh).narrow(0, mesh.index(axes) * n, n)
+    y = _moe_local(params, mine, cfg, E, 0)
+    return gather_on_use(y, 0, axes, mesh, T)
 
 
 def moe_ffn(params, x, cfg: ModelConfig):
-    """x: (B, S, D) → (B, S, D), all experts on this device.  The capacity
-    is sized from the call's B·S tokens."""
+    """x: (B, S, D) → (B, S, D).  With a sharding context whose
+    ``ep_axis`` is set, the expert-parallel branch; with batch axes and no
+    EP, and T divisible by their size, the data-parallel one; otherwise all
+    experts on this device, the capacity sized from the call's B·S
+    tokens."""
     B, S, D = x.shape
-    y = _moe_local(params, x.reshape(-1, D), cfg, cfg.n_experts_padded, 0)
+    x_flat = x.reshape(-1, D)
+    ctx = current_context()
+    if ctx is not None and ctx.ep_axis is not None:
+        y = _moe_ep(params, x_flat, cfg, ctx)
+    elif (ctx is not None and ctx.dp_axes
+          and (_batch_axes(ctx) is not None or
+               x_flat.shape[0] % ctx.mesh.axes_size(ctx.dp_axes) == 0)):
+        y = _moe_dp(params, x_flat, cfg, ctx)
+    else:
+        y = _moe_local(params, x_flat, cfg, cfg.n_experts_padded, 0)
     y = y.view(B, S, D)
     if cfg.moe_dense_residual:
         y = y + mlp_block(params["dense"], x, cfg)

@@ -22,7 +22,7 @@ import torch
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[..., tuple]     # (grads, state, params, step=None) -> (params, state, gnorm)
+    update: Callable[..., tuple]     # (grads, state, params, step=None, norm=None) -> (params, state, gnorm)
     name: str = "opt"
 
 
@@ -47,11 +47,14 @@ def _global_norm(leaves) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale ``grads`` (in place) to a global norm of at most ``max_norm``;
-    returns (grads, the norm before clipping)."""
+    returns (grads, the norm before clipping).  ``norm``: the global norm
+    when ``grads`` are one rank's shards of it (the sharded train step
+    computes it across the ranks)."""
     leaves = tree_leaves(grads)
-    norm = _global_norm(leaves)
+    if norm is None:
+        norm = _global_norm(leaves)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in leaves:
         g.mul_(scale)
@@ -79,8 +82,8 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
                                      device=first.device)}
 
     @torch.no_grad()
-    def update(grads, state, params, step=None):
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    def update(grads, state, params, step=None, norm=None):
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, norm)
         state["count"].add_(1)
         count = state["count"]
         lr_t = _lr(lr, count)
@@ -125,8 +128,8 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
                                      device=first.device)}
 
     @torch.no_grad()
-    def update(grads, state, params, step=None):
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    def update(grads, state, params, step=None, norm=None):
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, norm)
         state["count"].add_(1)
         count = state["count"]
         lr_t = _lr(lr, count)

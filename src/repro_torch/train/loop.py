@@ -13,6 +13,11 @@
 
 The loss of each step is read with ``.item()``, which waits for the step:
 the step times are device times plus the host's share.
+
+Sharded (``shardings=(param shardings, opt-state shardings)``): every rank
+runs the loop; checkpoints gather the shards and rank 0 writes, and a
+resume cuts each leaf to the rank's shard on the loop's mesh, whatever mesh
+saved it.
 """
 
 from __future__ import annotations
@@ -51,9 +56,11 @@ class LoopState:
 class TrainLoop:
     def __init__(self, train_step, params, opt_state, batch_fn,
                  ckpt_dir: str, cfg: LoopConfig,
+                 shardings: Optional[tuple] = None,
                  on_straggler: Optional[Callable[[int, float], None]] = None,
                  inject_preemption_at: Optional[int] = None):
-        """``batch_fn(step) -> batch``."""
+        """``batch_fn(step) -> batch``.  ``shardings``: (params, opt
+        state) trees of ``NamedSharding`` when the state is sharded."""
         self.train_step = train_step
         self.params = params
         self.opt_state = opt_state
@@ -61,6 +68,8 @@ class TrainLoop:
         self.cfg = cfg
         self.mgr = CheckpointManager(ckpt_dir, keep=cfg.keep_ckpts)
         self.on_straggler = on_straggler
+        self.shardings = (None if shardings is None else
+                          {"params": shardings[0], "opt": shardings[1]})
         self.inject_preemption_at = inject_preemption_at
         self.state = LoopState()
         self._preempt = False
@@ -75,7 +84,7 @@ class TrainLoop:
     # ------------------------------------------------------------------
     def try_resume(self) -> bool:
         target = {"params": self.params, "opt": self.opt_state}
-        out = self.mgr.restore_latest(target)
+        out = self.mgr.restore_latest(target, self.shardings)
         if out is None:
             return False
         step, tree, _ = out
@@ -88,7 +97,8 @@ class TrainLoop:
     def _checkpoint(self, sync: bool = False):
         h = self.mgr.save(self.state.step,
                           {"params": self.params, "opt": self.opt_state},
-                          extras={"losses_tail": self.state.losses[-5:]})
+                          extras={"losses_tail": self.state.losses[-5:]},
+                          shardings=self.shardings)
         if sync:
             h.wait()
 

@@ -224,7 +224,12 @@ assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
         "repro_torch.service.control.controller",
         "repro_torch.service.fabric.router",
         "repro_torch.service.fabric.proc.worker",
-        "repro_torch.service.fabric.proc.supervisor"} <= set(names)
+        "repro_torch.service.fabric.proc.supervisor",
+        "repro_torch.distributed", "repro_torch.distributed.policy",
+        "repro_torch.distributed.ring_decode",
+        "repro_torch.distributed.vocab_ce",
+        "repro_torch.distributed.collectives", "repro_torch.launch.mesh",
+        "repro_torch.launch.specs", "repro_torch.optim.compress"} <= set(names)
 # the offline CLIs, as ``python -m`` runs them
 import contextlib, io, runpy, tempfile
 for mod, argv in (("repro_torch.service.observability.top", ["--demo"]),

@@ -231,11 +231,37 @@ def test_grad_accumulators_are_fp32_for_bf16_params():
 
 
 def test_train_step_refuses_what_the_later_slice_brings():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="distributed"):
-        make_train_step(tcfg, adamw(), grad_compress=True)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        make_train_step(tcfg, adamw(), policy=object())
+    """``grad_compress`` and ``policy`` are ported (the distributed slice);
+    what is still refused is Adafactor under a policy, whose factored
+    moments would be per-shard under ZeRO.  On one device, the compressed
+    step is the reference's: the loss, and the parameters after the AdamW
+    step at the first-step sign rule of ``test_one_adamw_step_matches_jax``
+    (the int8 round trip of the gradients is exact arithmetic in both)."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.policy import make_policy
+    from repro_torch.models.config import ShapeConfig
+    jcfg, tcfg = _cfgs()
+    pol = make_policy(tcfg, ShapeConfig("t", 17, 4, "train"),
+                      Mesh(shape={"data": 1, "model": 1}))
+    with pytest.raises(NotImplementedError, match="Adafactor"):
+        make_train_step(tcfg, adafactor(), policy=pol)
+    npt = _np_params(jcfg)
+    b = _batch(jcfg, 2, 2, 17)
+    jstep = j_make_train_step(jcfg, j_adamw(lr=1e-3), grad_compress=True)
+    jp = jax.tree.map(jnp.asarray, npt)
+    jp_new, _, jm = jstep(jp, jstep.init_opt_state(jp),
+                          jax.tree.map(jnp.asarray, b))
+    step = make_train_step(tcfg, adamw(lr=1e-3), grad_compress=True)
+    tp = params_from_numpy(npt, tcfg, device="cpu")
+    opt = step.init_opt_state(tp)
+    assert set(opt) == {"opt", "ef"}
+    tp, opt, tm = step(tp, opt, {k: torch.from_numpy(v)
+                                 for k, v in b.items()})
+    _close(tm["loss"], jm["loss"], "model_loss/cpu_fp32")
+    jnew = jax.tree.map(np.asarray, jp_new)
+    for path, t in _paths(tp):
+        np.testing.assert_allclose(t.detach().numpy(), _get(jnew, path),
+                                   atol=2 * 1e-3, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -418,12 +444,17 @@ def test_straggler_detection(tmp_path, monkeypatch):
 
 
 def test_build_trainer_raises_without_cuda_or_with_a_mesh(tmp_path):
+    """Without CUDA and without ``device="cpu"`` it raises; a mesh is taken
+    (the distributed slice) only once it has ranks: one built for the
+    policy alone, with no process group, is refused before anything is
+    allocated."""
+    from repro_torch.distributed import Mesh
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_trainer("qwen2-7b", ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        build_trainer("qwen2-7b", mesh="debug", device="cpu",
-                      ckpt_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="no ranks"):
+        build_trainer("qwen2-7b", mesh=Mesh(shape={"data": 2, "model": 4}),
+                      device="cpu", ckpt_dir=str(tmp_path))
 
 
 def test_train_cli_on_cpu(tmp_path):
