@@ -188,9 +188,31 @@ Phases, each of which must pass:
              (1, 4) with equal leaf sums; 4 steps with grad_compress, the
              loss falling at each.  (d) ``vocab_parallel_ce`` at qwen2's
              vocab (T 8192) against the CE kernel's loss and the plain
-             backward's dx.  Each rank's launches of every kernel are
-             exact in every part; the phase reports each part's wall, each
-             rank's peak memory and the bytes each collective sent.
+             backward's dx.  (e) Adafactor under ZeRO: qwen2-7b at 2
+             layers on (2, 2), tp and fsdp, 2 steps within (c)'s band of
+             ``make_train_step``'s on one process, and rank 0's moments
+             within a limit of the single-process ones, which a planted
+             control (per-shard means and update RMS) must exceed.  Each
+             rank's launches
+             of every kernel are exact in every part; the phase reports
+             each part's wall, each rank's peak memory and the bytes each
+             collective sent.
+20. dryrun — the multi-pod dry run, counted on the host beside the
+             phases after serve_vlm (started then, so no time that (b)
+             reads is taken beside it): (a) ``python -m
+             repro_torch.launch.dryrun`` in one subprocess a cell, in two
+             lanes, with the card hidden from them, for qwen2-7b,
+             granite-moe-3b-a800m and llama3-405b (Adafactor) at train_4k
+             and decode_32k, and zamba2-1.2b and xlstm-1.3b at decode_32k,
+             on the 16x16 mesh: every record ``ok``, each one's dominant
+             term and step time printed; (b) meanwhile, the counting pass
+             on fake tensors at the exact shapes of the train phase's step
+             and each served model's prefill wave and decode step, its
+             roofline on one H100's datasheet peaks (the count's FLOPs,
+             ``analytic_memory_bytes`` less the input embedding rows a
+             serving step does not gather) against the times those phases
+             measured: every ratio of measured time to bound >= 1.  No
+             kernel launches: each counting process reads its own.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; the kernels line reports each kernel's launches in the
@@ -245,7 +267,7 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
           "train", "consistency_audio", "serve_audio", "consistency_vlm",
           "serve_vlm", "tabular", "agentic", "service", "fabric",
-          "distributed")
+          "distributed", "dryrun")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -1968,20 +1990,22 @@ TRAIN_STEPS = 4
 # so at 1e-5 no weight with |p| >= 2^-8 moves; the phase counts the bf16
 # weights left unchanged by its first and last steps.
 TRAIN_LR = 1e-5
-# per step at L = 4, M = 2 (remat reruns each layer's 2 norms and 1 flash
-# forward in the backward; the final norm and the CE head are not remat'd)
-TRAIN_EXPECTED = {
-    "rmsnorm": TRAIN_MB * (2 * TRAIN_LAYERS * 2 + 1),
-    "rmsnorm_bwd": TRAIN_MB * (2 * TRAIN_LAYERS + 1),
-    "flash_attention": TRAIN_MB * TRAIN_LAYERS * 2,
-    "flash_attention_bwd": TRAIN_MB * TRAIN_LAYERS,
-    "cross_entropy": TRAIN_MB,
-    "decode_attention": 0,
-    "ssd_scan": 0,
-    "ssd_scan_wide": 0,
-    "ssd_wide_prep": 0,
-    "moe_gmm": 0,
-}
+
+
+def train_launches(layers: int) -> dict:
+    """Launches of one step at ``layers`` layers and M = TRAIN_MB (remat
+    reruns each layer's 2 norms and 1 flash forward in the backward; the
+    final norm and the CE head are not remat'd)."""
+    return {"rmsnorm": TRAIN_MB * (2 * layers * 2 + 1),
+            "rmsnorm_bwd": TRAIN_MB * (2 * layers + 1),
+            "flash_attention": TRAIN_MB * layers * 2,
+            "flash_attention_bwd": TRAIN_MB * layers,
+            "cross_entropy": TRAIN_MB, "decode_attention": 0, "ssd_scan": 0,
+            "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm": 0}
+
+
+# per step at L = 4, M = 2
+TRAIN_EXPECTED = train_launches(TRAIN_LAYERS)
 # a small config the kernels take (bf16, head dim 128) for the TrainLoop
 LOOP_OVERRIDES = dict(dtype="bfloat16", d_model=256, n_heads=2,
                       n_kv_heads=1)
@@ -2185,6 +2209,23 @@ DIST_MOE_FLOOR_FACTOR = 2.0
 DIST_TRAIN_STEPS, DIST_COMPRESS_STEPS = 2, 4
 DIST_LOSS_RTOL, DIST_GNORM_RTOL = 2e-3, 2e-2
 DIST_CKPT_RTOL = 1e-5
+# (e): Adafactor under ZeRO, qwen2 at 2 layers on (2, 2), tp and fsdp, 2
+# steps against the single-process step (the limits of (c)); lr 1e-3 is
+# pick_optimizer's for Adafactor (an RMS-clipped step of 1e-3 moves the
+# bf16 weights, where (c)'s 1e-5 would leave most of them unchanged)
+DIST_ADAFACTOR_LAYERS, DIST_ADAFACTOR_LR = 2, 1e-3
+# ... and what the optimizer computes, held directly after the 2 steps:
+# rank 0's moments (whole on every rank; each leaf's rel L2 against the
+# single-process ones, the worst) within DIST_MOMENT_REL_L2, where a planted
+# control (each shard's own means and update RMS, the fault the part is
+# there to catch; it passes the loss and grad-norm limits) must exceed it.
+# On 4 CPU ranks at width 3584 in bf16 the sound worst was 1.08e-2, the
+# control's 0.98.  The gathered change of these parameters is reported, not
+# held: a step of 1e-3 is a few bf16 ulps of a weight, so rounding alone
+# moves it 2-6 % (the control's 5-7 %, same run).
+DIST_ADAFACTOR_LEAVES = (("layers", "attn", "wq"), ("layers", "attn", "wo"),
+                         ("layers", "attn", "bq"), ("final_norm", "w"))
+DIST_MOMENT_REL_L2 = 5e-2
 # (d): vocab_parallel_ce at qwen2's vocab against the CE kernel's loss and
 # the plain backward's dx
 DIST_CE_TOKENS = 8192
@@ -2207,6 +2248,10 @@ def _dist_expected(part: str) -> dict:
         steps = DIST_TRAIN_STEPS + DIST_COMPRESS_STEPS
         return {k: v * steps for k, v in TRAIN_EXPECTED.items()
                 if k != "cross_entropy" and v}   # the TP loss is plain torch
+    if part == "e":                            # Adafactor, 2 layers, M 2
+        return {k: v * DIST_TRAIN_STEPS for k, v in
+                train_launches(DIST_ADAFACTOR_LAYERS).items()
+                if k != "cross_entropy" and v}
     return {}
 
 
@@ -2258,30 +2303,92 @@ def _dist_serve_ref(torch, np, arch):
             "band": 2 ** 0.5 * (perts - logits).pow(2).mean(-1).sqrt()}
 
 
-def _dist_train_ref(torch):
-    """The single-process step on the train phase's batch, 2 steps."""
-    from repro_torch.data.lm import DataConfig, global_batch_at
-    from repro_torch.models import init_params
-    from repro_torch.optim import adamw
-    from repro_torch.train import make_train_step
+def _dist_train_optimizer(part: str):
+    """(config, optimizer) of train part (c) or (e)."""
+    from repro_torch.optim import adafactor, adamw
+    if part == "e":
+        return (dataclasses.replace(train_config(),
+                                    n_layers=DIST_ADAFACTOR_LAYERS),
+                adafactor(lr=DIST_ADAFACTOR_LR))
+    return train_config(), adamw(lr=TRAIN_LR)
 
-    cfg = train_config()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    step = make_train_step(cfg, adamw(lr=TRAIN_LR))
-    opt = step.init_opt_state(params)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in global_batch_at(
+
+def _train_batch(torch, cfg, device):
+    """The train phase's batch (2 microbatches of 4 x 2048) on ``device``."""
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    return {k: torch.from_numpy(v).to(device) for k, v in global_batch_at(
         DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                    global_batch=TRAIN_BATCH, microbatches=TRAIN_MB, seed=0),
         0).items()}
+
+
+def _dist_train_ref(torch, part: str = "c"):
+    """The single-process step on the train phase's batch, 2 steps, with
+    part (c)'s or (e)'s config and optimizer."""
+    from repro_torch.models import init_params
+    from repro_torch.train import make_train_step
+
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg, opt_fn = _dist_train_optimizer(part)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    before = {k: _leaf(params, k).float().cpu() for k in
+              (DIST_ADAFACTOR_LEAVES if part == "e" else ())}
+    step = make_train_step(cfg, opt_fn)
+    opt = step.init_opt_state(params)
+    batch = _train_batch(torch, cfg, "cuda")
     losses, norms = [], []
     for _ in range(DIST_TRAIN_STEPS):
         params, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    out = {"losses": losses, "grad_norms": norms}
+    if part == "e":             # the moments and the parameters' change
+        out["moments"] = [t.cpu() for t in tree_leaves(opt["s"])]
+        out["delta"] = {k: _leaf(params, k).float().cpu() - v
+                        for k, v in before.items()}
     del params, opt, batch
     torch.cuda.empty_cache()
-    return {"losses": losses, "grad_norms": norms}
+    return out
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _rel_l2_64(a, b) -> float:
+    """||a - b|| / ||b|| in float64 (the moments' squares underflow fp32)."""
+    a, b = a.detach().double(), b.detach().double().to(a.device)
+    return float((a - b).norm() / b.norm())
+
+
+@contextlib.contextmanager
+def _per_shard_adafactor():
+    """(e)'s planted control: Adafactor's means and update RMS over each
+    rank's own shard, not the whole parameter."""
+    import torch
+
+    from repro_torch.distributed.collectives import gather_full
+    from repro_torch.optim import optimizers
+
+    def mean(x, dim, spec, shape, mesh):
+        dim %= x.dim()
+        return gather_full(x.mean(dim=dim),
+                           [e for d, e in enumerate(spec) if d != dim], mesh,
+                           [n for d, n in enumerate(shape) if d != dim])
+
+    def rms(u, spec, shape, mesh):
+        return torch.sqrt(torch.mean(u * u) + 1e-30)
+
+    saved = optimizers._mean_whole, optimizers._rms_whole
+    optimizers._mean_whole, optimizers._rms_whole = mean, rms
+    try:
+        yield
+    finally:
+        optimizers._mean_whole, optimizers._rms_whole = saved
 
 
 def _dist_ce_inputs(torch, device):
@@ -2406,7 +2513,6 @@ def _dist_train(torch, device, ref, ckpt_dir):
     import torch.distributed as dist
 
     from repro_torch.ckpt import load_checkpoint, save_checkpoint
-    from repro_torch.data.lm import DataConfig, global_batch_at
     from repro_torch.distributed import Mesh
     from repro_torch.distributed.collectives import gather_full
     from repro_torch.distributed.policy import (make_policy, param_pspecs,
@@ -2425,10 +2531,7 @@ def _dist_train(torch, device, ref, ckpt_dir):
     pol = make_policy(cfg, shape, mesh, tp=True, fsdp=True,
                       microbatches=TRAIN_MB)
     specs = param_pspecs(param_specs(cfg), pol, cfg)
-    batch = {k: torch.from_numpy(v).to(device) for k, v in global_batch_at(
-        DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                   global_batch=TRAIN_BATCH, microbatches=TRAIN_MB, seed=0),
-        0).items()}
+    batch = _train_batch(torch, cfg, device)
 
     def fresh():
         return init_params(cfg, torch.Generator(device=device).manual_seed(0),
@@ -2493,6 +2596,71 @@ def _dist_train(torch, device, ref, ckpt_dir):
             "compressed_losses": compressed}
 
 
+def _dist_adafactor(torch, device, ref, planted=False):
+    """(e): Adafactor under ZeRO, qwen2 at 2 layers on (2, 2) with tp and
+    fsdp: 2 steps against the single-process step, their loss and grad
+    norm, then rank 0's moments and the gathered change of
+    ``DIST_ADAFACTOR_LEAVES``.  The state lies as ``param_pspecs`` places
+    Adafactor's tree (every moment whole on every rank); its row and column
+    means are summed across the shards.  ``planted``: the per-shard
+    control."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.collectives import gather_full
+    from repro_torch.distributed.policy import (make_policy, param_pspecs,
+                                                shard_placer,
+                                                tree_leaves_with_path)
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.model import param_specs
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import make_train_step
+
+    cfg, opt_fn = _dist_train_optimizer("e")
+    mesh = Mesh.over_world((2, 2), ("data", "model"), device)
+    pol = make_policy(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train"), mesh, tp=True, fsdp=True,
+                      microbatches=TRAIN_MB)
+    shapes = param_specs(cfg)
+    specs = param_pspecs(shapes, pol, cfg)
+    params = init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device,
+        place=shard_placer(specs, mesh))
+
+    def whole(k):
+        return gather_full(_leaf(params, k), _leaf(specs, k), mesh,
+                           tuple(_leaf(shapes, k).shape)).float()
+
+    before = {k: whole(k).clone() for k in DIST_ADAFACTOR_LEAVES}
+    step = make_train_step(cfg, opt_fn, policy=pol)
+    opt = step.init_opt_state(params)
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_leaves(opt["s"]))
+    batch = _train_batch(torch, cfg, device)
+    losses, norms, times = [], [], []
+    with _per_shard_adafactor() if planted else contextlib.nullcontext():
+        for _ in range(DIST_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+    moment_rel = {path: _rel_l2_64(t, r) for (path, t), r in
+                  zip(tree_leaves_with_path(opt["s"]), ref["moments"])}
+    delta_rel = {"/".join(k): _rel_l2_64(whole(k) - before[k],
+                                         ref["delta"][k])
+                 for k in DIST_ADAFACTOR_LEAVES}
+    del params, opt, batch, before
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "state_bytes": state_bytes,
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in
+                            zip(losses, ref["losses"])),
+            "grad_norm_rel": max(abs(a - b) / abs(b) for a, b in
+                                 zip(norms, ref["grad_norms"])),
+            "moment_rel_l2": max(moment_rel.values()),
+            "worst_moment": max(moment_rel, key=moment_rel.get),
+            "moments_rel_l2": moment_rel, "delta_rel_l2": delta_rel}
+
+
 def _dist_ce(torch, mesh, ref):
     """(d): vocab_parallel_ce at qwen2's vocab over 4 model ranks."""
     from repro_torch.distributed.collectives import local_shard
@@ -2515,7 +2683,8 @@ def _dist_ce(torch, mesh, ref):
 
 def distributed_rank(rank, world, device, ref_path, ckpt_dir):
     """One rank of the distributed phase (spawned; gloo on the one card):
-    parts (a)-(d), each with its own mesh over the same 4 ranks."""
+    parts (a)-(e) and (e)'s planted control, each with its own mesh over
+    the same 4 ranks."""
     import torch
     import torch.distributed as dist
 
@@ -2531,7 +2700,10 @@ def distributed_rank(rank, world, device, ref_path, ckpt_dir):
              "b": lambda: _dist_serve(torch, MOE_ARCH, mesh, ref["b"],
                                       DIST_MOE_FLOOR_FACTOR),
              "c": lambda: _dist_train(torch, device, ref["c"], ckpt_dir),
-             "d": lambda: _dist_ce(torch, mesh, ref["d"])}
+             "d": lambda: _dist_ce(torch, mesh, ref["d"]),
+             "e": lambda: _dist_adafactor(torch, device, ref["e"]),
+             "e planted": lambda: _dist_adafactor(torch, device, ref["e"],
+                                                  planted=True)}
     for part, fn in parts.items():
         out[part] = _dist_part(torch, fn)
         if rank == 0:             # as it goes; the verdicts come at the end
@@ -2551,7 +2723,8 @@ def distributed_phase(torch, np, report):
     t0 = time.perf_counter()
     ref = {"a": _dist_serve_ref(torch, np, ARCH),
            "b": _dist_serve_ref(torch, np, MOE_ARCH),
-           "c": _dist_train_ref(torch), "d": _dist_ce_ref(torch)}
+           "c": _dist_train_ref(torch), "d": _dist_ce_ref(torch),
+           "e": _dist_train_ref(torch, "e")}
     ref_s = time.perf_counter() - t0
     limits = {"a": [DIST_QWEN_LIMIT] * (DIST_STEPS + 1),
               "b": [DIST_MOE_FLOOR_FACTOR * f for f in ref["b"]["floor"]]}
@@ -2563,7 +2736,8 @@ def distributed_phase(torch, np, report):
         f"{max(ref['b']['floor']):.4e}; the limit {DIST_MOE_FLOOR_FACTOR:g} "
         f"x each call's), train losses {ref['c']['losses']} grad norms "
         f"{[round(v, 4) for v in ref['c']['grad_norms']]}, CE loss "
-        f"{ref['d']['loss']:.6f}")
+        f"{ref['d']['loss']:.6f}, Adafactor losses {ref['e']['losses']} "
+        f"grad norms {[round(v, 4) for v in ref['e']['grad_norms']]}")
     OUT.mkdir(exist_ok=True)
     ref_path = ROOT / "build" / "distributed_ref.pt"
     ckpt_dir = ROOT / "build" / "distributed_ckpt"
@@ -2589,16 +2763,17 @@ def distributed_phase(torch, np, report):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     problems = []
-    names = {"a": ARCH, "b": MOE_ARCH, "c": "train", "d": "vocab CE"}
+    names = {"a": ARCH, "b": MOE_ARCH, "c": "train", "d": "vocab CE",
+             "e": "train Adafactor", "e planted": "its planted control"}
     total = {k: 0 for k in LAUNCHES}
     for r, res in enumerate(ranks):
         if res["loaded"]:
             problems.append(f"rank {r} loaded {res['loaded']}")
-        for part in "abcd":
+        for part in names:
             got = res[part]["launches"]
-            want = {k: _dist_expected(part).get(k, 0) for k in got}
-            for k, v in got.items():
-                total[k] += v
+            want = {k: _dist_expected(part[0]).get(k, 0) for k in got}
+            for k, v in got.items():    # the control is not the path
+                total[k] += v if part != "e planted" else 0
             if got != want:
                 problems.append(f"rank {r} part ({part}) {names[part]} "
                                 f"launches {got}, expected {want}")
@@ -2657,7 +2832,35 @@ def distributed_phase(torch, np, report):
     if max(x["loss_err"] for x in d) > DIST_CE_LOSS_ATOL or \
             max(x["dx_rel_l2"] for x in d) > DIST_CE_DX_REL_L2:
         problems.append("(d) vocab_parallel_ce disagrees with the CE kernel")
-    for part in "abcd":
+    e = [r["e"] for r in ranks]
+    log(f"  (e) train (2, 2) tp fsdp, Adafactor under ZeRO, "
+        f"{DIST_ADAFACTOR_LAYERS} layers, lr {DIST_ADAFACTOR_LR:g}: losses "
+        f"{e[0]['losses']} against {ref['e']['losses']} (rel "
+        f"{e[0]['loss_rel']:.3e}, limit {DIST_LOSS_RTOL:g}); grad norms "
+        f"{[round(v, 4) for v in e[0]['grad_norms']]} (rel "
+        f"{e[0]['grad_norm_rel']:.3e}, limit {DIST_GNORM_RTOL:g}); step s "
+        f"{[round(v, 2) for v in e[0]['step_s']]}; Adafactor state a rank "
+        f"{e[0]['state_bytes'] / 2**20:.2f} MiB (whole on every rank)")
+    if e[0]["loss_rel"] > DIST_LOSS_RTOL or \
+            e[0]["grad_norm_rel"] > DIST_GNORM_RTOL:
+        problems.append("(e) the sharded Adafactor step disagrees with one "
+                        "process")
+    planted = ranks[0]["e planted"]
+    for tag, x in (("sound", e[0]), ("planted", planted)):
+        log(f"  (e) {tag}: rank 0's {len(x['moments_rel_l2'])} moments, "
+            f"worst rel L2 {x['moment_rel_l2']:.3e} ({x['worst_moment']}; "
+            f"limit {DIST_MOMENT_REL_L2:g}); the gathered change after "
+            f"{DIST_TRAIN_STEPS} steps (reported), rel L2 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in x["delta_rel_l2"].items())
+            + f"; loss rel {x['loss_rel']:.3e}, grad norm rel "
+            f"{x['grad_norm_rel']:.3e}")
+    if e[0]["moment_rel_l2"] > DIST_MOMENT_REL_L2:
+        problems.append("(e) the sharded Adafactor's moments disagree with "
+                        "one process")
+    if not planted["moment_rel_l2"] > DIST_MOMENT_REL_L2:
+        problems.append("(e) the planted per-shard Adafactor's moments pass "
+                        "the limit: the check cannot see the fault")
+    for part in names:
         walls = [round(r[part]["wall_s"], 1) for r in ranks]
         peaks = [round(r[part]["peak_bytes"] / 2**30, 2) for r in ranks]
         sent = {k: round(v / 1e6, 1)
@@ -2673,6 +2876,296 @@ def distributed_phase(torch, np, report):
     if problems:
         fail("distributed: " + "; ".join(problems))
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the multi-pod dry run, and its count held against the card
+# ---------------------------------------------------------------------------
+
+# (a): these cells of ``python -m repro_torch.launch.dryrun`` on the 16x16
+# mesh, one subprocess each.  zamba2's and xlstm's train_4k are left out
+# for time: their recurrences are Python loops over 4096 tokens x 8
+# microbatches a layer, which the pass counts op by op (tens of minutes
+# each on one core; PERF.md has their CPU runs).
+DRYRUN_CELLS = tuple((a, s) for a in (ARCH, MOE_ARCH, HYBRID_ARCH, SSM_ARCH,
+                                      LLAMA_ARCH)
+                     for s in ("train_4k", "decode_32k")
+                     if not (a in (HYBRID_ARCH, SSM_ARCH) and s == "train_4k"))
+# The dry run counts op by op on the host's CPU: llama3-405b's train_4k (16
+# microbatches of 126 layers, ~2.3 M ops) takes 570-670 s on an H100
+# machine's host, (b)'s counts ~200 s: after the card's phases they would
+# take the run past its time limit.  So they start once the last phase
+# whose time (b) reads (serve_vlm) is done, at the lowest CPU priority,
+# with the card hidden from them, and count while the later phases run
+# (tabular to distributed: their times are taken beside the counts), in
+# two lanes: llama3-405b's train_4k; the other cells, then (b)'s counts.
+# Each process reads its own launch counts.  The phase collects.
+DRYRUN_LONG = (LLAMA_ARCH, "train_4k")
+DRYRUN_AFTER = "serve_vlm"        # the lanes start after this phase
+DRYRUN_TIMEOUT_S = 950            # from the lanes' start
+# (b): the served models as their serve phases ran them (key, arch, layers)
+DRYRUN_SERVED = (("serve", ARCH, None), ("serve " + HYBRID_ARCH,
+                                         HYBRID_ARCH, None),
+                 ("serve " + MOE_ARCH, MOE_ARCH, None),
+                 ("serve " + SSM_ARCH, SSM_ARCH, None),
+                 ("serve " + STARCODER_ARCH, STARCODER_ARCH, None),
+                 ("serve " + NEMOTRON_ARCH, NEMOTRON_ARCH, NEMOTRON_LAYERS),
+                 ("serve " + AUDIO_ARCH, AUDIO_ARCH, None),
+                 ("serve " + VLM_ARCH, VLM_ARCH, VLM_LAYERS))
+
+
+def _one_device_bound(cfg, shape, flops, microbatches=1,
+                      lengths=(None,)) -> tuple:
+    """(bound s, the term that sets it) of one step on one H100 from its
+    datasheet peaks: the count's FLOPs, and ``analytic_memory_bytes`` under
+    a one-device policy, averaged over the decode cache ``lengths`` (each
+    a step's cache length; None: the shape's own).
+
+    The analytic weight term of a serving step reads every parameter once,
+    the input embedding table too, where the step gathers only its tokens'
+    rows: the rows no token can select (vocab less the step's tokens) are
+    taken off, so the bound counts what this step's data needs.  (At 4
+    layers nemotron's table is 20 % of its weights; uncorrected, its decode
+    bound sat 0.5 % under the measured time.)"""
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.policy import make_policy
+    from repro_torch.launch.analysis import Roofline, analytic_memory_bytes
+
+    one = Mesh(shape={"data": 1, "model": 1})
+    unread = 0.0
+    if shape.kind != "train" and cfg.frontend == "none" and \
+            not cfg.tie_embeddings:         # else the head reads it all
+        tokens = shape.global_batch * (shape.seq_len
+                                       if shape.kind == "prefill" else 1)
+        unread = 2.0 * cfg.d_model * max(0, cfg.vocab - tokens)   # bf16
+    roofs = []
+    for n in lengths:
+        sh = shape if n is None else dataclasses.replace(shape, seq_len=n)
+        pol = make_policy(cfg, sh, one, microbatches=microbatches)
+        roofs.append(Roofline(
+            flops, analytic_memory_bytes(cfg, sh, pol) - unread, 0.0, 1))
+    bound = sum(r.step_time_s for r in roofs) / len(roofs)
+    return bound, roofs[-1].dominant
+
+
+def _held_cases() -> list:
+    """(b)'s cases: (the phase's report key, kind, what, config, shape,
+    the count's keywords, decode cache lengths) for the train phase's step
+    and each served model's prefill wave and decode step.  The plain decode
+    attends the whole cache buffer (the FLOPs); the bytes are taken at each
+    step's cache length, prompt + 1 to prompt + max_new."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeConfig
+
+    t = SERVE_TRAFFIC
+    lanes, S = t["n_lanes"], t["prompt_len"]
+    cfg = train_config()
+    cases = [("train", "train", f"train step {ARCH} {cfg.n_layers} layers, "
+              f"{TRAIN_BATCH}x{TRAIN_SEQ} in {TRAIN_MB}", cfg,
+              ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+              {"microbatches": TRAIN_MB}, (None,))]
+    for key, arch, layers in DRYRUN_SERVED:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cases.append((key, "prefill", f"prefill wave {arch} {cfg.n_layers} "
+                      f"layers, {lanes}x{S}", cfg,
+                      ShapeConfig("prefill_wave", S, lanes, "prefill"),
+                      {"max_len": t["max_len"]}, (None,)))
+        cases.append((key, "decode", f"decode step {arch} {cfg.n_layers} "
+                      f"layers, B {lanes}, cache {S + 1}-{S + t['max_new']}",
+                      cfg, ShapeConfig("decode_step", t["max_len"], lanes,
+                                       "decode"), {},
+                      range(S + 1, S + t["max_new"] + 1)))
+    return cases
+
+
+def held_counts(path: str) -> None:
+    """(b)'s counts (a lane's subprocess, without the card): each case's
+    one-device step on fake tensors through the counting pass; its FLOPs,
+    the count's wall and the kernel launches this process made during it,
+    to ``path`` as JSON."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.common import launches
+    from repro_torch.launch.dryrun import fake_step
+    from repro_torch.launch.hlo_cost import analyze
+    out = []
+    for _key, _kind, what, cfg, shape, kw, _lengths in _held_cases():
+        before = launches()
+        with FakeTensorMode():
+            step, args, _ = fake_step(cfg, shape, **kw)
+            cost = analyze(step, *args)
+        out.append({"what": what, "flops": cost.flops,
+                    "count_s": cost.wall_s,
+                    "launches": {k: n - before[k]
+                                 for k, n in launches().items()}})
+        del step, args, cost
+    Path(path).write_text(json.dumps(out))
+
+
+def _held_rows(counts: list, report: dict, card: str) -> list:
+    """(b): each case whose phase ran in this call, its bound on one H100
+    against the time that phase measured."""
+    rows = []
+    for (key, kind, what, cfg, shape, kw, lengths), c in zip(_held_cases(),
+                                                             counts):
+        rep = report.get(key)
+        if rep is None:
+            continue
+        ms = (rep["step_ms"] if kind == "train" else
+              min(rep["prefill_s"]) * 1e3 if kind == "prefill" else
+              rep["decode_s"] / rep["decode_steps"] * 1e3)
+        bound, by = _one_device_bound(cfg, shape, c["flops"],
+                                      kw.get("microbatches", 1), lengths)
+        rows.append({"what": what, "flops": c["flops"],
+                     "count_s": c["count_s"], "ms": ms,
+                     "bound_ms": bound * 1e3, "bound_by": by,
+                     "ratio": ms / (bound * 1e3)})
+    for r in rows:
+        log(f"  (b) {r['what']}: measured {r['ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}; {r['flops']:.4g} "
+            f"FLOP counted in {r['count_s']:.1f} s), ratio "
+            f"{r['ratio']:.3f} ({card})")
+    if not rows:
+        log("  (b) no train or serve phase ran in this call: nothing to "
+            "hold the count against")
+    return rows
+
+
+def start_dryrun() -> dict:
+    """Start the dry run's two lanes (threads, each running its
+    subprocesses one after the other at the lowest CPU priority, the card
+    hidden: CUDA_VISIBLE_DEVICES empty, the dry run needs none).  Every
+    subprocess is killed at exit if it still runs."""
+    import atexit
+    import threading
+    out_dir = OUT / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.pathsep.join(
+               [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    nice = ["nice", "-n", "19"] if shutil.which("nice") else []
+
+    def cli(arch, shape):
+        return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--mesh", "single", "--out",
+                str(out_dir / f"{arch}.{shape}.jsonl")]
+
+    lanes = [[(DRYRUN_LONG, cli(*DRYRUN_LONG))],
+             [(c, cli(*c)) for c in DRYRUN_CELLS if c != DRYRUN_LONG]
+             + [("held", [sys.executable, "-c", "import sys, chip_smoke; "
+                          "chip_smoke.held_counts(sys.argv[1])",
+                          str(out_dir / "held.json")])]]
+    state = {"procs": [], "done": {}, "stop": False,
+             "t0": time.perf_counter(), "out_dir": out_dir}
+
+    def run(lane):
+        for tag, cmd in lane:
+            if state["stop"]:
+                return
+            name = tag if isinstance(tag, str) else ".".join(tag)
+            t0 = time.perf_counter()
+            with open(out_dir / f"{name}.log", "w") as f:
+                proc = subprocess.Popen(nice + cmd, env=env, stdout=f,
+                                        stderr=subprocess.STDOUT, cwd=ROOT)
+                state["procs"].append(proc)
+                rc = proc.wait()
+            state["done"][tag] = (rc, time.perf_counter() - t0)
+
+    def kill():
+        state["stop"] = True
+        for proc in state["procs"]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    state["kill"] = kill
+    atexit.register(kill)
+    state["threads"] = [threading.Thread(target=run, args=(lane,),
+                                         daemon=True) for lane in lanes]
+    for t in state["threads"]:
+        t.start()
+    return state
+
+
+def _dryrun_record(state, cell, problems: list):
+    """The cell's record, or None with a problem."""
+    arch, shape = cell
+    rc, wall = state["done"].get(cell, (None, None))
+    path = state["out_dir"] / f"{arch}.{shape}.jsonl"
+    recs = [json.loads(line) for line in path.read_text().splitlines()] \
+        if path.exists() else []
+    if rc != 0 or len(recs) != 1 or recs[0]["status"] != "ok":
+        log_path = state["out_dir"] / f"{arch}.{shape}.log"
+        tail = log_path.read_text()[-1500:] if log_path.exists() else ""
+        problems.append(f"(a) {arch} {shape}: rc {rc}, records "
+                        f"{[r.get('status') for r in recs]}: {tail}")
+        return None
+    return {**recs[0], "cli_wall_s": wall}
+
+
+def dryrun_phase(torch, np, report, state):
+    """(a) the dry-run CLI's records from the lanes ``start_dryrun``
+    began after ``DRYRUN_AFTER``, every one ``ok``; (b) the count held
+    against the card's measured phases: every ratio of measured time to
+    bound >= 1.  No kernel launches: each counting process's own counts,
+    summed, are the path's."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    card = report.get("card", "")
+    t0 = time.perf_counter()
+    for t in state["threads"]:
+        t.join(timeout=max(1.0, state["t0"] + DRYRUN_TIMEOUT_S
+                           - time.perf_counter()))
+    wait_s = time.perf_counter() - t0
+    problems = []
+    if any(t.is_alive() for t in state["threads"]):
+        state["kill"]()
+        problems.append(f"the dry run was not done within "
+                        f"{DRYRUN_TIMEOUT_S} s of its start; done: "
+                        f"{sorted(map(str, state['done']))}")
+    records = [r for r in (_dryrun_record(state, c, problems)
+                           for c in DRYRUN_CELLS) if r is not None]
+    held_path = state["out_dir"] / "held.json"
+    counted = json.loads(held_path.read_text()) if held_path.exists() else []
+    held = _held_rows(counted, report, card)
+    if not held_path.exists():
+        problems.append("(b) no counts: "
+                        + (state["out_dir"] / "held.log").read_text()[-1500:])
+    for r in records:
+        log(f"  (a) {r['arch']} x {r['shape']} x {r['mesh']}: dominant "
+            f"{r['dominant']}, step_time_s {r['step_time_s']:.4g} (compute "
+            f"{r['compute_s']:.4g}, memory {r['memory_s']:.4g}, collective "
+            f"{r['collective_s']:.4g}); {r['flops']:.4g} FLOP a device, "
+            f"{r['n_ops']} ops counted in {r['count_wall_s']} s (the "
+            f"subprocess {r['cli_wall_s']:.1f} s); microbatches "
+            f"{r['policy']['microbatches']}")
+    counts = {k: 0 for k in LAUNCHES}
+    for got in [r["kernel_launches"] for r in records] + \
+            [c["launches"] for c in counted]:
+        for k, n in got.items():
+            counts[k] += n
+    log(f"  (a) {len(records)} of {len(DRYRUN_CELLS)} records ok; the "
+        f"lanes ran {time.perf_counter() - state['t0']:.1f} s from "
+        f"{DRYRUN_AFTER}'s end, this phase waited {wait_s:.1f} s for them; "
+        f"left out for time: {HYBRID_ARCH} and {SSM_ARCH} train_4k; kernel "
+        f"launches, summed over the {len(records) + len(counted)} counts "
+        f"(each read in the process that counted) {counts}")
+    report["dryrun"] = {"records": records, "held": held, "wait_s": wait_s,
+                        "lanes": {str(k): v for k, v in
+                                  state["done"].items()}}
+    low = [r for r in held if not r["ratio"] >= 1.0]
+    if low:
+        problems.append("(b) measured time under the count's bound (the "
+                        "count is at fault): " + "; ".join(
+                            f"{r['what']} {r['ratio']:.3f}" for r in low))
+    if any(counts.values()):
+        problems.append(f"kernel launches in the dry run: {counts}")
+    if problems:
+        fail("dryrun: " + "; ".join(problems))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4133,6 +4626,18 @@ def _fabric_processes(torch, np, out, problems, cache_dir, matching):
                              matching["iteration1"])
         smi_used = _smi("gpu=memory.used")
         smi_apps = _smi("compute-apps=pid,used_memory")
+        live = fab.shard_ids()
+        if len(live) != PROC_WORKERS:
+            # a worker left the ring during iteration 1 (ROADMAP.md C7):
+            # fail with the supervisor's record of why, before the flood's
+            # keys are built for shards that are gone
+            problems.append(
+                f"(c): {len(live)} of {PROC_WORKERS} shards live after "
+                f"iteration 1 ({live}); supervisor failures "
+                f"{list(fab.supervisor.failures)}; worker stats "
+                f"{fab.supervisor.worker_stats()}")
+            log(f"  {problems[-1]}")
+            return
         # SIGKILL one worker with the flood in flight: its jobs are
         # requeued on the ring successor, none is lost
         victim = fab.shard_ids()[-1]
@@ -4886,6 +5391,12 @@ def main() -> None:
             f"full width, {VLM_LAYERS} layers, embeddings")
         by_path["serve_vlm"] = timed("serve_vlm", serve_phase, torch, report,
                                      VLM_ARCH, VLM_EXPECTED, VLM_LAYERS)
+    dryrun = None
+    if "dryrun" in phases:
+        dryrun = start_dryrun()
+        log(f"[dryrun] the dry run's counts started on the host (lowest "
+            f"priority) after {DRYRUN_AFTER}, beside the card's later "
+            f"phases")
     if "tabular" in phases:
         log(f"[tabular] examples/quickstart.py's batch through "
             f"connect(\"local\"), {TABULAR_ROWS} rows, on the card")
@@ -4914,6 +5425,12 @@ def main() -> None:
             f"decode, granite EP, a (2, 2) train step, vocab-parallel CE")
         by_path["distributed"] = timed("distributed", distributed_phase,
                                        torch, np, report)
+    if "dryrun" in phases:
+        log("[dryrun] the multi-pod dry run (python -m "
+            "repro_torch.launch.dryrun) on this machine, and its count held "
+            "against the phases measured on the card")
+        by_path["dryrun"] = timed("dryrun", dryrun_phase, torch, np, report,
+                                  dryrun)
     if args.profile:
         log("[profile] full width, torch.profiler")
         profile_phase(torch, np, report, phases)

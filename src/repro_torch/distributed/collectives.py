@@ -30,8 +30,8 @@ On one card several ranks share the device over gloo (NCCL refuses two
 ranks on one device).  Gloo takes CUDA tensors for every collective used
 here (``all_reduce``, ``all_gather``, ``reduce_scatter_tensor``; see
 ``python -m repro_torch.distributed.probe`` on a card), so nothing is
-staged through host memory by this module.  ``COLLECTIVE_BYTES`` counts the payload each kind
-sends from this rank.
+staged through host memory by this module.  ``COLLECTIVE_BYTES`` counts the
+payload each kind sends from this rank, and ``COLLECTIVE_COUNTS`` its calls.
 """
 
 from __future__ import annotations
@@ -52,11 +52,20 @@ import torch.distributed as dist
 # bytes each kind of collective sent from this process (this rank)
 COLLECTIVE_BYTES: dict[str, int] = {"all_reduce": 0, "all_gather": 0,
                                     "reduce_scatter": 0}
+# calls of each kind made by this process (this rank)
+COLLECTIVE_COUNTS: dict[str, int] = dict.fromkeys(COLLECTIVE_BYTES, 0)
 
 
 def reset_collective_bytes() -> None:
+    """Both counters to 0."""
     for k in COLLECTIVE_BYTES:
         COLLECTIVE_BYTES[k] = 0
+        COLLECTIVE_COUNTS[k] = 0
+
+
+def _sent(kind: str, t: torch.Tensor) -> None:
+    COLLECTIVE_BYTES[kind] += t.numel() * t.element_size()
+    COLLECTIVE_COUNTS[kind] += 1
 
 
 def axes_of(entry) -> tuple:
@@ -235,10 +244,11 @@ def all_gather_dim(t: torch.Tensor, dim: int, entry, mesh: Mesh,
         pad = piece.new_zeros((step - piece.shape[0],) + piece.shape[1:])
         piece = torch.cat([piece, pad])
     piece = piece.contiguous()
-    outs = [torch.empty_like(piece) for _ in range(k)]
-    COLLECTIVE_BYTES["all_gather"] += piece.numel() * piece.element_size()
-    dist.all_gather(outs, piece, group=mesh.group(entry))
-    return torch.cat(outs)[:n].movedim(0, dim)
+    # the ranks' pieces land side by side in one buffer (no concatenation)
+    out = piece.new_empty((k * step,) + piece.shape[1:])
+    _sent("all_gather", piece)
+    dist.all_gather(list(out.chunk(k)), piece, group=mesh.group(entry))
+    return out[:n].movedim(0, dim)
 
 
 def all_reduce(t: torch.Tensor, entry, mesh: Mesh, op: str = "sum"):
@@ -247,7 +257,7 @@ def all_reduce(t: torch.Tensor, entry, mesh: Mesh, op: str = "sum"):
     if mesh.axes_size(entry) == 1:
         return t.clone()
     buf = (t.float() if t.is_floating_point() else t).clone().contiguous()
-    COLLECTIVE_BYTES["all_reduce"] += buf.numel() * buf.element_size()
+    _sent("all_reduce", buf)
     dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=mesh.group(entry))
     return buf.to(t.dtype)
@@ -268,7 +278,7 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, entry, mesh: Mesh,
         full = torch.cat([full, pad])
     full = full.contiguous()
     out = full.new_empty((step,) + full.shape[1:])
-    COLLECTIVE_BYTES["reduce_scatter"] += full.numel() * full.element_size()
+    _sent("reduce_scatter", full)
     dist.reduce_scatter_tensor(out, full, group=mesh.group(entry))
     return out[:m].movedim(0, dim)
 

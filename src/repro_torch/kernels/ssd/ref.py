@@ -40,14 +40,24 @@ def ssd_ref(c, b, x, log_a, gate, s0=None):
     Returns (y (B, H, S, P) in x's dtype, s_final (B, H, N, P) fp32)."""
     B, H, S, N = c.shape
     P = x.shape[-1]
-    s = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-         if s0 is None else s0.float())
+    BH = B * H
+    s = (torch.zeros((BH, N, P), dtype=torch.float32, device=x.device)
+         if s0 is None else s0.float().reshape(BH, N, P))
+    # every position's inputs cast, a_t = exp(log_a_t) and the step's
+    # shapes made once before the loop (as the JAX oracle does before its
+    # scan), the heads folded into one batch dim and one unbind each: a
+    # step is then ssd_step's arithmetic alone, its product one bmm
+    cs = c.float().reshape(BH, S, 1, N).unbind(1)        # (BH, 1, N)
+    bs = b.float().reshape(BH, S, N, 1).unbind(1)        # (BH, N, 1)
+    xs = x.float().reshape(BH, S, 1, P).unbind(1)        # (BH, 1, P)
+    a_s = torch.exp(log_a.float()).reshape(BH, S, 1, 1).unbind(1)
+    gs = gate.float().reshape(BH, S, 1, 1).unbind(1)     # (BH, 1, 1)
     ys = []
     for t in range(S):
-        y, s = ssd_step(s, c[:, :, t], b[:, :, t], x[:, :, t],
-                        log_a[:, :, t], gate[:, :, t])
-        ys.append(y)
-    return torch.stack(ys, dim=2), s
+        s = a_s[t] * s + gs[t] * (bs[t] * xs[t])
+        ys.append(torch.bmm(cs[t], s))                   # (BH, 1, P)
+    y = torch.cat(ys, dim=1).reshape(B, H, S, P)
+    return y.to(x.dtype), s.reshape(B, H, N, P)
 
 
 def _chunks(t, chunk):

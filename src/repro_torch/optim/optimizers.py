@@ -9,6 +9,12 @@ Updates run per tensor under ``torch.no_grad``, in fp32, and round once to
 the parameter's dtype.  ``count`` is a 0-d int32 tensor on the parameters'
 device, so the schedules, bias corrections and the whole step need no
 host sync.
+
+Under ZeRO (``train/step.py``'s sharded step) ``update`` gets each rank's
+shard of every parameter and gradient, with ``shards`` saying where each
+lies.  AdamW is elementwise and ignores it.  Adafactor's moments are means
+over the whole parameter, so it sums its rows and columns across the
+shards (see :func:`adafactor`).
 """
 
 from __future__ import annotations
@@ -18,12 +24,27 @@ from typing import Any, Callable
 
 import torch
 
+from ..distributed.collectives import (all_reduce, axes_of, gather_full,
+                                       local_shard)
+
 
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[..., tuple]     # (grads, state, params, step=None, norm=None) -> (params, state, gnorm)
+    # (grads, state, params, step=None, norm=None, shards=None)
+    #   -> (params, state, gnorm)
+    update: Callable[..., tuple]
     name: str = "opt"
+
+
+@dataclass(frozen=True)
+class Shards:
+    """Where the leaves of a sharded update lie: parameter i's shard (and
+    its gradient's) is its part under ``specs[i]`` on ``mesh`` of a tensor
+    of ``shapes[i]``."""
+    mesh: Any
+    specs: list
+    shapes: list
 
 
 def tree_leaves(tree) -> list:
@@ -82,7 +103,7 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
                                      device=first.device)}
 
     @torch.no_grad()
-    def update(grads, state, params, step=None, norm=None):
+    def update(grads, state, params, step=None, norm=None, shards=None):
         grads, gnorm = clip_by_global_norm(grads, grad_clip, norm)
         state["count"].add_(1)
         count = state["count"]
@@ -108,9 +129,48 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
 # Adafactor (factored second moment, no first moment)
 # ---------------------------------------------------------------------------
 
+def _mean_whole(x, dim: int, spec, shape, mesh):
+    """The mean of the whole tensor (of ``shape``, of which ``x`` is the
+    shard under ``spec``) over ``dim``, whole: the shard's partial sums
+    summed over the axes that split ``dim``, then gathered over the axes
+    that split the other dims.  Without a mesh, ``x.mean(dim)``."""
+    if mesh is None:
+        return x.mean(dim=dim)
+    dim %= x.dim()
+    if mesh.axes_size(spec[dim]) == 1:
+        part = x.mean(dim=dim)
+    else:
+        part = all_reduce(x.sum(dim=dim), spec[dim], mesh) / shape[dim]
+    rest = [e for d, e in enumerate(spec) if d != dim]
+    return gather_full(part, rest, mesh,
+                       [n for d, n in enumerate(shape) if d != dim])
+
+
+def _rms_whole(u, spec, shape, mesh):
+    """sqrt(mean(u²) + 1e-30) over the whole tensor whose shard is ``u``."""
+    if mesh is None:
+        return torch.sqrt(torch.mean(u * u) + 1e-30)
+    axes = {a for e in spec for a in axes_of(e)}
+    axes = tuple(a for a in mesh.axis_names if a in axes)
+    total = all_reduce(torch.sum(u * u), axes, mesh)
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.sqrt(total / n + 1e-30)
+
+
 def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
               eps: float = 1e-30, clip_threshold: float = 1.0,
               weight_decay: float = 0.0, grad_clip: float = 1.0) -> Optimizer:
+    """Adafactor.  Under ``shards`` its state is whole on every rank (the
+    specs ``param_pspecs`` gives it replicate every moment) while each
+    rank holds a shard of each parameter and gradient: vr (the mean of g²
+    over the last axis), vc (over the second to last) and vr's mean are
+    means over the whole parameter, summed across the shards of the
+    reduced dim and gathered across the others; the update clip's RMS is
+    summed across every axis that splits the parameter; the unfactored v
+    gathers g² only where its parameter is split.  Each rank then updates
+    its shard of the parameter."""
 
     def _factored(shape) -> bool:
         return len(shape) >= 2
@@ -128,29 +188,43 @@ def adafactor(lr: float | Callable = 1e-3, decay: float = 0.8,
                                      device=first.device)}
 
     @torch.no_grad()
-    def update(grads, state, params, step=None, norm=None):
+    def update(grads, state, params, step=None, norm=None, shards=None):
         grads, gnorm = clip_by_global_norm(grads, grad_clip, norm)
         state["count"].add_(1)
         count = state["count"]
         lr_t = _lr(lr, count)
         beta = 1.0 - count.float() ** -decay
         slots = _slot_leaves(state["s"])
-        for p, g, s in zip(tree_leaves(params), tree_leaves(grads), slots):
+        leaves = tree_leaves(params)
+        mesh = shards.mesh if shards is not None else None
+        for i, (p, g, s) in enumerate(zip(leaves, tree_leaves(grads), slots)):
+            spec = shards.specs[i] if mesh is not None else None
+            shape = shards.shapes[i] if mesh is not None else p.shape
             gf = g.float()
             g2 = gf * gf + eps
-            if _factored(p.shape):
-                s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(dim=-1))
-                s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(dim=-2))
+            if _factored(shape):
+                row = _mean_whole(g2, -1, spec, shape, mesh)
+                col = _mean_whole(g2, -2, spec, shape, mesh)
+                s["vr"].copy_(beta * s["vr"] + (1 - beta) * row)
+                s["vc"].copy_(beta * s["vc"] + (1 - beta) * col)
                 vr, vc = s["vr"], s["vc"]
-                denom = (vr / torch.clamp(vr.mean(dim=-1, keepdim=True),
-                                          min=eps))[..., None] \
-                    * vc[..., None, :]
+                r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+                if mesh is not None:        # this shard's rows and columns
+                    r = local_shard(r, spec[:-1], mesh)
+                    vc = local_shard(vc, tuple(spec[:-2]) + tuple(spec[-1:]),
+                                     mesh)
+                denom = r[..., None] * vc[..., None, :]
                 u = gf * torch.rsqrt(torch.clamp(denom, min=eps))
             else:
-                s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
-                u = gf * torch.rsqrt(torch.clamp(s["v"], min=eps))
+                v = s["v"]
+                if mesh is not None:
+                    g2 = gather_full(g2, spec, mesh, shape)
+                v.copy_(beta * v + (1 - beta) * g2)
+                if mesh is not None:
+                    v = local_shard(v, spec, mesh)
+                u = gf * torch.rsqrt(torch.clamp(v, min=eps))
             # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            rms = _rms_whole(u, spec, shape, mesh)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             pf = p.float()
             p.copy_(pf - (lr_t * u + weight_decay * lr_t * pf))
@@ -174,5 +248,5 @@ def pick_optimizer(n_params: int, lr=None) -> Optimizer:
     return adamw(lr=lr or 3e-4)
 
 
-__all__ = ["Optimizer", "adamw", "adafactor", "pick_optimizer",
+__all__ = ["Optimizer", "Shards", "adamw", "adafactor", "pick_optimizer",
            "clip_by_global_norm", "tree_leaves", "tree_map"]

@@ -28,10 +28,13 @@ parameter shards in, as GSPMD runs the reference's jitted step:
   once after the microbatches (per microbatch, into ``grad_pspecs``'
   placement, where given: ZeRO-2), through ``compressed_all_reduce`` with
   ``grad_compress`` (the explicit-DP reduction);
-* the optimizer state is ZeRO-sharded over the batch axes
-  (``opt_policy``); each rank updates its shard of each parameter with the
-  global gradient norm, and the shards are gathered back where the
-  parameter's placement replicates them.
+* the optimizer state lies as ``param_pspecs`` places its tree under the
+  ZeRO policy (``opt_policy``): AdamW's moments sharded over the batch axes
+  like the parameters, Adafactor's factored moments whole on every rank;
+  each rank updates its shard of each parameter with the global gradient
+  norm (Adafactor's means summed across the shards: ``optim.adafactor``),
+  and the shards are gathered back where the parameter's placement
+  replicates them.
 """
 
 from __future__ import annotations
@@ -41,16 +44,17 @@ from typing import Optional
 import torch
 
 from ..distributed.collectives import (all_reduce, axes_of, local_shard,
-                                       reshard)
+                                       reshard, shard_shape)
 from ..distributed.context import use_context
 from ..distributed.policy import (Policy, input_pspecs, opt_policy,
-                                  param_pspecs)
+                                  param_pspecs, tree_leaves_with_path,
+                                  tree_map_with_path)
 from ..distributed.vocab_ce import vocab_parallel_ce
 from ..kernels import fused_cross_entropy
 from ..models.config import ModelConfig
-from ..models.model import forward, lm_head, loss_fn
+from ..models.model import forward, lm_head, loss_fn, param_specs
 from ..optim.compress import compressed_all_reduce, make_error_feedback
-from ..optim.optimizers import Optimizer, tree_leaves, tree_map
+from ..optim.optimizers import Optimizer, Shards, tree_leaves, tree_map
 
 
 def _loss(params, mb: dict, cfg: ModelConfig, policy: Policy):
@@ -89,10 +93,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     gradients are reduced into it (ZeRO-2)."""
     if grad_compress:
         ef_init, ef_apply = make_error_feedback()
-    if policy is not None and optimizer.name == "adafactor":
-        raise NotImplementedError(
-            "Adafactor's factored moments are per-shard under ZeRO; the "
-            "sharded step takes AdamW (ROADMAP.md A3)")
+    # the parameters' full shapes by path (meta tensors: no allocation)
+    full = (dict(tree_leaves_with_path(param_specs(cfg)))
+            if policy is not None else None)
+
+    def whole(params):
+        """``params``' tree of meta stand-ins at their full shapes."""
+        return tree_map_with_path(lambda path, _: full[path], params)
 
     def reduce_dp(g, spec):
         """Sum ``g`` over the batch axes its parameter is not sharded on."""
@@ -194,7 +201,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                      for p, ps, os_ in zip(leaves, p_sp, o_sp)]
             it = iter(views)
             optimizer.update(grads_tree, inner,
-                             tree_map(lambda _: next(it), params), norm=norm)
+                             tree_map(lambda _: next(it), params), norm=norm,
+                             shards=Shards(mesh, o_sp, [
+                                 tuple(t.shape) for t in
+                                 tree_leaves(whole(params))]))
             for p, v, ps, os_ in zip(leaves, views, p_sp, o_sp):
                 if ps != os_:        # the updated shards, where p holds more
                     p.copy_(reshard(v, os_, ps, mesh))
@@ -209,8 +219,19 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
     def init_opt_state(params):
         """The optimizer's state (and the error-feedback residuals) for
-        ``params``; under a policy, this rank's ZeRO shard of it."""
-        if policy is not None:
+        ``params``; under a policy, this rank's part of it: each leaf of
+        the state tree under its spec from ``param_pspecs`` at the ZeRO
+        policy (every state of both optimizers starts at zero)."""
+        if policy is None:
+            inner = optimizer.init(params)
+        else:
+            struct = optimizer.init(whole(params))    # meta: shapes only
+            sspecs = param_pspecs(struct, opt_policy(policy), cfg)
+            device = tree_leaves(params)[0].device
+            inner = tree_map(
+                lambda t, spec: torch.zeros(
+                    shard_shape(t.shape, spec, policy.mesh), dtype=t.dtype,
+                    device=device), struct, sspecs)
             pspecs, ospecs = specs(params)
             views = [reshard(p.detach(), ps, os_, policy.mesh)
                      for p, ps, os_ in zip(tree_leaves(params),
@@ -218,7 +239,6 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                                            tree_leaves(ospecs))]
             it = iter(views)
             params = tree_map(lambda _: next(it), params)
-        inner = optimizer.init(params)
         if grad_compress:
             return {"opt": inner, "ef": ef_init(params)}
         return inner

@@ -79,6 +79,24 @@ def run(rank, world, device, inputs: str, ckpt_dir: str):
     mesh = Mesh.over_world((2, 4), ("data", "model"), device)
     out: dict = {}
 
+    # -- the collectives' counters: one call of each kind ----------------
+    from repro_torch.distributed import collectives
+    collectives.reset_collective_bytes()
+    seen = []
+    for call in (lambda: collectives.all_reduce(torch.ones(4), "model",
+                                                mesh),
+                 lambda: collectives.all_gather_dim(torch.ones(4), 0,
+                                                    "model", mesh, 16),
+                 lambda: collectives.reduce_scatter_dim(torch.ones(16), 0,
+                                                        "model", mesh, 4)):
+        call()
+        seen.append((dict(collectives.COLLECTIVE_COUNTS),
+                     dict(collectives.COLLECTIVE_BYTES)))
+    collectives.reset_collective_bytes()
+    seen.append((dict(collectives.COLLECTIVE_COUNTS),
+                 dict(collectives.COLLECTIVE_BYTES)))
+    out["counters"] = seen
+
     # -- vocab-parallel CE: loss and dx ----------------------------------
     x = _t(npz["vce/x"]).requires_grad_(True)
     w = _t(npz["vce/w"])
@@ -183,6 +201,25 @@ def run(rank, world, device, inputs: str, ckpt_dir: str):
         after = {p: gather_full(t.detach(), specs[p], mesh).numpy()
                  for p, t in tree_leaves_with_path(params)}
         out[f"{tag}/after"] = after
+
+    # -- Adafactor under ZeRO (tp, fsdp, 2 microbatches), 2 steps --------
+    from repro_torch.optim import adafactor
+    pspecs = param_pspecs(param_specs(cfg), pol, cfg)
+    params = shard_tree(params_from_numpy(tree_from(npz, "params/q2"), cfg,
+                                          device="cpu"), pspecs, mesh)
+    step = make_train_step(cfg, adafactor(lr=1e-3), policy=pol)
+    opt = step.init_opt_state(params)
+    losses, norms = [], []
+    for _ in range(2):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    out["ada/loss"], out["ada/gnorm"] = losses, norms
+    specs = dict(tree_leaves_with_path(pspecs))
+    out["ada/after"] = {p: gather_full(t.detach(), specs[p], mesh).numpy()
+                        for p, t in tree_leaves_with_path(params)}
+    out["ada/state"] = {p: t.numpy()
+                        for p, t in tree_leaves_with_path(opt["s"])}
 
     # -- checkpoint on (2, 4), restore on (1, 4): an elastic restart -----
     from repro_torch.ckpt import load_checkpoint, save_checkpoint

@@ -19,7 +19,9 @@ tighter:
   (attention gathered on use), with 4 (split by heads), and granite (EP);
 * the sharded train step (tp, fsdp, 2 microbatches) against the
   reference's single-device step: loss 2e-4, params 2e-3; the same with
-  ``grad_compress``;
+  ``grad_compress``; 2 Adafactor steps under ZeRO against the reference's
+  single-device ``adafactor`` (losses, parameters, and the moments whole
+  on every rank);
 * the elastic restore of a (2, 4) checkpoint onto (1, 4) (1e-5).
 
 The int8 round trip and the error feedback are compared in this process,
@@ -163,6 +165,18 @@ for tag, compress in (("tr", False), ("trc", True)):
     out[f"{tag}/gnorm"] = np.asarray(m["grad_norm"])
     put(f"{tag}/after", p)
 
+# Adafactor: 2 single-device steps on the same batch
+from repro.optim import adafactor
+step = make_train_step(q2, adafactor(lr=1e-3))
+p, o = params, step.init_opt_state(params)
+jstep = jax.jit(step)
+for i in range(2):
+    p, o, m = jstep(p, o, batch)
+    out[f"ada/loss{i}"] = np.asarray(m["loss"])
+    out[f"ada/gnorm{i}"] = np.asarray(m["grad_norm"])
+put("ada/after", p)
+put("ada/state", o["s"])
+
 # elastic restore: save from (2, 4), load onto (1, 4)
 from repro.ckpt import save_checkpoint, load_checkpoint
 pol = make_policy(q2, ShapeConfig("t", 32, 8, "train"), mesh, tp=True,
@@ -280,6 +294,52 @@ def test_sharded_train_matches_single_device(ref, port, tag):
     worst = max(np.abs(v - r[f"{rtag}/after/{k}"]).max()
                 for k, v in p[f"{tag}/after"].items())
     assert worst < 2e-3
+
+
+def test_sharded_adafactor_losses_match_single_device(ref, port):
+    """Adafactor under ZeRO (tp and fsdp on (2, 4), 2 microbatches): each
+    of 2 steps' loss within 2e-4 and grad norm within 1e-3 relative of the
+    reference's single-device ``adafactor``."""
+    r, p = ref[0], port[0]
+    for i in range(2):
+        assert abs(p["ada/loss"][i] - float(r[f"ada/loss{i}"])) < 2e-4
+        want = float(r[f"ada/gnorm{i}"])
+        assert abs(p["ada/gnorm"][i] - want) < 1e-3 * want
+
+
+@pytest.mark.parametrize("leaf", ["layers/attn/wq", "layers/attn/wo",
+                                  "embed/tok", "lm_head", "final_norm/w"])
+def test_sharded_adafactor_matches_single_device(ref, port, leaf):
+    """After 2 sharded Adafactor steps, the parameter (gathered) within
+    2e-3 of the reference's single-device step, and its moments (whole on
+    every rank, as ``param_pspecs`` places Adafactor's state) within 1e-4
+    relative: wq's rows split over data (fsdp) and its columns over model
+    (tp), wo's the other way round, the embedding's rows over model and
+    its columns over data, the LM head's the other way round; final_norm/w
+    is unfactored (its v) and replicated."""
+    r, p = ref[0], port[0]
+    assert np.abs(p["ada/after"][leaf] - r[f"ada/after/{leaf}"]).max() < 2e-3
+    moments = ("v",) if leaf == "final_norm/w" else ("vr", "vc")
+    for name in moments:
+        got = p["ada/state"][f"{leaf}/{name}"]
+        want = r[f"ada/state/{leaf}/{name}"]
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_collective_counts_one_call_of_each_kind(port):
+    """``COLLECTIVE_COUNTS`` adds one a call to its kind beside the bytes
+    ``COLLECTIVE_BYTES`` adds (fp32: 4 floats reduced, 4 gathered, 16
+    reduce-scattered), and ``reset_collective_bytes`` clears both."""
+    seen = port[0]["counters"]
+    counts = [c for c, _ in seen]
+    sent = [b for _, b in seen]
+    kinds = ("all_reduce", "all_gather", "reduce_scatter")
+    assert counts[:3] == [dict(zip(kinds, n)) for n in
+                          ((1, 0, 0), (1, 1, 0), (1, 1, 1))]
+    assert sent[2] == {"all_reduce": 16, "all_gather": 16,
+                       "reduce_scatter": 64}
+    assert counts[3] == sent[3] == dict.fromkeys(kinds, 0)
 
 
 def test_uneven_shards_round_trip_through_the_ranks(port):

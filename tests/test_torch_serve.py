@@ -229,12 +229,18 @@ assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
         "repro_torch.distributed.ring_decode",
         "repro_torch.distributed.vocab_ce",
         "repro_torch.distributed.collectives", "repro_torch.launch.mesh",
-        "repro_torch.launch.specs", "repro_torch.optim.compress"} <= set(names)
-# the offline CLIs, as ``python -m`` runs them
-import contextlib, io, runpy, tempfile
+        "repro_torch.launch.specs", "repro_torch.optim.compress",
+        "repro_torch.launch.analysis", "repro_torch.launch.hlo_cost",
+        "repro_torch.launch.dryrun"} <= set(names)
+# the offline CLIs, as ``python -m`` runs them (the dry run on one cell)
+import contextlib, io, os, runpy, tempfile
 for mod, argv in (("repro_torch.service.observability.top", ["--demo"]),
                   ("repro_torch.service.observability.replay",
-                   [tempfile.mkdtemp()])):
+                   [tempfile.mkdtemp()]),
+                  ("repro_torch.launch.dryrun",
+                   ["--arch", "qwen2-7b", "--shape", "decode_32k", "--mesh",
+                    "single", "--out", os.path.join(tempfile.mkdtemp(),
+                                                    "dryrun.jsonl")])):
     sys.argv = [mod, *argv]
     with contextlib.redirect_stdout(io.StringIO()):
         try:

@@ -231,22 +231,35 @@ def test_grad_accumulators_are_fp32_for_bf16_params():
 
 
 def test_train_step_refuses_what_the_later_slice_brings():
-    """``grad_compress`` and ``policy`` are ported (the distributed slice);
-    what is still refused is Adafactor under a policy, whose factored
-    moments would be per-shard under ZeRO.  On one device, the compressed
-    step is the reference's: the loss, and the parameters after the AdamW
-    step at the first-step sign rule of ``test_one_adamw_step_matches_jax``
-    (the int8 round trip of the gradients is exact arithmetic in both)."""
+    """``grad_compress``, ``policy`` (the distributed slice) and Adafactor
+    under a policy (the dry-run slice: its moments' means summed across
+    the shards) are ported, and none is refused any more.  Adafactor's
+    step under a one-rank policy (no process: every collective is over
+    one shard) is the single-device step, its loss and parameters within
+    the model tolerances.  On one device, the compressed step is the
+    reference's: the loss, and the parameters after the AdamW step at the
+    first-step sign rule of ``test_one_adamw_step_matches_jax`` (the int8
+    round trip of the gradients is exact arithmetic in both)."""
     from repro_torch.distributed import Mesh
     from repro_torch.distributed.policy import make_policy
     from repro_torch.models.config import ShapeConfig
     jcfg, tcfg = _cfgs()
     pol = make_policy(tcfg, ShapeConfig("t", 17, 4, "train"),
                       Mesh(shape={"data": 1, "model": 1}))
-    with pytest.raises(NotImplementedError, match="Adafactor"):
-        make_train_step(tcfg, adafactor(), policy=pol)
     npt = _np_params(jcfg)
     b = _batch(jcfg, 2, 2, 17)
+    runs = []
+    for policy in (None, pol):
+        step = make_train_step(tcfg, adafactor(lr=1e-3), policy=policy)
+        tp = params_from_numpy(npt, tcfg, device="cpu")
+        tp, _, tm = step(tp, step.init_opt_state(tp),
+                         {k: torch.from_numpy(v) for k, v in b.items()})
+        runs.append((dict(_paths(tp)), tm["loss"]))
+    _close(runs[1][1], runs[0][1].numpy(), "model_loss/cpu_fp32")
+    for path, t in runs[1][0].items():
+        np.testing.assert_allclose(t.detach().numpy(),
+                                   runs[0][0][path].detach().numpy(),
+                                   atol=1e-6, rtol=0)
     jstep = j_make_train_step(jcfg, j_adamw(lr=1e-3), grad_compress=True)
     jp = jax.tree.map(jnp.asarray, npt)
     jp_new, _, jm = jstep(jp, jstep.init_opt_state(jp),
