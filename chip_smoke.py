@@ -76,6 +76,21 @@ Phases, each of which must pass:
              ``build_trainer``'s ``TrainLoop`` at a small config (bf16, head
              dim 128) is preempted at step 2 and resumed from its checkpoint
              under ``build/``: its losses must equal an uninterrupted run's.
+12b. train_moe — granite-moe-3b-a800m at its published width and depth
+             (32 layers: 3.98 B parameters, 63.7 GB of training state at
+             16 B a parameter; the depth is cut, and the cut logged, only
+             where state and room exceed the card), through
+             ``init_params``, ``adamw`` and ``make_train_step`` with remat:
+             the train phase's batch (2 microbatches of 4 x 2048 tokens) 4
+             times at a constant lr; the loss must fall at every step and
+             each kernel's launches match the path exactly (the grouped
+             matmul and its backward, the flash backward at head dim 64).
+             It reports the step time, tokens/s, peak memory and the share
+             of a training microbatch's assignments dropped.  Then, at 2
+             layers with every expert chosen (no assignment dropped), the
+             card's loss and each gradient leaf against the CPU's fp32 run
+             on the same parameters, within twice the CPU's own bf16 run's
+             distance from it.
 13. consistency_audio, serve_audio — phases 4 and 5 for musicgen-medium
              (audio: the dense stack fed by precomputed EnCodec-frame
              embeddings, no embedding table) at its published width and
@@ -265,7 +280,7 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "serve_moe", "consistency_ssm", "serve_ssm",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
-          "train", "consistency_audio", "serve_audio", "consistency_vlm",
+          "train", "train_moe", "consistency_audio", "serve_audio", "consistency_vlm",
           "serve_vlm", "tabular", "agentic", "service", "fabric",
           "distributed", "dryrun")
 
@@ -613,6 +628,7 @@ def kernel_phase(torch, timer, report):
     torch.cuda.empty_cache()
     rows += ssd_rows(torch, timer, randn, check, report)
     rows += moe_gmm_rows(torch, timer, randn, check, report)
+    rows += moe_gmm_bwd_rows(torch, timer, randn, check)
     rows += train_kernel_rows(torch, timer, randn, check, gen, report)
     for r in rows:
         subs = [(f"{r['name']} {k}", t) for k, t in
@@ -995,6 +1011,93 @@ def moe_gmm_rows(torch, timer, randn, check, report):
              "max_abs_err": max(errs), **main, "shapes": shapes}]
 
 
+# granite-moe-3b-a800m's training shapes: a microbatch of 4 x 2048 tokens at
+# top-8 over 40 experts gives C = 2048 rows an expert, T = 48 x 2048
+GMM_BWD_SHAPES = {"gate/up": (2048, GMM_D, GMM_F),
+                  "down": (2048, GMM_F, GMM_D)}
+
+
+def moe_gmm_bwd_rows(torch, timer, randn, check):
+    """The grouped matmul's backward against the plain backward: dx and dw
+    at the train step's two shapes (equal groups) and at ragged ones (an
+    empty expert, sizes that sum to less than T, T not a multiple of the
+    128-row tile, K and N tails); two calls equal bit for bit; times,
+    bound and torch.bmm on the equal-group views at each train shape."""
+    import numpy as np
+
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_bwd_cuda
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref
+
+    def sizes_of(lst):
+        return torch.tensor(lst, dtype=torch.int32, device="cuda")
+
+    errs = []
+    cases = [(f"{name}: T {GMM_E * c} = {GMM_E} x {c}, D {d}, F {f}",
+              GMM_E * c, d, f, [c] * GMM_E)
+             for name, (c, d, f) in GMM_BWD_SHAPES.items()]
+    ragged7 = [13, 70, 3, 201, 1, 97, 131]
+    cases += [
+        ("ragged: 130 rows over 5, an empty expert", 130, GMM_D, GMM_F,
+         [31, 0, 47, 1, 51]),
+        ("rows past the groups: 72 of 200", 200, GMM_D, GMM_F,
+         [0, 100, 0, 28]),
+        ("ragged starts, T 516 (not a multiple of 128)", 516, GMM_F, GMM_D,
+         ragged7),
+        ("D 72, F 200: K and N tails, 16 rows past", 532, 72, 200, ragged7),
+        ("48 experts, 1000 rows drawn, 5 empty", 1000, GMM_D, GMM_F,
+         [0] * 5 + np.random.default_rng(0).multinomial(
+             1000, [1 / (GMM_E - 5)] * (GMM_E - 5)).tolist())]
+    for case, T, d, f, sizes in cases:
+        x, dy = randn(T, d), randn(T, f)
+        w = (randn(len(sizes), d, f) * d ** -0.5).to(torch.bfloat16)
+        g = sizes_of(sizes)
+        dx, dw = moe_gmm_bwd_cuda(x, w, dy, g)
+        rdx, rdw = moe_gmm_bwd_ref(x, w, dy, g)
+        errs.append(check("moe_gmm_bwd", f"{case} dx", dx, rdx))
+        errs.append(check("moe_gmm_bwd", f"{case} dw", dw, rdw))
+        n = sum(sizes)
+        if dx[n:].any():
+            fail(f"moe_gmm_bwd {case}: rows past the groups have dx != 0")
+        empty = [e for e, c in enumerate(sizes) if c == 0]
+        if empty and dw[empty].any():
+            fail(f"moe_gmm_bwd {case}: an empty expert has dw != 0")
+        del x, dy, w, dx, dw, rdx, rdw
+
+    shapes = {}
+    for name, (c, d, f) in GMM_BWD_SHAPES.items():
+        T = GMM_E * c
+        x, dy = randn(T, d), randn(T, f)
+        w = (randn(GMM_E, d, f) * d ** -0.5).to(torch.bfloat16)
+        g = sizes_of([c] * GMM_E)
+        if name == "gate/up":
+            same_bits(torch, "moe_gmm_bwd", f"T {T}, D {d}, F {f}",
+                      lambda: moe_gmm_bwd_cuda(x, w, dy, g))
+        xb, dyb = x.view(GMM_E, c, d), dy.view(GMM_E, c, f)
+        wt = w.transpose(1, 2)
+
+        def library():
+            return torch.bmm(dyb, wt), torch.bmm(xb.transpose(1, 2), dyb)
+
+        b_ms, b_by = bound(2 * T * d * 2 + T * f * 2 + 2 * GMM_E * d * f * 2
+                           + GMM_E * 4, 2 * 2 * T * d * f, PEAK_BF16)
+        shapes[name] = {
+            "shape": f"T {T} = {GMM_E} x {c}, D {d}, F {f}",
+            "ms": timer.ms(lambda: moe_gmm_bwd_cuda(x, w, dy, g)),
+            "plain_ms": timer.ms(lambda: moe_gmm_bwd_ref(x, w, dy, g),
+                                 iters=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(library)}
+        del x, dy, w, xb, dyb, wt
+    torch.cuda.empty_cache()
+    main = shapes.pop("gate/up")
+    return [{"name": "moe_gmm_bwd", "route": "cuda",
+             "source": "src/repro_torch/csrc/moe_gmm_bwd.cu",
+             "replaces": "no Pallas counterpart: the JAX package cannot "
+                         "differentiate moe_gmm_pallas "
+                         "(src/repro/kernels/moe_gmm/kernel.py:61)",
+             "max_abs_err": max(errs), **main, "shapes": shapes}]
+
+
 def moe_gmm_planted_fault(torch, randn, report):
     """The grouped matmul's check must reject a wrong kernel.  Launched with
     the offsets shifted by one row (expert e's last row handed to expert
@@ -1110,21 +1213,25 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
         return randn(B, S, H, D).transpose(1, 2)
 
     errs = []
-    for (B, Hq, Hkv, S, causal, window) in (
-            (4, 28, 4, 2048, True, 0),        # the train step's shape
-            (2, 28, 4, 1000, True, 0),        # ragged S
-            (1, 14, 2, 300, True, 64),        # windowed
-            (1, 14, 2, 300, False, 0),        # not causal
-            (1, 7, 1, 77, True, 0),           # group 7 over one kv head
-            (1, 14, 2, 129, True, 0),         # one row past a 128-row tile
-            (1, 28, 4, 2048, True, 256)):     # windowed at the train S
-        q, k, v = bshd(B, S, Hq, 128), bshd(B, S, Hkv, 128), \
-            bshd(B, S, Hkv, 128)
-        do = bshd(B, S, Hq, 128)
+    for (B, Hq, Hkv, S, D, causal, window) in (
+            (4, 28, 4, 2048, 128, True, 0),   # the train step's shape
+            (2, 28, 4, 1000, 128, True, 0),   # ragged S
+            (1, 14, 2, 300, 128, True, 64),   # windowed
+            (1, 14, 2, 300, 128, False, 0),   # not causal
+            (1, 7, 1, 77, 128, True, 0),      # group 7 over one kv head
+            (1, 14, 2, 129, 128, True, 0),    # one row past a 128-row tile
+            (1, 28, 4, 2048, 128, True, 256),  # windowed at the train S
+            (4, 24, 8, 2048, 64, True, 0),    # granite's train step, D 64
+            (2, 24, 8, 1001, 64, True, 0),    # ragged S, group 3
+            (1, 24, 8, 129, 64, True, 0),     # one row past a tile, D 64
+            (1, 6, 2, 300, 64, False, 0),     # not causal, D 64
+            (1, 24, 8, 300, 64, True, 64)):   # windowed, D 64
+        q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
+        do = bshd(B, S, Hq, D)
         opts = dict(causal=causal, window=window)
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **opts)
         _, rlse = attention_ref(q, k, v, return_lse=True, **opts)
-        case = (f"B{B} Hq{Hq} Hkv{Hkv} S{S} "
+        case = (f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} "
                 f"{'causal' if causal else 'full'} w{window}")
         rel = float(((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max())
         log(f"    forward lse {case}: max rel err {rel:.3e}")
@@ -1136,19 +1243,38 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
             errs.append(check("flash_attention_bwd", f"{case} {name}", g,
                               w_))
         del q, k, v, do, o, lse, got, want
-    B, Hq, Hkv, S, D = 4, 28, 4, 2048, 128
-    q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
-    do = bshd(B, S, Hq, D)
-    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
-    same_bits(torch, "flash_attention_bwd", f"B{B} Hq{Hq} Hkv{Hkv} S{S}",
-              lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do))
-    planted_fault(torch, report, q, k, v, o, lse, do)
-    pairs = S * (S + 1) // 2
-    b_ms, b_by = bound(B * S * D * 2 * (4 * Hq + 4 * Hkv) + B * Hq * S * 4,
-                       5 * 2 * B * Hq * D * pairs, PEAK_BF16)
-    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
-    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
-                                        enable_gqa=True)
+    def flash_bwd_timings(B, Hq, Hkv, S, D, planted=False):
+        q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
+        do = bshd(B, S, Hq, D)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        same_bits(torch, "flash_attention_bwd",
+                  f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D}",
+                  lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do))
+        if planted:
+            planted_fault(torch, report, q, k, v, o, lse, do)
+        pairs = S * (S + 1) // 2
+        b_ms, b_by = bound(B * S * D * 2 * (4 * Hq + 4 * Hkv)
+                           + B * Hq * S * 4, 5 * 2 * B * Hq * D * pairs,
+                           PEAK_BF16)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            enable_gqa=True)
+        out = {
+            "shape": f"B{B} Hq{Hq} Hkv{Hkv} S{S} D{D} causal",
+            "ms": timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse,
+                                                            do)),
+            "plain_ms": timer.ms(lambda: attention_bwd_ref(q, k, v, o, lse,
+                                                           do),
+                                 iters=2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), do, retain_graph=True))}
+        del q, k, v, do, o, lse, lq, lk, lv, lo
+        torch.cuda.empty_cache()
+        return out
+
+    # qwen2-7b's train step (D 128, group 7) and granite-moe-3b-a800m's
+    # (D 64, 24 q heads over 8)
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -1156,14 +1282,8 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
                     "differentiate flash_attention_pallas "
                     "(src/repro/kernels/flash_attention/kernel.py:103)",
         "max_abs_err": max(errs),
-        "ms": timer.ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse,
-                                                        do)),
-        "plain_ms": timer.ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
-                             iters=2, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": timer.ms(lambda: torch.autograd.grad(
-            lo, (lq, lk, lv), do, retain_graph=True))})
-    del q, k, v, do, o, lse, lq, lk, lv, lo
+        **flash_bwd_timings(4, 28, 4, 2048, 128, planted=True),
+        "shapes": {"granite D64": flash_bwd_timings(4, 24, 8, 2048, 64)}})
 
     # ---- rmsnorm backward ------------------------------------------------
     # the train step's (8192, 3584) bf16 (the bulk path: two blocks an SM,
@@ -1755,7 +1875,8 @@ def consistency_moe_phase(torch, np, report):
 EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
             "decode_attention": 28 * 128, "cross_entropy": 0,
             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
-            "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm": 0}
+            "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm": 0,
+            "moe_gmm_bwd": 0}
 # zamba2-1.2b: 38 Mamba2 layers in 6 groups of 6 and a tail of 2, the shared
 # block after each group.  A pass runs 51 rmsnorms (one per Mamba2 layer,
 # two per shared block, the final one); a prefill wave 6 flash and 38 SSD
@@ -1765,14 +1886,15 @@ HYBRID_EXPECTED = {"rmsnorm": (38 + 2 * 6 + 1) * (2 + 128),
                    "flash_attention": 6 * 2, "decode_attention": 6 * 128,
                    "ssd_scan": 38 * 2, "cross_entropy": 0,
                    "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0,
-                   "ssd_scan_wide": 0, "ssd_wide_prep": 0}
+                   "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm_bwd": 0}
 # granite-moe-3b-a800m: 32 layers, each 2 rmsnorms and 3 grouped matmuls (the
 # experts' gate, up and down products), and the final norm: a pass (a
 # prefill wave or a decode step) is 65 rmsnorm and 96 moe_gmm launches.
 MOE_EXPECTED = {"rmsnorm": (2 * 32 + 1) * (2 + 128), "flash_attention": 32 * 2,
                 "decode_attention": 32 * 128, "moe_gmm": 96 * (2 + 128),
                 "ssd_scan": 0, "cross_entropy": 0, "flash_attention_bwd": 0,
-                "rmsnorm_bwd": 0, "ssd_scan_wide": 0, "ssd_wide_prep": 0}
+                "rmsnorm_bwd": 0, "ssd_scan_wide": 0, "ssd_wide_prep": 0,
+                "moe_gmm_bwd": 0}
 # xlstm-1.3b: 6 segments of 7 mLSTM blocks and one sLSTM block.  A pass (a
 # prefill wave or a decode step) runs 49 rmsnorms (one per block, the final
 # one); a prefill wave runs the wide SSD scan once per mLSTM block, 42, each
@@ -1782,15 +1904,15 @@ MOE_EXPECTED = {"rmsnorm": (2 * 32 + 1) * (2 + 128), "flash_attention": 32 * 2,
 SSM_EXPECTED = {"rmsnorm": (48 + 1) * (2 + 128), "ssd_scan_wide": 42 * 2,
                 "ssd_wide_prep": 42 * 2, "flash_attention": 0,
                 "decode_attention": 0, "ssd_scan": 0, "cross_entropy": 0,
-                "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0}
+                "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0,
+                "moe_gmm_bwd": 0}
 # starcoder2-15b: 40 layers, each 2 rmsnorms, one flash launch a prefill wave
 # and one decode launch a step, and the final norm.
 STARCODER_EXPECTED = {"rmsnorm": (2 * 40 + 1) * (2 + 128),
                       "flash_attention": 40 * 2, "decode_attention": 40 * 128,
                       "cross_entropy": 0, "flash_attention_bwd": 0,
                       "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_wide": 0,
-                      "ssd_wide_prep": 0,
-                      "moe_gmm": 0}
+                      "ssd_wide_prep": 0, "moe_gmm": 0, "moe_gmm_bwd": 0}
 # nemotron-4-340b at NEMOTRON_LAYERS = 4 layers: the same per layer
 NEMOTRON_EXPECTED = {**STARCODER_EXPECTED,
                      "rmsnorm": (2 * NEMOTRON_LAYERS + 1) * (2 + 128),
@@ -1992,16 +2114,20 @@ TRAIN_STEPS = 4
 TRAIN_LR = 1e-5
 
 
-def train_launches(layers: int) -> dict:
+def train_launches(layers: int, moe: bool = False) -> dict:
     """Launches of one step at ``layers`` layers and M = TRAIN_MB (remat
-    reruns each layer's 2 norms and 1 flash forward in the backward; the
-    final norm and the CE head are not remat'd)."""
+    reruns each layer's 2 norms, 1 flash forward and, for a MoE layer, its 3
+    grouped products in the backward; the final norm and the CE head are
+    not remat'd).  A MoE layer's backward runs one grouped-matmul backward
+    (dx and dw) for each of its 3 products."""
     return {"rmsnorm": TRAIN_MB * (2 * layers * 2 + 1),
             "rmsnorm_bwd": TRAIN_MB * (2 * layers + 1),
             "flash_attention": TRAIN_MB * layers * 2,
             "flash_attention_bwd": TRAIN_MB * layers,
             "cross_entropy": TRAIN_MB, "decode_attention": 0, "ssd_scan": 0,
-            "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm": 0}
+            "ssd_scan_wide": 0, "ssd_wide_prep": 0,
+            "moe_gmm": TRAIN_MB * 3 * layers * 2 if moe else 0,
+            "moe_gmm_bwd": TRAIN_MB * 3 * layers if moe else 0}
 
 
 # per step at L = 4, M = 2
@@ -2157,6 +2283,222 @@ def train_phase(torch, np, report):
         fail(f"train launch counts {counts}, expected {expected}")
     loop_phase(torch, report)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12b: training granite-moe-3b-a800m, full width and depth
+# ---------------------------------------------------------------------------
+
+# Bytes a parameter of the train step holds: the bf16 weight and its bf16
+# gradient, the fp32 accumulator, AdamW's two fp32 moments.
+TRAIN_STATE_B = 16
+# Room the step needs beside that state at the phase's batch (remat: one
+# layer's activations and dispatch buffers at a time, 48 x 2048 x 1536 bf16
+# = 302 MB a grouped product; the 32 layer inputs, 25 MB each; the stacked
+# gradients' unbind; the LM head's chunked CE).  A depth whose state and
+# this exceed the card's memory is cut.
+TRAIN_MOE_ROOM = 10 << 30
+# constant lr, as TRAIN_LR: on the H100 the loss on the repeated batch rose
+# again at step 3 for lr 1e-4 and fell at every step for 5e-5, 2e-5 and
+# 1e-5 (4 steps each at this phase's config and batch); 1e-5 is kept, the
+# steadiest (~0.2 a step, where 5e-5 fell 2.45 and then 0.19).
+TRAIN_MOE_LR = 1e-5
+# the card-against-CPU gradient check: 2 layers, every expert chosen
+# (top_k = n_experts: no assignment dropped, so the routing cannot differ
+# between the two), 2 x 256 tokens; each gradient leaf's rel L2 against the
+# CPU's fp32 run must stay within TRAIN_MOE_FLOOR_FACTOR times the rel L2 of
+# the CPU's own bf16 run (the floor), the loss within that factor of its
+# floor or of half a bf16 ulp, whichever is larger
+TRAIN_MOE_CHECK = dict(layers=2, seq=256, batch=2)
+TRAIN_MOE_FLOOR_FACTOR = 2.0
+
+
+def train_moe_config(layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                         n_layers=layers)
+
+
+def allocated_params(cfg) -> int:
+    """The parameters ``init_params`` allocates for ``cfg`` (the padding
+    experts included, which ``params_count`` leaves out), from their meta
+    shapes."""
+    from repro_torch.models.model import param_specs
+    from repro_torch.optim.optimizers import tree_leaves
+    return sum(t.numel() for t in tree_leaves(param_specs(cfg)))
+
+
+def train_moe_depth(torch) -> tuple:
+    """The published depth, or the deepest that fits the card with
+    TRAIN_MOE_ROOM beside its state; (layers, the reckoning's text)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    layers = train_moe_config().n_layers
+    while layers > 1 and (allocated_params(train_moe_config(layers))
+                          * TRAIN_STATE_B + TRAIN_MOE_ROOM > total):
+        layers -= 1
+    n = allocated_params(train_moe_config(layers))
+    text = (f"{layers} of {train_moe_config().n_layers} layers: {n / 1e9:.3f}"
+            f" B parameters (48 experts a layer, 40 of them routed) x "
+            f"{TRAIN_STATE_B} B = {n * TRAIN_STATE_B / 1e9:.1f} GB of state "
+            f"+ {TRAIN_MOE_ROOM / 2**30:.0f} GiB of room against "
+            f"{total / 1e9:.1f} GB on the card")
+    return layers, text
+
+
+def train_moe_phase(torch, np, report):
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    from repro_torch.kernels.common import launches, reset_launches
+    from repro_torch.models import init_params, moe
+    from repro_torch.models.model import forward
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    layers, reckoning = train_moe_depth(torch)
+    cfg = train_moe_config(layers)
+    cut = layers != train_moe_config().n_layers
+    log(f"  {MOE_ARCH} published widths, {reckoning}"
+        f"{' (depth cut: the state does not fit)' if cut else ''}; "
+        f"remat={cfg.remat} ({cfg.remat_policy}), {cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    step = make_train_step(cfg, adamw(lr=TRAIN_MOE_LR))
+    opt_state = step.init_opt_state(params)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, microbatches=TRAIN_MB,
+                      seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in global_batch_at(data, 0).items()}
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    losses, times, norms = [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"].item()))
+        norms.append(float(metrics["grad_norm"].item()))
+        times.append(time.perf_counter() - t0)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(times[1:])) * 1e3
+
+    # the drop share of a training microbatch: one untimed forward of
+    # microbatch 0 at the trained parameters, the routing recorded
+    moe.ROUTING_STATS = []
+    with torch.no_grad():
+        forward(params, {"tokens": batch["tokens"][0]}, cfg)
+    routing = routing_counts(torch, moe.ROUTING_STATS)
+    moe.ROUTING_STATS = None
+    assigned = sum(r["assigned"] for r in routing)
+    dropped = sum(r["dropped"] for r in routing)
+    drop_share = dropped / assigned
+    log(f"  lr {TRAIN_MOE_LR:g}  losses {[round(v, 4) for v in losses]}  "
+        f"grad norms {[round(v, 3) for v in norms]}")
+    log(f"  step ms {[round(t * 1e3, 1) for t in times]}  (median after the "
+        f"first: {step_ms:.1f} ms)  tokens/s {tokens / step_ms * 1e3:.0f}  "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"  a training microbatch ({TRAIN_BATCH // TRAIN_MB} x {TRAIN_SEQ} "
+        f"tokens, C {routing[0]['capacity']}): {dropped} of {assigned} "
+        f"assignments dropped over {len(routing)} layers, share "
+        f"{drop_share:.4f}")
+    log(f"  launches {counts}")
+    expected = {k: v * TRAIN_STEPS for k, v in
+                train_launches(layers, moe=True).items()}
+    report["train_moe"] = {
+        "layers": layers, "reckoning": reckoning, "lr": TRAIN_MOE_LR,
+        "params": allocated_params(cfg), "tokens_per_step": tokens,
+        "losses": losses, "grad_norms": norms, "step_s": times,
+        "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "peak_bytes": peak, "drop_share": drop_share,
+        "routing": routing, "launches": counts}
+    del params, opt_state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite MoE training loss {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"the MoE loss did not fall at every step on a repeated batch: "
+             f"{losses}")
+    if counts != expected:
+        fail(f"train_moe launch counts {counts}, expected {expected}")
+    train_moe_grad_check(torch, np, report)
+    return counts
+
+
+def train_moe_grad_check(torch, np, report):
+    """At TRAIN_MOE_CHECK's 2 layers with every expert chosen, the card's
+    loss and every gradient leaf against the CPU's fp32 run on the same
+    parameters and tokens, each within TRAIN_MOE_FLOOR_FACTOR of the CPU's
+    own bf16 run's distance from that fp32 run."""
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    from repro_torch.distributed.policy import tree_leaves_with_path
+    from repro_torch.kernels.common import rel_l2
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    c = TRAIN_MOE_CHECK
+    cfg = dataclasses.replace(train_moe_config(c["layers"]),
+                              top_k=train_moe_config().n_experts)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    data = DataConfig(vocab=cfg.vocab, seq_len=c["seq"],
+                      global_batch=c["batch"], microbatches=1, seed=1)
+    host = {k: torch.from_numpy(v[0]) for k, v in
+            global_batch_at(data, 0).items()}
+    card = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                       device="cuda")
+
+    def run(params, run_cfg, device):
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = loss_fn(params, {k: v.to(device) for k, v in host.items()},
+                       run_cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), [g.detach().float().cpu()
+                                      for g in grads]
+
+    t0 = time.perf_counter()
+    got_loss, got = run(card, cfg, "cuda")
+    names = [path for path, _ in tree_leaves_with_path(card)]
+    cpu16 = tree_map(lambda t: t.detach().cpu(), card)
+    cpu32 = tree_map(lambda t: t.detach().float().cpu(), card)
+    del card
+    torch.cuda.empty_cache()
+    want_loss, want = run(cpu32, cfg32, "cpu")
+    ref_loss, ref = run(cpu16, cfg, "cpu")
+    loss_err = abs(got_loss - want_loss) / abs(want_loss)
+    loss_floor = abs(ref_loss - want_loss) / abs(want_loss)
+    loss_limit = TRAIN_MOE_FLOOR_FACTOR * max(loss_floor, 2.0 ** -9)
+    rows, bad = {}, []
+    for name, g, w, r in zip(names, got, want, ref):
+        err, floor = rel_l2(g, w), rel_l2(r, w)
+        rows[name] = {"rel_l2": err, "floor": floor}
+        ok = err <= TRAIN_MOE_FLOOR_FACTOR * floor
+        if not ok:
+            bad.append(name)
+        log(f"    {name:24s} rel_l2 {err:.3e}  floor {floor:.3e}  "
+            f"{'ok' if ok else 'OUT OF BOUND'}")
+    log(f"  2 layers, top_k {cfg.top_k}, {c['batch']} x {c['seq']} tokens: "
+        f"loss card {got_loss:.6f}, CPU fp32 {want_loss:.6f} (rel err "
+        f"{loss_err:.3e}, limit {loss_limit:.3e}; CPU bf16 {ref_loss:.6f}, "
+        f"floor {loss_floor:.3e}); {len(rows)} gradient leaves within "
+        f"{TRAIN_MOE_FLOOR_FACTOR:g} x their floor: {not bad} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["train_moe_grad_check"] = {
+        "layers": c["layers"], "top_k": cfg.top_k, "tokens": c["batch"] *
+        c["seq"], "loss": {"card": got_loss, "cpu_fp32": want_loss,
+                           "cpu_bf16": ref_loss, "rel_err": loss_err,
+                           "floor": loss_floor, "limit": loss_limit},
+        "leaves": rows, "factor": TRAIN_MOE_FLOOR_FACTOR}
+    if loss_err > loss_limit:
+        fail(f"the card's MoE loss is off the CPU's fp32 loss by {loss_err} "
+             f"(limit {loss_limit})")
+    if bad:
+        fail(f"MoE gradients off the CPU's fp32 run beyond "
+             f"{TRAIN_MOE_FLOOR_FACTOR:g} x their bf16 floor: {bad}")
 
 
 def loop_phase(torch, report):
@@ -4961,7 +5303,7 @@ OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "dkdv_kernel", "dq_kernel", "ce_tile_kernel", "ce_merge_kernel",
         "ssd_scan_kernel", "ssd_scan_wide_kernel", "ssd_wide_prep_kernel",
         "moe_gmm_kernel",
-        "moe_gmm_decode_kernel")
+        "moe_gmm_decode_kernel", "gmm_dx_kernel", "gmm_dw_kernel")
 
 
 # kernel families by name, for the breakdown of a profile
@@ -5005,9 +5347,9 @@ def _profile_lines(label, wall, busy, nk, rows, report):
     return lines
 
 
-def profile_train_step(torch, report):
-    """One train step at the train phase's configuration under
-    torch.profiler, after one warm step."""
+def profile_train_step(torch, report, cfg=None, lr=TRAIN_LR):
+    """One train step at the train phase's configuration (or ``cfg``'s)
+    under torch.profiler, after one warm step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.lm import DataConfig, global_batch_at
@@ -5015,10 +5357,10 @@ def profile_train_step(torch, report):
     from repro_torch.optim import adamw
     from repro_torch.train import make_train_step
 
-    cfg = train_config()
+    cfg = cfg or train_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
-    step = make_train_step(cfg, adamw(lr=TRAIN_LR))
+    step = make_train_step(cfg, adamw(lr=lr))
     opt_state = step.init_opt_state(params)
     data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH, microbatches=TRAIN_MB)
@@ -5036,8 +5378,8 @@ def profile_train_step(torch, report):
     rows, busy, nk = _kernel_table(prof, 1)
     del params, opt_state, batch, step
     torch.cuda.empty_cache()
-    return _profile_lines(f"train step ({cfg.n_layers} layers, "
-                          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens)", wall, busy,
+    return _profile_lines(f"train step ({cfg.name}, {cfg.n_layers} layers,"
+                          f" {TRAIN_BATCH}x{TRAIN_SEQ} tokens)", wall, busy,
                           nk, rows, report)
 
 
@@ -5179,6 +5521,10 @@ def profile_phase(torch, np, report, phases):
     lines = []
     if "train" in phases:
         lines += profile_train_step(torch, report)
+    if "train_moe" in phases:
+        lines += profile_train_step(
+            torch, report, train_moe_config(train_moe_depth(torch)[0]),
+            TRAIN_MOE_LR)
     if "serve" in phases:
         lines += profile_serving(torch, np, report, ARCH)
     if "serve_hybrid" in phases:
@@ -5372,6 +5718,10 @@ def main() -> None:
     if "train" in phases:
         log("[train] make_train_step qwen2-7b full width, 4 layers")
         by_path["train"] = timed("train", train_phase, torch, np, report)
+    if "train_moe" in phases:
+        log(f"[train_moe] make_train_step {MOE_ARCH} full width and depth")
+        by_path["train_moe"] = timed("train_moe", train_moe_phase, torch, np,
+                                     report)
     if "consistency_audio" in phases:
         log(f"[consistency_audio] full-width {AUDIO_ARCH}, B=2, embeddings")
         timed("consistency_audio", consistency_phase, torch, np, report,

@@ -88,7 +88,8 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0, "cross_entropy": 0,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
                             "ssd_scan": 0, "ssd_scan_wide": 0,
-                            "ssd_wide_prep": 0, "moe_gmm": 0}
+                            "ssd_wide_prep": 0, "moe_gmm": 0,
+                            "moe_gmm_bwd": 0}
 
 
 def count_launch(name: str) -> None:
@@ -236,6 +237,13 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # a rounding boundary rounds the other way: one bf16 ulp (on the H100 at
     # most 3.1e-2, at |y| in [4, 8)).  REL_L2 below holds the whole tensor.
     "moe_gmm/card_bf16": (1e-3, 2.0 ** -7),
+    # Grouped matmul backward: the forward's case for dx (sums over F) and
+    # dw (sums over an expert's rows, 2048 at the train step): products of
+    # bf16 values exact in fp32 on both sides, fp32 sums in another order,
+    # one bf16 rounding, so one ulp where a sum sits at a boundary (on the
+    # H100 at most 0.031 for dx at |dx| < 8 and 1.0 for dw at |dw| in
+    # [128, 256)).  REL_L2 below holds the whole tensor.
+    "moe_gmm_bwd/card_bf16": (1e-3, 2.0 ** -7),
     # One full-width MoE FFN call on the card (bf16: the dispatch buffer,
     # the three grouped products and silu(gate)*up each rounded to bf16)
     # against the same call on the CPU in fp32 on the same bf16 values, with
@@ -273,6 +281,9 @@ REL_L2: dict[str, float] = {
     # (chip_smoke.py's planted fault) reads 4.3e-3 among 98,304 rows and
     # 0.14 among 96.
     "moe_gmm/card_bf16": 1e-3,
+    # Grouped matmul backward: the sound kernel reads at most 1.04e-4 (dw at
+    # the train shape) on the H100; the limit is ~10 times that.
+    "moe_gmm_bwd/card_bf16": 1e-3,
     # One MoE FFN call, card against CPU fp32 (TOLERANCES above): ~2.3
     # times the largest reading, 4.26e-3.
     "moe/card_bf16": 1e-2,
@@ -441,6 +452,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.moe_gmm_fwd.restype = i
     lib.moe_gmm_decode_fwd.argtypes = lib.moe_gmm_fwd.argtypes
     lib.moe_gmm_decode_fwd.restype = i
+    lib.moe_gmm_bwd.argtypes = [
+        p, p, p, p,                       # x, w, dy, group_sizes
+        p, p,                             # dx, dw
+        i, i, i, i,                       # T, D, F, E
+        p]                                # stream
+    lib.moe_gmm_bwd.restype = i
     lib.rmsnorm_bwd.argtypes = [
         p, p, p, p, p, p,                 # x, w, dy, dx, dw, dw partials
         i, i, i64, i64, i64,              # rows, D, row strides x dy dx

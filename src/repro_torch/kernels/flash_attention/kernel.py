@@ -18,9 +18,10 @@ import torch
 from ..common import check_status, count_launch, library, stream_ptr
 
 HEAD_DIMS = (64, 128, 192)
-# The backward is built for qwen2-7b's head dim only: hybrid training, which
-# needs 64, is queued in ROADMAP.md.
-BWD_HEAD_DIMS = (128,)
+# The backward is built at the head dims of the configs that train on one
+# card: 128 (qwen2-7b) and 64 (granite-moe-3b-a800m).  192 (nemotron-4-340b)
+# is queued in ROADMAP.md.
+BWD_HEAD_DIMS = (64, 128)
 
 
 def flash_launch_args(q, k, v, out, *, causal: bool, window: int,

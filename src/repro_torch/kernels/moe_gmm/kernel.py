@@ -1,11 +1,14 @@
-"""Launch of the CUDA grouped expert matmul (``csrc/moe_gmm.cu``).
+"""Launch of the CUDA grouped expert matmul (``csrc/moe_gmm.cu``) and its
+backward (``csrc/moe_gmm_bwd.cu``).
 
-Replaces ``src/repro/kernels/moe_gmm/kernel.py:moe_gmm_pallas``; the
-source's header says what bounds the kernel on the H100 and how its two
-designs answer that.  This module checks what the kernel takes, picks the
-design from the shapes, allocates the output, launches on PyTorch's current
-stream and counts the launch.  The group sizes stay on the device: the
-kernel reads them itself, so a call never waits for the card.
+The forward replaces ``src/repro/kernels/moe_gmm/kernel.py:moe_gmm_pallas``;
+the backward has no Pallas counterpart (that kernel has no custom_vjp) and
+computes the gradient of its ``moe_gmm_ref``.  The sources' headers say what
+bounds each kernel on the H100 and how its design answers that.  This
+module checks what the kernels take, picks the forward's design from the
+shapes, allocates the outputs, launches on PyTorch's current stream and
+counts each launch.  The group sizes stay on the device: the kernels read
+them themselves, so a call never waits for the card.
 """
 
 from __future__ import annotations
@@ -91,3 +94,21 @@ def moe_gmm_cuda(x, w, group_sizes, design: str | None = None):
     check_status("moe_gmm", status)
     count_launch("moe_gmm")
     return out
+
+
+def moe_gmm_bwd_cuda(x, w, dy, group_sizes):
+    """The gradient of ``moe_gmm_cuda(x, w, group_sizes)`` for the upstream
+    gradient ``dy`` (T, F) bf16: (dx (T, D), dw (E, D, F)), both bf16, each
+    accumulated in fp32 and rounded once.  Rows past ``sum(group_sizes)``
+    get dx 0 and give nothing to dw; an expert with no rows gets dw 0.
+    Every element is summed by one block in a fixed order: two calls agree
+    bit for bit."""
+    T, D, F, E = gmm_launch_args(x, w, group_sizes, dy)   # dy as the output
+    dx = torch.empty((T, D), dtype=torch.bfloat16, device=x.device)
+    dw = torch.empty((E, D, F), dtype=torch.bfloat16, device=x.device)
+    status = library().moe_gmm_bwd(
+        x.data_ptr(), w.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), T, D, F, E, stream_ptr(x.device))
+    check_status("moe_gmm_bwd", status)
+    count_launch("moe_gmm_bwd")
+    return dx, dw

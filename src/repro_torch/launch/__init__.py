@@ -11,13 +11,12 @@ from ..models.config import ModelConfig
 
 def missing_backwards(cfg: ModelConfig) -> list[str]:
     """The kernels on ``cfg``'s training path that have no backward on the
-    card: the SSD scan (ssm, hybrid), the grouped expert matmul (moe) and
-    the flash attention backward at a head dim outside ``BWD_HEAD_DIMS``."""
+    card: the SSD scan (ssm, hybrid) and the flash attention backward at a
+    head dim outside ``BWD_HEAD_DIMS``.  The grouped expert matmul (moe) has
+    its backward kernel."""
     missing = []
     if cfg.family in ("ssm", "hybrid"):
         missing.append("the SSD scan (kernels/ssd)")
-    if cfg.family == "moe":
-        missing.append("the grouped expert matmul (kernels/moe_gmm)")
     if cfg.uses_attention and cfg.d_head not in BWD_HEAD_DIMS:
         missing.append(f"the flash attention at head dim {cfg.d_head} "
                        f"(its backward is built at {list(BWD_HEAD_DIMS)})")

@@ -2,16 +2,18 @@
 device or on every rank of a mesh.
 
     python -m repro_torch.launch.train --arch qwen2-7b --full --layers 4
+    python -m repro_torch.launch.train --arch granite-moe-3b-a800m --full
     python -m repro_torch.launch.train --arch qwen2-7b --device cpu --steps 4
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --mesh debug \
         --device cpu --steps 4
 
 Runs on the CUDA device unless ``device="cpu"`` (``--device cpu``) is given;
 with no device and no CUDA it raises.  On the card the kernels take bf16
-and a head dim of 128, which the reduced config (fp32, head dim 32) does
-not have: there, give ``--full --layers N`` (or ``overrides=``);
-``build_trainer`` raises before it allocates a parameter otherwise
-(``check_card_config``).
+and the flash backward head dims 64 and 128, which the reduced configs
+(fp32, head dim 32) do not have: there, give ``--full`` (and ``--layers
+N`` where the state does not fit; or ``overrides=``); ``build_trainer``
+raises before it allocates a parameter otherwise, and for a config whose
+path has a kernel without a backward (``check_card_config``).
 
 With a mesh (``--mesh debug``: (2, 4) over ("data", "model"); ``prod``:
 (16, 16); ``prod-multi``: (2, 16, 16)) every rank runs this under
@@ -133,7 +135,8 @@ def main():
                     "parameter (bf16 params and grads, fp32 accumulators, "
                     "AdamW's fp32 m and v): qwen2-7b's 28 layers need "
                     "122 GB and fail on one 80 GB card; cut the depth "
-                    "with --layers (4 layers: 32.4 GB)")
+                    "with --layers (4 layers: 32.4 GB).  "
+                    "granite-moe-3b-a800m's 32 need 63.7 GB and fit")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the number of layers")
     ap.add_argument("--steps", type=int, default=100)

@@ -10,8 +10,8 @@ and a gradient wanted, each layer runs under ``torch.utils.checkpoint``
 (``jax.checkpoint`` in the JAX package).
 
 The moe family (granite, arctic) is the dense layer stack with a routed
-expert FFN (``models/moe.py``) in place of the MLP; it is served, not
-trained.  The hybrid family (zamba2) is served, not trained: groups of
+expert FFN (``models/moe.py``) in place of the MLP; it is served and
+trained (its grouped products have a backward kernel).  The hybrid family (zamba2) is served, not trained: groups of
 ``attn_every`` Mamba2 layers, each group followed by the *same* shared
 attention+MLP block, then a tail of Mamba2 layers.  The ssm family (xlstm)
 is served, not trained: ``n_layers / slstm_period`` segments, each

@@ -9,10 +9,17 @@ depends on the call's T, so a decode step of B lanes has its own capacity
 and the lanes of one call share it.  The three expert products run through
 the ``moe_gmm`` grouped matmul with equal groups of C.
 
-The combine is deterministic: each assignment's weighted contribution goes
-back to its (token, k) place, zero where dropped, and the k axis is summed
-in fp32 in a fixed order (the JAX package scatter-adds; ``index_add_`` on
-CUDA would add in another order on every run).
+The combine is deterministic: each assignment's weighted contribution is
+copied back to its (token, k) place, zero where dropped, and the k axis is
+summed in fp32 in a fixed order (the JAX package scatter-adds;
+``index_add_`` on CUDA would add in another order on every run).
+
+Under autograd the dispatch (an index assignment into the buffer), the
+grouped products (``moe_gmm``'s backward) and the combine give the
+reference's gradients: a padding expert's router column gets 0 (its logit
+is masked to -inf before the top-k), and a dropped assignment gives nothing
+(it writes the buffer's overflow row, which is cut off before the
+products, and its place in the combine stays 0).
 
 Expert parallelism (a context with ``ep_axis``): every rank routes the same
 tokens, serves its E/ep experts (at offset idx·E/ep) and the ranks sum
@@ -111,14 +118,22 @@ def _moe_local(params, x_flat, cfg: ModelConfig, n_local: int,
         ROUTING_STATS.append({"tokens": T, "capacity": cap, "order": order,
                               "expert": key_sorted, "keep": keep})
 
-    # combine, in (token, k) order: the inverse of the sort gives each
-    # assignment its slot
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * k, device=dev)
-    rows = ye[slot[inv].clamp(max=n_local * cap - 1)]
-    wgt_kept = torch.where(keep[inv], wgt, 0.0)     # ye's rows are finite
-    return (rows * wgt_kept[:, None]).view(T, k, D).sum(dim=1).to(
-        out_dtype or x_flat.dtype)
+    # combine: each slot's row times its assignment's weight (fp32) is
+    # copied to the assignment's (token, k) place; the slots no assignment
+    # filled go to one more place, cut off, and a dropped assignment's
+    # place stays 0.  Every place is written by at most one slot, so the
+    # backward is a gather: a gather of ye by slot would scatter-add back
+    # into ye, with every dropped assignment on one row, which serialises
+    # on the card (~15 ms a call at a training microbatch's 30,000 drops)
+    n_slots = n_local * cap
+    assign = torch.full((n_slots + 1,), T * k, dtype=order.dtype, device=dev)
+    assign[slot] = order              # dropped ones land on the last entry
+    w_slot = torch.zeros(n_slots + 1, dtype=wgt.dtype, device=dev)
+    w_slot[slot] = wgt[order]
+    contrib = ye * w_slot[:-1, None]
+    placed = torch.zeros((T * k + 1, D), dtype=contrib.dtype, device=dev)
+    placed = placed.index_copy(0, assign[:-1], contrib)
+    return placed[:-1].view(T, k, D).sum(dim=1).to(out_dtype or x_flat.dtype)
 
 
 def _batch_axes(ctx):
@@ -130,7 +145,17 @@ def _batch_axes(ctx):
 
 
 def _moe_ep(params, x_flat, cfg: ModelConfig, ctx):
-    """EP: this rank's experts over every token; partial outputs summed."""
+    """EP: this rank's experts over every token; partial outputs summed.
+    Training through it on the card (its backward through the all-reduce)
+    is not ported and raises; the dry run's count on fake CPU tensors
+    differentiates it."""
+    if x_flat.is_cuda and torch.is_grad_enabled() and (
+            x_flat.requires_grad or any(
+                params[n].requires_grad
+                for n in ("router", "w_gate", "w_up", "w_down"))):
+        raise NotImplementedError(
+            "training through the expert-parallel MoE is not ported to the "
+            "card: it is queued in ROADMAP.md (A3)")
     mesh, axis = ctx.mesh, ctx.ep_axis
     E = cfg.n_experts_padded
     n_local = E // mesh.axes_size(axis)

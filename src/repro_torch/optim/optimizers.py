@@ -6,9 +6,10 @@ new arrays, ``update`` writes the new parameters and state IN PLACE and
 returns the same trees: a full-width model's fp32 moments are 8 B a
 parameter, and a second copy of them is what the in-place update saves.
 Updates run per tensor under ``torch.no_grad``, in fp32, and round once to
-the parameter's dtype.  ``count`` is a 0-d int32 tensor on the parameters'
-device, so the schedules, bias corrections and the whole step need no
-host sync.
+the parameter's dtype, a large leaf in slices (``CHUNK``) so that the
+update's fp32 temporaries stay small.  ``count`` is a 0-d int32 tensor on
+the parameters' device, so the schedules, bias corrections and the whole
+step need no host sync.
 
 Under ZeRO (``train/step.py``'s sharded step) ``update`` gets each rank's
 shard of every parameter and gradient, with ``shards`` saying where each
@@ -63,8 +64,30 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+# Elements a leaf's update handles at once.  A stacked leaf of a full-width
+# model is large (granite-moe-3b-a800m's 32 x 48 experts' gate weights are
+# 1.2 B elements, 4.8 GB in fp32), and each fp32 temporary of a whole-leaf
+# update would be as large; slices of 2^26 bound them at 256 MB.  Leaves
+# below it are one slice, and every element's arithmetic is the same.
+CHUNK = 1 << 26
+
+
+def _slices(*ts):
+    """Matching flat slices of ``ts`` (tensors of one shape), at most
+    ``CHUNK`` elements each; one slice of the whole tensors where they are
+    small or not all contiguous.  Writes to a slice land in its tensor."""
+    n = ts[0].numel()
+    if n <= CHUNK or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, n, CHUNK):
+        yield tuple(f[i:i + CHUNK] for f in flat)
+
+
 def _global_norm(leaves) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    return torch.sqrt(sum(torch.sum(torch.square(c.float()))
+                          for g in leaves for (c,) in _slices(g)))
 
 
 @torch.no_grad()
@@ -111,15 +134,16 @@ def adamw(lr: float | Callable = 3e-4, b1: float = 0.9, b2: float = 0.95,
         cf = count.float()
         bc1 = 1 - b1 ** cf
         bc2 = 1 - b2 ** cf
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                              tree_leaves(state["m"]),
-                              tree_leaves(state["v"])):
-            gf = g.float()
-            m.mul_(b1).add_(gf, alpha=1 - b1)
-            v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
-            pf = p.float()
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * pf
-            p.copy_(pf - lr_t * upd)
+        for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                        tree_leaves(state["m"]), tree_leaves(state["v"])):
+            for p, g, m, v in _slices(*leaf):
+                gf = g.float()
+                m.mul_(b1).add_(gf, alpha=1 - b1)
+                v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
+                pf = p.float()
+                upd = (m / bc1) / (torch.sqrt(v / bc2) + eps) \
+                    + weight_decay * pf
+                p.copy_(pf - lr_t * upd)
         return params, state, gnorm
 
     return Optimizer(init=init, update=update, name="adamw")

@@ -730,18 +730,22 @@ def test_flash_and_decode_take_head_dim_64_and_the_backward_does_not():
     dargs = decode_launch_args(q[:, :, 0], kv, kv, lengths, scale=None,
                                chunk=128)
     assert dargs[:6] == (B, H, H, S, D, 1)
-    # the backward stays at 128: hybrid training is queued in ROADMAP.md
+    # the backward is built at 64 (granite-moe-3b-a800m's training) and
+    # 128; 192 stays refused (queued in ROADMAP.md)
     lse = torch.zeros(B, H, S)
-    grads = [torch.empty_like(q) for _ in range(3)]
+    for d in (64, 128):
+        qd = torch.zeros(B, S, H, d, dtype=torch.bfloat16).transpose(1, 2)
+        bargs = flash_bwd_launch_args(
+            qd, qd, qd, torch.empty_like(qd), lse, qd,
+            *[torch.empty_like(qd) for _ in range(3)], causal=True, window=0,
+            scale=None)
+        assert bargs[:5] == (B, H, H, S, d) and len(bargs) == 5 + 24 + 3
+    q192 = torch.zeros(B, S, H, 192, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError, match="backward"):
-        flash_bwd_launch_args(q, q, q, out, lse, q, *grads, causal=True,
-                              window=0, scale=None)
-    q128 = torch.zeros(B, S, H, 128, dtype=torch.bfloat16).transpose(1, 2)
-    bargs = flash_bwd_launch_args(
-        q128, q128, q128, torch.empty_like(q128), lse, q128,
-        *[torch.empty_like(q128) for _ in range(3)], causal=True, window=0,
-        scale=None)
-    assert bargs[:5] == (B, H, H, S, 128) and len(bargs) == 5 + 24 + 3
+        flash_bwd_launch_args(q192, q192, q192, torch.empty_like(q192), lse,
+                              q192, *[torch.empty_like(q192)
+                                      for _ in range(3)],
+                              causal=True, window=0, scale=None)
 
 
 # ---------------------------------------------------------------------------

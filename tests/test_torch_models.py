@@ -397,13 +397,14 @@ def test_frontend_prefill_decode_match_forward(frontend):
                          ids=["published", "reduced"])
 @pytest.mark.parametrize("arch", FRONTEND_ARCHS)
 def test_card_config_check_frontend_families(arch, published):
-    """On a CUDA device the published configs are taken (internvl2-76b's
-    head dim 128 for training too; musicgen-medium's 64 has no flash
-    backward) and the reduced ones refused, before any allocation."""
+    """On a CUDA device the published configs are taken (for training
+    too: the flash backward is built at internvl2-76b's head dim 128 and
+    musicgen-medium's 64) and the reduced ones refused, before any
+    allocation."""
     cfg = t_get_config(arch)
     if published:
         check_card_config(cfg, "cuda")
-        if cfg.d_head == 128:
+        if cfg.d_head in (64, 128):
             check_card_config(cfg, "cuda", training=True)
         else:
             with pytest.raises(ValueError, match="flash attention at head "

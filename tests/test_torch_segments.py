@@ -921,9 +921,13 @@ def test_two_executors_build_at_once_without_a_trace_failing():
     """Four tenants, each a structure of its own, released together onto
     two executors: every job runs its segments compiled, and no key was
     marked uncompilable (a race between two traces would surface as a
-    silent per-op fallback)."""
+    silent per-op fallback).  Starvation aging is off: the first builds are
+    serialised and can outlast its period on the CPU, and a job that ages
+    past a running one preempts it, whose resumed ops then count as salvage
+    rather than as compiled segments.  Preemption is not under test here,
+    so every report must show none."""
     svc = _svc(n_executors=2, coalesce_window_s=0.0, coalesce_max_jobs=1,
-               autostart=False)
+               autostart=False, aging_s=None)
     try:
         futs = [svc.session(f"t{i}").submit(
             _variant_batch((0.5, 1.0), log1p=bool(i % 2),
@@ -934,5 +938,6 @@ def test_two_executors_build_at_once_without_a_trace_failing():
         assert all("torch-seg" in r.per_backend for r in reps)
         assert svc.plan_cache.snapshot()["uncompilable"] == 0
         assert svc.telemetry.global_snapshot()["super_batches"] == 4
+        assert [r.preemptions for r in reps] == [0] * 4
     finally:
         svc.stop()

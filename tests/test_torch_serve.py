@@ -139,9 +139,9 @@ def test_card_config_check_takes_published_configs(arch):
     cfg = t_get_config(arch)
     check_card_config(cfg, "cuda")
     check_card_config(cfg, torch.device("cuda", 0))
-    # training reaches the flash backward, built at head dim 128 only, and
-    # the SSD scan and the grouped expert matmul, which have no backward
-    if cfg.family == "dense" and cfg.d_head == 128:
+    # training reaches the flash backward, built at head dims 64 and 128,
+    # the grouped expert matmul's backward, and the SSD scan, which has none
+    if cfg.family in ("dense", "moe") and cfg.d_head in (64, 128):
         check_card_config(cfg, "cuda", training=True)
     else:
         with pytest.raises(ValueError, match="has no backward|have no "
@@ -160,9 +160,7 @@ def test_card_config_check_names_missing_backward(arch, training):
     want = []
     if cfg.family in ("ssm", "hybrid"):
         want.append("SSD scan")
-    if cfg.family == "moe":
-        want.append("grouped expert matmul")
-    if cfg.uses_attention and cfg.d_head != 128:
+    if cfg.uses_attention and cfg.d_head not in (64, 128):
         want.append(f"flash attention at head dim {cfg.d_head}")
     if not training or not want:
         check_card_config(cfg, "cuda", training=training)
@@ -214,6 +212,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
+        "repro_torch.kernels.moe_gmm.ops", "repro_torch.kernels.moe_gmm.ref",
+        "repro_torch.kernels.moe_gmm.kernel", "repro_torch.launch.train",
         "repro_torch.models.xlstm", "repro_torch.core.runtime",
         "repro_torch.tabular.impls", "repro_torch.data.tabular",
         "repro_torch.client", "repro_torch.core.backends.torch_segment",
