@@ -197,7 +197,7 @@ Phases, each of which must pass:
              3's slice empty (local length 0).  (b) granite-moe-3b-a800m at
              full width and depth on (1, 4), EP (12 local experts a rank):
              the same, within twice the run's own bf16 floor.  (c) qwen2-7b
-             at 4 layers on (2, 2), tp and fsdp, on the train phase's
+             at 2 layers on (2, 2), tp and fsdp, on the train phase's
              batch: 2 steps within a band of ``make_train_step``'s loss and
              grad norm; the params checkpointed on (2, 2) and restored on
              (1, 4) with equal leaf sums; 4 steps with grad_compress, the
@@ -1021,8 +1021,11 @@ def moe_gmm_bwd_rows(torch, timer, randn, check):
     """The grouped matmul's backward against the plain backward: dx and dw
     at the train step's two shapes (equal groups) and at ragged ones (an
     empty expert, sizes that sum to less than T, T not a multiple of the
-    128-row tile, K and N tails); two calls equal bit for bit; times,
-    bound and torch.bmm on the equal-group views at each train shape."""
+    128-row tile, K and N tails, 48 experts of sizes drawn around 2048 at
+    full width, so that most experts end inside a 64-row slice of dw); a
+    planted tail (moe_gmm_bwd_planted_tail); two calls equal bit for bit at
+    both train shapes; times, bound and torch.bmm on the equal-group views
+    at each train shape."""
     import numpy as np
 
     from repro_torch.kernels.moe_gmm.kernel import moe_gmm_bwd_cuda
@@ -1047,6 +1050,12 @@ def moe_gmm_bwd_rows(torch, timer, randn, check):
         ("48 experts, 1000 rows drawn, 5 empty", 1000, GMM_D, GMM_F,
          [0] * 5 + np.random.default_rng(0).multinomial(
              1000, [1 / (GMM_E - 5)] * (GMM_E - 5)).tolist())]
+    # full width, 48 experts of 1800..2299 rows: 47 of the 48 ends fall
+    # inside a 64-row slice
+    drawn = np.random.default_rng(1).integers(1800, 2300, GMM_E).tolist()
+    cases += [(f"48 experts of {min(drawn)}..{max(drawn)} rows, T "
+               f"{sum(drawn)}, D {d}, F {f}", sum(drawn), d, f, drawn)
+              for d, f in ((GMM_D, GMM_F), (GMM_F, GMM_D))]
     for case, T, d, f, sizes in cases:
         x, dy = randn(T, d), randn(T, f)
         w = (randn(len(sizes), d, f) * d ** -0.5).to(torch.bfloat16)
@@ -1062,6 +1071,7 @@ def moe_gmm_bwd_rows(torch, timer, randn, check):
         if empty and dw[empty].any():
             fail(f"moe_gmm_bwd {case}: an empty expert has dw != 0")
         del x, dy, w, dx, dw, rdx, rdw
+    errs += moe_gmm_bwd_planted_tail(torch, randn, check)
 
     shapes = {}
     for name, (c, d, f) in GMM_BWD_SHAPES.items():
@@ -1069,9 +1079,8 @@ def moe_gmm_bwd_rows(torch, timer, randn, check):
         x, dy = randn(T, d), randn(T, f)
         w = (randn(GMM_E, d, f) * d ** -0.5).to(torch.bfloat16)
         g = sizes_of([c] * GMM_E)
-        if name == "gate/up":
-            same_bits(torch, "moe_gmm_bwd", f"T {T}, D {d}, F {f}",
-                      lambda: moe_gmm_bwd_cuda(x, w, dy, g))
+        same_bits(torch, "moe_gmm_bwd", f"T {T}, D {d}, F {f}",
+                  lambda: moe_gmm_bwd_cuda(x, w, dy, g))
         xb, dyb = x.view(GMM_E, c, d), dy.view(GMM_E, c, f)
         wt = w.transpose(1, 2)
 
@@ -1096,6 +1105,45 @@ def moe_gmm_bwd_rows(torch, timer, randn, check):
                          "differentiate moe_gmm_pallas "
                          "(src/repro/kernels/moe_gmm/kernel.py:61)",
              "max_abs_err": max(errs), **main, "shapes": shapes}]
+
+
+def moe_gmm_bwd_planted_tail(torch, randn, check):
+    """dw's last slice of an expert holds its neighbour's first rows, which
+    the kernel must zero.  At full width, expert 0 ends 6 rows into a
+    64-row slice and expert 1's x and dy rows are +-1e3: a tail read would
+    add ~1e6 an element to dw[0], whose elements are ~10.  dw and dx must
+    match the plain backward; a plain control that also sums expert 1's
+    first row into dw[0] must fail the same check.  w is +-2^-6 and the
+    large rows +-1e3, so that every product and sum of expert 1's dx and dw
+    is exact in fp32 (the check's atol is absolute, and a rounding at 1e6
+    would show as an error there); the other experts' rows are N(0, 1)."""
+    from repro_torch.kernels.common import REL_L2, rel_l2, within
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_bwd_cuda
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_ref
+
+    key = "moe_gmm_bwd/card_bf16"
+    sizes = [70, 130, 45, 67]
+    T, E, lo, hi = sum(sizes), len(sizes), sizes[0], sum(sizes[:2])
+    x, dy = randn(T, GMM_D), randn(T, GMM_F)
+    for t in (x, dy):
+        t[lo:hi] = torch.sign(randn(hi - lo, t.shape[1])) * 1e3
+    w = torch.sign(randn(E, GMM_D, GMM_F)) * 2.0 ** -6
+    g = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    case = f"planted tail: sizes {sizes}, expert 1 at +-1e3"
+    dx, dw = moe_gmm_bwd_cuda(x, w, dy, g)
+    rdx, rdw = moe_gmm_bwd_ref(x, w, dy, g)
+    errs = [check("moe_gmm_bwd", f"{case} dx", dx, rdx),
+            check("moe_gmm_bwd", f"{case} dw", dw, rdw)]
+    control = rdw.clone()
+    control[0] = (x[:lo + 1].float().T @ dy[:lo + 1].float()).to(rdw.dtype)
+    ok, rel = within(control, rdw, key), rel_l2(control, rdw)
+    log(f"    planted control (dw[0] also sums expert 1's first row): "
+        f"rel_l2={rel:.3e} (limit {REL_L2[key]:g}), elementwise check "
+        f"{'passes' if ok else 'fails'}")
+    if ok or rel <= REL_L2[key]:
+        fail("the moe_gmm_bwd check does not reject a dw that reads the "
+             "next expert's first row")
+    return errs
 
 
 def moe_gmm_planted_fault(torch, randn, report):
@@ -2549,13 +2597,18 @@ DIST_QWEN_LIMIT = CONSISTENCY_LIMIT[ARCH, None]
 DIST_MOE_FLOOR_FACTOR = 2.0
 # (c): 2 steps against the single-process step, then 4 with grad_compress
 DIST_TRAIN_STEPS, DIST_COMPRESS_STEPS = 2, 4
+# (c) and (e): qwen2 cut to 2 layers, half the train phase's 4: the parts
+# are bound by gloo on the host, and at 4 layers (c) alone took 216 s of
+# the script's 1200 s limit (H100 80GB HBM3, 700 W); every check of theirs
+# compares with one process at the same depth
+DIST_TRAIN_LAYERS = 2
 DIST_LOSS_RTOL, DIST_GNORM_RTOL = 2e-3, 2e-2
 DIST_CKPT_RTOL = 1e-5
-# (e): Adafactor under ZeRO, qwen2 at 2 layers on (2, 2), tp and fsdp, 2
-# steps against the single-process step (the limits of (c)); lr 1e-3 is
-# pick_optimizer's for Adafactor (an RMS-clipped step of 1e-3 moves the
+# (e): Adafactor under ZeRO, qwen2 at DIST_TRAIN_LAYERS on (2, 2), tp and
+# fsdp, 2 steps against the single-process step (the limits of (c)); lr
+# 1e-3 is pick_optimizer's for Adafactor (an RMS-clipped step of 1e-3 moves the
 # bf16 weights, where (c)'s 1e-5 would leave most of them unchanged)
-DIST_ADAFACTOR_LAYERS, DIST_ADAFACTOR_LR = 2, 1e-3
+DIST_ADAFACTOR_LR = 1e-3
 # ... and what the optimizer computes, held directly after the 2 steps:
 # rank 0's moments (whole on every rank; each leaf's rel L2 against the
 # single-process ones, the worst) within DIST_MOMENT_REL_L2, where a planted
@@ -2586,14 +2639,12 @@ def _dist_expected(part: str) -> dict:
         n = 32
         return {"rmsnorm": (2 * n + 1) * calls, "flash_attention": n,
                 "decode_attention": n * DIST_STEPS, "moe_gmm": 3 * n * calls}
-    if part == "c":                            # train, 4 layers, M 2
-        steps = DIST_TRAIN_STEPS + DIST_COMPRESS_STEPS
-        return {k: v * steps for k, v in TRAIN_EXPECTED.items()
+    if part in ("c", "e"):                     # train, 2 layers, M 2
+        steps = DIST_TRAIN_STEPS + (DIST_COMPRESS_STEPS if part == "c"
+                                    else 0)
+        return {k: v * steps for k, v in
+                train_launches(DIST_TRAIN_LAYERS).items()
                 if k != "cross_entropy" and v}   # the TP loss is plain torch
-    if part == "e":                            # Adafactor, 2 layers, M 2
-        return {k: v * DIST_TRAIN_STEPS for k, v in
-                train_launches(DIST_ADAFACTOR_LAYERS).items()
-                if k != "cross_entropy" and v}
     return {}
 
 
@@ -2648,11 +2699,9 @@ def _dist_serve_ref(torch, np, arch):
 def _dist_train_optimizer(part: str):
     """(config, optimizer) of train part (c) or (e)."""
     from repro_torch.optim import adafactor, adamw
-    if part == "e":
-        return (dataclasses.replace(train_config(),
-                                    n_layers=DIST_ADAFACTOR_LAYERS),
-                adafactor(lr=DIST_ADAFACTOR_LR))
-    return train_config(), adamw(lr=TRAIN_LR)
+    cfg = dataclasses.replace(train_config(), n_layers=DIST_TRAIN_LAYERS)
+    return cfg, (adafactor(lr=DIST_ADAFACTOR_LR) if part == "e"
+                 else adamw(lr=TRAIN_LR))
 
 
 def _train_batch(torch, cfg, device):
@@ -2849,7 +2898,7 @@ def _dist_serve(torch, arch, mesh, ref, band_factor):
 
 
 def _dist_train(torch, device, ref, ckpt_dir):
-    """(c): qwen2 at 4 layers on (2, 2) with tp and fsdp: 2 steps against
+    """(c): qwen2 at 2 layers on (2, 2) with tp and fsdp: 2 steps against
     the single-process step; the params checkpointed on (2, 2) and restored
     on (1, 4); then 4 steps with grad_compress on the repeated batch."""
     import torch.distributed as dist
@@ -2867,7 +2916,7 @@ def _dist_train(torch, device, ref, ckpt_dir):
     from repro_torch.optim import adamw
     from repro_torch.train import make_train_step
 
-    cfg = train_config()
+    cfg, _ = _dist_train_optimizer("c")
     mesh = Mesh.over_world((2, 2), ("data", "model"), device)
     shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     pol = make_policy(cfg, shape, mesh, tp=True, fsdp=True,
@@ -3176,7 +3225,7 @@ def distributed_phase(torch, np, report):
         problems.append("(d) vocab_parallel_ce disagrees with the CE kernel")
     e = [r["e"] for r in ranks]
     log(f"  (e) train (2, 2) tp fsdp, Adafactor under ZeRO, "
-        f"{DIST_ADAFACTOR_LAYERS} layers, lr {DIST_ADAFACTOR_LR:g}: losses "
+        f"{DIST_TRAIN_LAYERS} layers, lr {DIST_ADAFACTOR_LR:g}: losses "
         f"{e[0]['losses']} against {ref['e']['losses']} (rel "
         f"{e[0]['loss_rel']:.3e}, limit {DIST_LOSS_RTOL:g}); grad norms "
         f"{[round(v, 4) for v in e[0]['grad_norms']]} (rel "
@@ -5303,7 +5352,7 @@ OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "dkdv_kernel", "dq_kernel", "ce_tile_kernel", "ce_merge_kernel",
         "ssd_scan_kernel", "ssd_scan_wide_kernel", "ssd_wide_prep_kernel",
         "moe_gmm_kernel",
-        "moe_gmm_decode_kernel", "gmm_dx_kernel", "gmm_dw_kernel")
+        "moe_gmm_decode_kernel", "gmm_dw_kernel")
 
 
 # kernel families by name, for the breakdown of a profile

@@ -13,7 +13,9 @@
 // (48 experts of 2048 rows: T = 98,304; gate and up at D 1536 -> F 512,
 // down at 512 -> 1536): operations.  Each of the two products is
 // 2 · 98,304 · 1536 · 512 = 154.6 GFLOP, 0.156 ms at 989 TFLOP/s, against
-// 478 MB of x, w, dy, dx and dw for both (0.143 ms at 3.35 TB/s).
+// 478 MB of x, w, dy, dx and dw for both (0.143 ms at 3.35 TB/s).  So each
+// product has to run on wgmma, fed by TMA, as the forward's does; the first
+// design (mma.sync, cp.async) sat at 3.8x this bound.
 //
 // The function and its guarantees, for any group sizes:
 //  * rows are sorted by expert; the sizes are read on the device (no host
@@ -22,308 +24,223 @@
 //  * rows past the last group get dx 0 and give nothing to dw; an expert
 //    with no rows gets dw 0;
 //  * deterministic: every output element is written by one block, which
-//    sums its products in a fixed order, with no atomics;
+//    sums its products in a fixed order, with no atomics and no split over
+//    K;
 //  * products of bf16 values are exact in fp32 and summed in fp32 (the
 //    plain version's fp32 products of the same values); one bf16 rounding.
 //
-// Design (simple first; a later change can move it to wgmma and TMA):
-//  * gmm_dx_kernel: the forward's work list with the weight read
-//    transposed in place.  A unit is (expert, 128 rows, 128 columns of
-//    D); dy's rows (K = F contiguous) are the A operand and w[e]'s rows (D
-//    rows, F contiguous) are already the "col" B operand of mma.sync, so
-//    w^T is never formed.
-//    A row tile starts at its expert's first row: rows past the expert's
-//    last are multiplied but never stored; the rows past the last group
-//    are stored as zeros.  The grid is the units' upper bound, (T/128 + E)
-//    row tiles x D/128; blocks past the last unit return at once;
-//  * gmm_dw_kernel: one block per (128 rows of D, 128 columns of F, expert),
-//    which walks the expert's rows 32 at a time and sums x^T · dy over
-//    them (K = the expert's rows); x and dy tiles are read row-major and
-//    transposed by ldmatrix.trans.  Rows past the expert's last are loaded
-//    as zeros, so they add nothing;
-//  * both: 8 warps of 64 x 32 each (16 mma.sync m16n8k16 a 16-deep step),
-//    a 3-stage cp.async ring of 32-deep slices, shared-memory rows padded
-//    by 16 bytes so that the 8 rows an ldmatrix reads fall in distinct
-//    banks; the K and N tails load zeros (D, F multiples of 8: a 16-byte
-//    chunk lies wholly inside or outside).
-#include "common.cuh"
+// Design: both products run moe_gmm.cuh's tile design (a persistent grid,
+// a ring of 3 TMA slices of 64 deep fed by one producer thread, two
+// consumer warpgroups on wgmma m64n256k16, the bulk-copy epilogue):
+//  * dx = dy · w[e]^T is the forward's product with w read K-major: M =
+//    rows, N = D, K = F.  dy's rows are the K-major A operand, as x's are
+//    in the forward, and w[e] as stored (D rows, F contiguous) is wgmma's
+//    K-major B, so w^T is never formed.  moe_gmm_kernel<true> runs it over
+//    the forward's work list: the w map is 3-D over (E, D, F), one box of
+//    64 along F by 256 along D a slice (a box past D or F reads zeros and
+//    never the next expert's rows), and the rows past the last group get
+//    zeros;
+//  * dw[e] = x_e^T · dy_e (gmm_dw_kernel): M = D, N = F, K = the expert's
+//    rows.  x's rows hold M contiguous and dy's hold N contiguous, so both
+//    operands are MN-major (wgmma ss<1, 1>): a slice is two 64 x 64 boxes
+//    of x (one a consumer warpgroup) and four of dy, the forward's 48 KB
+//    stage.  A unit is (expert, 128 rows of D, 256 columns of F), the
+//    units ordered expert by expert, so that the blocks in flight read one
+//    expert's x_e and dy_e from L2; each walks the expert's rows 64 at a
+//    time.  Slices start at the expert's first row and TMA fills zeros only
+//    past T, so the last slice of an expert whose rows are not a multiple
+//    of 64 holds the next expert's first rows: both consumer warpgroups
+//    zero those rows in the x and dy tiles before the products read the
+//    stage (a whole 128-byte row of a swizzled tile is one row's values),
+//    so they add nothing, not even a neighbour's NaN times 0.  An expert
+//    with no rows stores a zero tile.
 #include "moe_gmm.cuh"
-
-#include <limits.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using ll = long long;
+namespace hp = repro::hopper;
+using repro::gmm::BK;
 using repro::gmm::Groups;
-using repro::gmm::MAX_E;
-using repro::gmm::Unit;
-using repro::gmm::find_unit;
+using repro::gmm::P_A_BYTES;
+using repro::gmm::P_BN;
+using repro::gmm::P_BOX;
+using repro::gmm::P_BT;
+using repro::gmm::P_EPI_WARP;
+using repro::gmm::P_SMEM;
+using repro::gmm::P_STAGE_BYTES;
+using repro::gmm::P_STAGES;
+using repro::gmm::P_THREADS;
+using repro::gmm::PRing;
+using repro::gmm::args_ok;
+using repro::gmm::consume_unit;
+using repro::gmm::launch_tiles;
 using repro::gmm::scan_groups;
+using repro::gmm::store_rows;
+using repro::gmm::store_zeros;
+using repro::gmm::tile_map;
 
-constexpr int BM = 128;          // output rows a block
-constexpr int BN = 128;          // output columns a block
-constexpr int BK = 32;           // depth of one slice
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;     // 8 warps: 2 (rows) x 4 (columns)
+// dw's unit: expert e, whose rows are [lo, lo + rows); rows m0.. of dw[e]
+// (over D) and columns n0.. (over F)
+struct DwUnit {
+  int e, lo, rows, m0, n0;
+};
 
-// dx: A = dy rows (BM x BK), B = w[e] rows (BN x BK); K contiguous in both
-constexpr int DX_PITCH = BK + 8;                     // 80-byte rows
-constexpr int DX_TILE = BM * DX_PITCH;               // elements
-constexpr int DX_SMEM = STAGES * 2 * DX_TILE * 2;    // 61,440 bytes
-// dw: A = x rows (BK x BM), B = dy rows (BK x BN); M or N contiguous
-constexpr int DW_PITCH = BM + 8;                     // 272-byte rows
-constexpr int DW_TILE = BK * DW_PITCH;
-constexpr int DW_SMEM = STAGES * 2 * DW_TILE * 2;    // 52,224 bytes
-
-// The warp's 64 x 32 tile of a block's 128 x 128: 4 x 4 m16n8 fragments.
-using Acc = float[4][4][4];
-
-// acc (row 16i + g (+8), column 8j + 2t (+1) of the warp's tile) rounded to
-// bf16 into out, rows [r_lo, r_hi) and columns below n_hi kept.
-__device__ __forceinline__ void store_tile(const Acc& acc, bf16* out,
-                                           ll pitch, int r0, int c0,
-                                           int r_lo, int r_hi, int n_hi,
-                                           int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 16 * i + g + 8 * h;
-      if (r < r_lo || r >= r_hi) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + 8 * j + 2 * t;
-        if (c < n_hi)
-          *reinterpret_cast<uint32_t*>(out + (ll)r * pitch + c) =
-              repro::pack_bf16(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
+__device__ __forceinline__ DwUnit dw_unit(const Groups& s, int u,
+                                          int tiles_per_e, int n_col_tiles) {
+  DwUnit t;
+  t.e = u / tiles_per_e;
+  const int tile = u % tiles_per_e;
+  t.m0 = (tile / n_col_tiles) * P_BT;
+  t.n0 = (tile % n_col_tiles) * P_BN;
+  t.lo = t.e == 0 ? 0 : s.row_end[t.e - 1];
+  t.rows = s.row_end[t.e] - t.lo;
+  return t;
 }
 
 // ---------------------------------------------------------------------------
-// dx = dy · w[e]^T over the forward's work list
+// dw[e] = x_e^T · dy_e: persistent, 128 x 256 tiles of dw[e], K = e's rows
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-    gmm_dx_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
-                  const int* __restrict__ group_sizes, bf16* __restrict__ dx,
-                  int T, int D, int F, int E, int n_col_tiles) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ Groups groups;
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  if (warp == 0) scan_groups<BM>(groups, group_sizes, T, E, lane);
-  __syncthreads();
-  const int u = blockIdx.x;
-  if (u >= groups.tile_end[E] * n_col_tiles) return;
-  const Unit t = find_unit<BM, BN>(groups, u, n_col_tiles, E);
-  const int wm = warp / 4, wn = warp % 4;            // 64-row, 32-col tile
 
-  if (t.g == E) {                                    // past the last group
-    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int c = tid; c < t.nrows * (BN / 8); c += THREADS) {
-      const int col = t.n0 + (c % (BN / 8)) * 8;
-      if (col < D)
-        *reinterpret_cast<uint4*>(dx + (ll)(t.r0 + c / (BN / 8)) * D + col) =
-            zero;
-    }
-    return;
-  }
-
-  const bf16* we = w + (ll)t.g * D * F;
-  const int nk = (F + BK - 1) / BK;
-  // one slice: 128 rows x 4 chunks of A and of B, 4 chunks a thread
-  auto load = [&](int ks) {
-    if (ks < nk) {
-      bf16* a = smem + (ks % STAGES) * 2 * DX_TILE;
-      bf16* b = a + DX_TILE;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = tid + i * THREADS;             // 0..511
-        const int r = c / 4, k = ks * BK + (c % 4) * 8;
-        const int row = t.r0 + r, col = t.n0 + r;
-        const bool ka = k < F;
-        repro::cp_async_16(repro::smem_u32(a + r * DX_PITCH + (c % 4) * 8),
-                           dy + (ll)min(row, T - 1) * F + (ka ? k : 0),
-                           ka && row < T ? 16 : 0);
-        repro::cp_async_16(repro::smem_u32(b + r * DX_PITCH + (c % 4) * 8),
-                           we + (ll)min(col, D - 1) * F + (ka ? k : 0),
-                           ka && col < D ? 16 : 0);
-      }
-    }
-    repro::cp_async_commit();
-  };
-
-  Acc acc = {};
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load(s);
-  for (int ks = 0; ks < nk; ++ks) {
-    repro::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    load(ks + STAGES - 1);
-    const bf16* a = smem + (ks % STAGES) * 2 * DX_TILE;
-    const bf16* b = a + DX_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4][4], bfr[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + 16 * i + (lane % 8) + 8 * ((lane / 8) % 2);
-        const int k = 16 * kk + 8 * (lane / 16);
-        repro::ldmatrix_x4(af[i], repro::smem_u32(a + r * DX_PITCH + k));
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = wn * 32 + 16 * j + (lane % 8) + 8 * (lane / 16);
-        const int k = 16 * kk + 8 * ((lane / 8) % 2);
-        repro::ldmatrix_x4(bfr[j], repro::smem_u32(b + n * DX_PITCH + k));
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          repro::mma_bf16_16816(acc[i][j], af[i], bfr[j / 2][2 * (j % 2)],
-                                bfr[j / 2][2 * (j % 2) + 1]);
-    }
-  }
-  repro::cp_async_wait<0>();
-  store_tile(acc, dx, D, t.r0 + wm * 64, t.n0 + wn * 32, t.r0,
-             t.r0 + t.nrows, D, lane);
-}
-
-// ---------------------------------------------------------------------------
-// dw[e] = x_e^T · dy_e, one block per (128 x 128 tile of dw[e], expert)
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-    gmm_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+// x_map: (T, D), dy_map: (T, F), both with 64 x 64 boxes (64 columns, 64
+// rows); rows past T read zeros.
+__global__ void __launch_bounds__(P_THREADS, 1)
+    gmm_dw_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap dy_map,
                   const int* __restrict__ group_sizes, bf16* __restrict__ dw,
-                  int T, int D, int F, int E, int n_col_tiles) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int bounds[2];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int e = blockIdx.y;
-  const int m0 = (blockIdx.x / n_col_tiles) * BM;    // rows of dw[e]: D
-  const int n0 = (blockIdx.x % n_col_tiles) * BN;    // columns: F
-  if (warp == 0) {
-    // expert e's rows: the sizes before it summed, each at least 0, and
-    // both ends cut at T
-    ll before = 0;
-    for (int i = lane; i < e; i += 32) before += max(group_sizes[i], 0);
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      before += __shfl_xor_sync(0xffffffffu, before, off);
-    if (lane == 0) {
-      const ll lo = min(before, (ll)T);
-      bounds[0] = (int)lo;
-      bounds[1] = (int)min(lo + max(group_sizes[e], 0), (ll)T);
+                  int T, int D, int F, int E, int n_col_tiles,
+                  int tiles_per_e) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Groups groups;
+  __shared__ __align__(8) uint64_t full[P_STAGES];
+  __shared__ __align__(8) uint64_t empty[P_STAGES];
+  const uint32_t raw = hp::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;       // swizzle atoms: 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp == 0) scan_groups<BK>(groups, group_sizes, T, E, lane);
+  if (tid == 32) {
+    for (int i = 0; i < P_STAGES; ++i) {
+      hp::bar_init(&full[i], 1);
+      hp::bar_init(&empty[i], 256);                  // every consumer thread
     }
+    hp::bar_init_fence();
   }
   __syncthreads();
-  const int lo = bounds[0], hi = bounds[1];
-  const int wm = warp / 4, wn = warp % 4;
-  const int nk = (hi - lo + BK - 1) / BK;
 
-  // one slice: 32 rows x 16 chunks of x (columns m0..) and of dy (n0..),
-  // 4 chunks a thread; rows at or past hi read zeros
-  auto load = [&](int ks) {
-    if (ks < nk) {
-      bf16* a = smem + (ks % STAGES) * 2 * DW_TILE;
-      bf16* b = a + DW_TILE;
+  const int n_units = E * tiles_per_e;
+  const int wg = warp / 4;
+  PRing ring;
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load --------------------
+    if (tid == 256) {
+      hp::tma_prefetch_map(&x_map);
+      hp::tma_prefetch_map(&dy_map);
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const DwUnit t = dw_unit(groups, u, tiles_per_e, n_col_tiles);
+        for (int k0 = 0; k0 < t.rows; k0 += BK) {
+          hp::bar_wait(&empty[ring.stage], ring.phase ^ 1);
+          uint64_t* bar = &full[ring.stage];
+          unsigned char* st = smem + ring.stage * P_STAGE_BYTES;
+          hp::bar_arrive_tx(bar, P_STAGE_BYTES);
+          const int row = t.lo + k0;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = tid + i * THREADS;             // 0..511
-        const int r = c / 16, ch = (c % 16) * 8;
-        const int row = lo + ks * BK + r;
-        const bool in = row < hi;
-        const ll src_row = (ll)(in ? row : lo);
-        const int mc = m0 + ch, nc = n0 + ch;
-        repro::cp_async_16(repro::smem_u32(a + r * DW_PITCH + ch),
-                           x + src_row * D + (mc < D ? mc : 0),
-                           in && mc < D ? 16 : 0);
-        repro::cp_async_16(repro::smem_u32(b + r * DW_PITCH + ch),
-                           dy + src_row * F + (nc < F ? nc : 0),
-                           in && nc < F ? 16 : 0);
+          for (int j = 0; j < P_BT / 64; ++j)
+            hp::tma_load_2d(st + j * P_BOX, &x_map, bar, t.m0 + 64 * j, row);
+#pragma unroll
+          for (int j = 0; j < P_BN / 64; ++j)
+            hp::tma_load_2d(st + P_A_BYTES + j * P_BOX, &dy_map, bar,
+                            t.n0 + 64 * j, row);
+          ring.next();
+        }
       }
     }
-    repro::cp_async_commit();
-  };
-
-  Acc acc = {};
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load(s);
-  for (int ks = 0; ks < nk; ++ks) {
-    repro::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    load(ks + STAGES - 1);
-    const bf16* a = smem + (ks % STAGES) * 2 * DW_TILE;
-    const bf16* b = a + DW_TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4][4], bfr[2][4];
-      // A[m][k] = x[k][m]: matrix q of the four is (m half q % 2, k half
-      // q / 2); the stored rows are k, transposed by ldmatrix
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = lane / 8;
-        const int k = 16 * kk + (lane % 8) + 8 * (q / 2);
-        const int m = wm * 64 + 16 * i + 8 * (q % 2);
-        repro::ldmatrix_x4_trans(af[i], repro::smem_u32(a + k * DW_PITCH + m));
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64·wg .. 64·wg + 63 of the
+    // tile: its x box is the wgmma A operand, all four dy boxes are B ------
+    const int ctid = tid - wg * 128;
+    const int w4 = ctid / 32;
+    const uint32_t stg =
+        base + P_STAGES * P_STAGE_BYTES + (4 * wg + w4) * P_EPI_WARP;
+    float acc[P_BN / 2] = {};
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int rows = dw_unit(groups, u, tiles_per_e, n_col_tiles).rows;
+      if (rows > 0) {
+        const int nk = (rows + BK - 1) / BK;
+        const int valid = rows - (nk - 1) * BK;      // e's rows in the last
+        consume_unit<1, 1>(
+            acc, ring, full, empty, base, wg, nk, [&](uint32_t st) {
+              if (valid == BK) return;
+              // rows valid..63 of this warpgroup's x box and of its two dy
+              // boxes (the other warpgroup zeroes the other two), then
+              // every consumer waits for the zeros before the products
+              const int n = (BK - valid) * 8;        // 16-byte chunks a box
+              for (int c = ctid; c < 3 * n; c += 128) {
+                const int box = c / n, i = c % n;
+                const int off = box == 0 ? wg * P_BOX
+                                         : P_A_BYTES + (2 * wg + box - 1) *
+                                                           P_BOX;
+                asm volatile(
+                    "st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(
+                        st + off + (valid + i / 8) * 128 + (i % 8) * 16),
+                    "r"(0)
+                    : "memory");
+              }
+              hp::fence_proxy_async();
+              hp::named_sync(1, 256);
+            });
       }
-      // B[k][n] = dy[k][n]: matrix q is (k half q % 2, n block q / 2)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int q = lane / 8;
-        const int k = 16 * kk + (lane % 8) + 8 * (q % 2);
-        const int n = wn * 32 + 16 * j + 8 * (q / 2);
-        repro::ldmatrix_x4_trans(bfr[j], repro::smem_u32(b + k * DW_PITCH + n));
+      // the unit's place, read again from shared memory after the
+      // products: no register holds it while they run
+      const DwUnit t = dw_unit(groups, u, tiles_per_e, n_col_tiles);
+      bf16* tile = dw + ((ll)t.e * D + t.m0) * F + t.n0;
+      const int m_rows = min(P_BT, D - t.m0);
+      if (t.rows == 0) {
+        store_zeros<P_BN>(tile, F, min(64 * wg, m_rows),
+                          min(64 * wg + 64, m_rows), F - t.n0, ctid, 128);
+        continue;
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          repro::mma_bf16_16816(acc[i][j], af[i], bfr[j / 2][2 * (j % 2)],
-                                bfr[j / 2][2 * (j % 2) + 1]);
+      const int r = 64 * wg + 16 * w4 + lane;
+      store_rows(acc, stg, lane < 16 && r < m_rows ? tile + (ll)r * F : nullptr,
+                 min(P_BN, F - t.n0) * 2, lane);
     }
+    if (lane < 16) hp::bulk_wait();
   }
-  repro::cp_async_wait<0>();
-  store_tile(acc, dw + (ll)e * D * F, F, m0 + wm * 64, n0 + wn * 32, 0, D, F,
-             lane);
 }
 
 }  // namespace
 
 // x: (T, D), w: (E, D, F), dy: (T, F), dx: (T, D), dw: (E, D, F), all bf16
 // contiguous and 16-byte aligned; group_sizes: (E,) int32 on the device.
-// Needs D % 8 == 0, F % 8 == 0, 0 < E <= MAX_E.  Launches gmm_dx_kernel,
-// then gmm_dw_kernel, on `stream`.  Returns 0 or a CUDA error code; -1 for
-// arguments the kernels do not take.
+// Needs D % 8 == 0, F % 8 == 0, 0 < E <= MAX_E.  Launches dx's kernel
+// (moe_gmm_kernel<true>), then gmm_dw_kernel, on `stream`.  Returns 0 or a
+// CUDA error code; -1 for arguments the kernels do not take.
 extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
                            const void* group_sizes, void* dx, void* dw, int T,
                            int D, int F, int E, void* stream) {
-  if (T <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8 || E <= 0 || E > MAX_E)
-    return -1;
-  const int dx_cols = (D + BN - 1) / BN;
-  const ll dx_units = ((ll)(T + BM - 1) / BM + E) * dx_cols;
-  const ll dw_tiles = (ll)((D + BM - 1) / BM) * ((F + BN - 1) / BN);
-  if (dx_units > INT_MAX || dw_tiles > INT_MAX) return -1;
+  if (!args_ok(T, D, F, E)) return -1;
+  const int dw_cols = (F + P_BN - 1) / P_BN;
+  const ll tiles_per_e = (ll)((D + P_BT - 1) / P_BT) * dw_cols;
+  if (tiles_per_e * E > INT_MAX) return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      gmm_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DX_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gmm_dx_kernel<<<(int)dx_units, THREADS, DX_SMEM, s>>>(
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(w),
-      static_cast<const int*>(group_sizes), static_cast<bf16*>(dx), T, D, F,
-      E, dx_cols);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(
-      gmm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gmm_dw_kernel<<<dim3((unsigned)dw_tiles, E), THREADS, DW_SMEM, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-      static_cast<const int*>(group_sizes), static_cast<bf16*>(dw), T, D, F,
-      E, (F + BN - 1) / BN);
+  // dx: dy (T, F) in 128-row boxes, w (E, D, F) in 256-row boxes; dw: x
+  // and dy in 64-row boxes
+  CUtensorMap dym, wm, xm, dyr;
+  if (!tile_map(&dym, dy, T, F, P_BT) || !tile_map(&wm, w, D, F, P_BN, E) ||
+      !tile_map(&xm, x, T, D, 64) || !tile_map(&dyr, dy, T, F, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = launch_tiles<true>(dym, wm, group_sizes, dx, T, F, D, E, s);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      gmm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = (int)std::min(tiles_per_e * E, (ll)hp::sm_count());
+  gmm_dw_kernel<<<grid, P_THREADS, P_SMEM, s>>>(
+      xm, dyr, static_cast<const int*>(group_sizes), static_cast<bf16*>(dw), T,
+      D, F, E, dw_cols, (int)tiles_per_e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@ package's, on the CPU, with JAX's parameters carried across by
 ``params_from_numpy``.
 
 * ``moe_gmm_bwd_ref`` (and its equal-groups form) against ``jax.vjp`` of
-  the JAX ``moe_gmm_ref``, in fp32 and bf16, with equal groups and with
-  ragged sizes that sum to T, an empty group among them.
+  the JAX ``moe_gmm_ref``, in fp32 and bf16, with equal groups, with
+  ragged sizes that sum to T, an empty group among them, and with expert
+  ends off 64-row slices beside a neighbour of large rows.
 * ``moe_gmm`` under autograd on the CPU gives the plain backward's dx and
   dw; the group sizes get no gradient.
 * The flash backward's plain version at granite's head dim 64 and GQA group
@@ -57,8 +58,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 RNG = np.random.default_rng(0)
 
 
-def _np(*shape, scale=1.0):
-    return (RNG.normal(size=shape) * scale).astype(np.float32)
+def _np(*shape, scale=1.0, rng=RNG):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
 
 
 def _close(got, want, key):
@@ -114,10 +115,19 @@ def _batch(jcfg, M, mb, S, seed=5):
 # ---------------------------------------------------------------------------
 
 GMM_CASES = {
-    # name: (D, F, group sizes); every case's sizes sum to T, as the JAX
-    # oracle needs (it hands rows past the groups to the last expert)
-    "equal": (64, 48, [12] * 6),
-    "ragged, an empty group": (32, 24, [5, 0, 17, 1, 9, 0, 3]),
+    # name: (D, F, group sizes, the expert whose rows are large or None);
+    # every case's sizes sum to T, as the JAX oracle needs (it hands rows
+    # past the groups to the last expert)
+    "equal": (64, 48, [12] * 6, None),
+    "ragged, an empty group": (32, 24, [5, 0, 17, 1, 9, 0, 3], None),
+    # every expert ends off a 64-row slice (rows 70, 75, 134, 134, 265: the
+    # card's dw walks an expert's rows 64 at a time from its first), and
+    # expert 1, after expert 0's end, has x and dy rows of +-1e3: a dw[0]
+    # that took its first row would be off by ~1e6.  w is +-2^-6, so that
+    # every product and sum over expert 1's rows is exact in fp32 and the
+    # comparison's absolute atol holds at that scale.
+    "ends off 64-row slices, a large neighbour":
+        (16, 24, [70, 5, 59, 0, 131], 1),
 }
 
 
@@ -129,11 +139,20 @@ def test_moe_gmm_bwd_ref_matches_jax_vjp(case, dtype):
     port's contract (fp32 sums, one rounding); JAX's own bf16 vjp would
     round each row's contribution to dw before the gather's transpose adds
     them."""
-    D, F, sizes = GMM_CASES[case]
+    D, F, sizes, big = GMM_CASES[case]
     T, E = sum(sizes), len(sizes)
     tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
-    x, w, dy = (torch.from_numpy(a).to(tdt) for a in
-                (_np(T, D), _np(E, D, F, scale=D ** -0.5), _np(T, F)))
+    # the large case draws from its own generator: the other tests' inputs
+    # stay as they were
+    rng = RNG if big is None else np.random.default_rng(1)
+    arrays = [_np(T, D, rng=rng), _np(E, D, F, scale=D ** -0.5, rng=rng),
+              _np(T, F, rng=rng)]
+    if big is not None:
+        lo = sum(sizes[:big])
+        for a in (arrays[0], arrays[2]):
+            a[lo:lo + sizes[big]] = np.sign(a[lo:lo + sizes[big]]) * 1e3
+        arrays[1] = np.sign(arrays[1]) * np.float32(2.0 ** -6)
+    x, w, dy = (torch.from_numpy(a).to(tdt) for a in arrays)
     gs = torch.tensor(sizes, dtype=torch.int32)
     _, vjp = jax.vjp(
         lambda x, w: jax_moe_gmm_ref(x, w, jnp.asarray(sizes, jnp.int32)),
