@@ -91,6 +91,19 @@ Phases, each of which must pass:
              card's loss and each gradient leaf against the CPU's fp32 run
              on the same parameters, within twice the CPU's own bf16 run's
              distance from it.
+12c. train_hybrid — zamba2-1.2b at its published width and depth (38
+             Mamba2 layers in 6 groups of 6, the shared attention+MLP block
+             after each group, a tail of 2: 1.17 B parameters, 18.7 GB of
+             training state), through ``init_params``, ``adamw`` and
+             ``make_train_step`` with the layer-granular remat: the train
+             phase's batch 4 times at a constant lr; the loss must fall at
+             every step and each kernel's launches match the path exactly
+             (the SSD scan and its backward kernel at N = P = 64, the flash
+             backward at head dim 64, group 1).  It reports the step time,
+             tokens/s and peak memory.  Then, at 7 layers (one group, the
+             shared block once, a tail of 1), the card's loss and each
+             gradient leaf against the CPU's fp32 run, within twice the
+             CPU's own bf16 run's distance from it.
 13. consistency_audio, serve_audio — phases 4 and 5 for musicgen-medium
              (audio: the dense stack fed by precomputed EnCodec-frame
              embeddings, no embedding table) at its published width and
@@ -190,11 +203,11 @@ Phases, each of which must pass:
              weights each rank draws only its shards of, one layer at a
              time; meshes built per part from the one world.  First the
              single-process references in this process.  (a) qwen2-7b at
-             full width and depth on (1, 4), tp on: prefill 8 x 1024 into a
-             2048 cache sharded by sequence, then 16 decode steps fed the
-             reference's greedy tokens; every call's logits within rel L2
-             2e-2 of one process and the tokens within its tie band; rank
-             3's slice empty (local length 0).  (b) granite-moe-3b-a800m at
+             full width, cut to 2 layers, on (1, 4), tp on: prefill 8 x
+             1024 into a 2048 cache sharded by sequence, then 16 decode
+             steps fed the reference's greedy tokens; every call's logits
+             within rel L2 2e-2 of one process and the tokens within its
+             tie band; rank 3's slice empty (local length 0).  (b) granite-moe-3b-a800m at
              full width and depth on (1, 4), EP (12 local experts a rank):
              the same, within twice the run's own bf16 floor.  (c) qwen2-7b
              at 2 layers on (2, 2), tp and fsdp, on the train phase's
@@ -280,9 +293,9 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "serve_moe", "consistency_ssm", "serve_ssm",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
-          "train", "train_moe", "consistency_audio", "serve_audio", "consistency_vlm",
-          "serve_vlm", "tabular", "agentic", "service", "fabric",
-          "distributed", "dryrun")
+          "train", "train_moe", "train_hybrid", "consistency_audio",
+          "serve_audio", "consistency_vlm", "serve_vlm", "tabular",
+          "agentic", "service", "fabric", "distributed", "dryrun")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # device memory.  Bounds are stated against these.
@@ -627,6 +640,7 @@ def kernel_phase(torch, timer, report):
                                         ("internvl2", (64, 8, 128)))}})
     torch.cuda.empty_cache()
     rows += ssd_rows(torch, timer, randn, check, report)
+    rows += ssd_bwd_rows(torch, timer, randn, report)
     rows += moe_gmm_rows(torch, timer, randn, check, report)
     rows += moe_gmm_bwd_rows(torch, timer, randn, check)
     rows += train_kernel_rows(torch, timer, randn, check, gen, report)
@@ -893,6 +907,208 @@ def ssd_planted_fault(torch, report, name, *cases):
     if not res["s_final_rel_l2"] > REL_L2["ssd_state/card_fp32"]:
         fail(f"the SSD state check does not reject a {name} that drops "
              "the inter-chunk term")
+
+
+# The SSD backward's cases (B, H, S, gates[, layout], ds_final): the train
+# step's shape (B 4, H 64, S 2048, b and c shared by the heads), a ragged S
+# with the state carrying and a nonzero ds_final, l falling by > 128 in
+# every chunk, per-head b and c at an odd H, one row.  dy is a (B, H, S, 64)
+# view of a (B, S, H, 64) tensor, as autograd hands it back through the
+# Mamba2 block's transpose.
+SSD_BWD_CASES = ((4, 64, 2048, "path", None, False),
+                 (2, 5, 1000, "slow", None, True),
+                 (1, 7, 1001, "overflow", None, False),
+                 (2, 5, 300, "slow", "per-head", True),
+                 (2, 3, 1, "slow", None, True))
+SSD_BWD_OUT = ("dc", "db", "dx", "dlog_a", "dgate")
+# autograd's gradients of the shared c and b against the plain version's
+# summed over the heads: this many times the rel L2 that casting the plain
+# per-head gradients to bf16 and folding them makes alone
+SSD_BWD_FOLD_FACTOR = 2.0
+
+
+def ssd_bwd_case(torch, randn, B, H, S, gates, layout, ds):
+    """(inputs, dy, ds_final) of the SSD backward (``ssd_case``'s inputs)."""
+    inputs = ssd_case(torch, randn, B, H, S, gates, layout == "per-head")
+    dy = randn(B, S, H, 64).transpose(1, 2)
+    return inputs, dy, (randn(B, H, 64, 64, dtype=torch.float32) if ds
+                        else None)
+
+
+def ssd_bwd_limits(name: str) -> str:
+    """The key of an SSD backward output's limits: dlog_a, a reverse sum
+    over the rows, has its own."""
+    return ("ssd_scan_bwd_dlog_a" if name == "dlog_a"
+            else "ssd_scan_bwd") + "/card_fp32"
+
+
+def ssd_bwd_check(torch, case, got, want, quiet=False):
+    """Each of the backward's five outputs against the plain version's
+    under its limits; {output: (within the limits, elementwise ok, rel L2,
+    max abs err)}.  The rel L2 divides by ‖want‖ or by the elementwise
+    atol's norm over the tensor, whichever is larger: dlog_a's first row is
+    0 in exact arithmetic (S before the first row is 0), so at S 1 the
+    plain version's dlog_a is rounding alone, which the atol holds."""
+    from repro_torch.kernels.common import (REL_L2, TOLERANCES, max_abs_err,
+                                            within)
+    out = {}
+    for name, g, w in zip(SSD_BWD_OUT, got, want):
+        key = ssd_bwd_limits(name)
+        scale = max(float(w.norm()), TOLERANCES[key][0] * w.numel() ** 0.5)
+        elem, rel = within(g, w, key), float((g - w).norm()) / scale
+        out[name] = (elem and rel <= REL_L2[key], elem, rel,
+                     max_abs_err(g, w))
+        if not quiet:
+            atol, rtol = TOLERANCES[key]
+            verdict = "ok" if out[name][0] else "OUT OF TOLERANCE"
+            log(f"  {'ssd_scan_bwd':19s} {case + ' ' + name:44s} "
+                f"max_abs_err={out[name][3]:.3e} (tolerance {atol:g} + "
+                f"{rtol:.4g}*|ref|) rel_l2={rel:.3e} (limit "
+                f"{REL_L2[key]:g}) {verdict}")
+    return out
+
+
+def ssd_bwd_rows(torch, timer, randn, report):
+    """The SSD backward kernel against ``ssd_bwd_ref`` on the same inputs:
+    every output elementwise and by rel L2; ``ssd_scan`` under autograd
+    launches it; two calls equal bit for bit; two planted faults; time and
+    bound at the train step's shape (the first case)."""
+    from repro_torch.kernels.common import launches, rel_l2
+    from repro_torch.kernels.ssd.kernel import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_bwd_ref
+
+    errs = []
+    for B, H, S, gates, layout, ds in SSD_BWD_CASES:
+        inputs, dy, ds_final = ssd_bwd_case(torch, randn, B, H, S, gates,
+                                            layout, ds)
+        case = (f"B{B} H{H} S{S} {gates}{' ' + layout if layout else ''}"
+                f"{' ds_final' if ds else ''}")
+        got = ssd_scan_bwd_cuda(*inputs, dy, ds_final)
+        if not all(torch.isfinite(g).all() for g in got):
+            fail(f"ssd_scan_bwd {case}: non-finite output")
+        res = ssd_bwd_check(torch, case, got,
+                            ssd_bwd_ref(*inputs, dy, ds_final))
+        report.setdefault("rel_l2", {}).update(
+            {f"ssd_scan_bwd {case} {k}": v[2] for k, v in res.items()})
+        errs += [v[3] for v in res.values()]
+        bad = [k for k, v in res.items() if not v[0]]
+        if bad:
+            fail(f"ssd_scan_bwd {case}: {bad} disagree with the plain "
+                 "version")
+        del inputs, dy, ds_final, got
+
+    B, H, S, gates, layout, ds = SSD_BWD_CASES[0]
+    inputs, dy, _ = ssd_bwd_case(torch, randn, B, H, S, gates, layout, ds)
+    got = ssd_scan_bwd_cuda(*inputs, dy)
+    # ssd_scan under autograd as the Mamba2 block calls it: c and b
+    # head-stride-0 expands of (B, S, 64) leaves.  One launch of the
+    # backward kernel; x's and the gates' gradients are the kernel's cast
+    # to their types, c's and b's its per-head ones cast to bf16 and folded
+    # over the heads by the expand's backward, held against the plain
+    # version's summed over the heads within twice the rel L2 of that
+    # rounding alone (the plain version's per-head gradients cast to bf16
+    # and folded)
+    shared = [t[:, 0].detach().clone().requires_grad_() for t in inputs[:2]]
+    rest = [t.detach().clone().requires_grad_() for t in inputs[2:]]
+    before = launches()["ssd_scan_bwd"]
+    y, _ = ssd_scan(*[t[:, None].expand(B, H, S, 64) for t in shared],
+                    *rest)
+    y.backward(dy)
+    n = launches()["ssd_scan_bwd"] - before
+    same = all(torch.equal(t.grad, g.to(t.dtype))
+               for t, g in zip(rest, got[2:]))
+    want = ssd_bwd_ref(*inputs, dy)
+    folds = {}
+    for name, t, w in zip(SSD_BWD_OUT, shared, want):
+        rel, floor = (rel_l2(t.grad, w.sum(1)),
+                      rel_l2(w.to(t.dtype).sum(1), w.sum(1)))
+        folds[name] = (rel, floor)
+        ok = rel <= SSD_BWD_FOLD_FACTOR * floor
+        log(f"  {'ssd_scan_bwd':19s} {'autograd, folded ' + name:44s} "
+            f"rel_l2={rel:.3e} (limit {SSD_BWD_FOLD_FACTOR:g} x the bf16 "
+            f"fold's {floor:.3e}) {'ok' if ok else 'OUT OF TOLERANCE'}")
+    report["ssd_scan_bwd folded"] = folds
+    log(f"  {'ssd_scan_bwd':19s} {'autograd through ssd_scan':44s} launches "
+        f"{n}, x and gate gradients the kernel's: {same}")
+    if n != 1 or not same:
+        fail("ssd_scan under autograd did not run the backward kernel")
+    if any(rel > SSD_BWD_FOLD_FACTOR * floor for rel, floor in folds.values()):
+        fail("ssd_scan under autograd: the folded gradients of the shared c "
+             "and b disagree with the plain version's")
+    del shared, rest, y, got, want
+    same_bits(torch, "ssd_scan_bwd", f"B{B} H{H} S{S}",
+              lambda: ssd_scan_bwd_cuda(*inputs, dy))
+    ssd_bwd_planted_faults(torch, randn, report)
+    N = P = L = 64
+    # the chunked form on the tensor cores, over whole 64-row chunks: each
+    # of the forward's products (c bᵀ, its masked product with x, c S and
+    # the state's update bᵀ x) has two of its size in the backward, which
+    # also computes c bᵀ and the chunks' states again from its inputs
+    fwd = 2 * L * L * N + 2 * L * L * P + 4 * L * N * P
+    flops = B * H * -(-S // L) * (2 * fwd + 2 * L * L * N + 2 * L * N * P)
+    # x and dy read and dx written in bf16; c and b read and dc, db written
+    # in bf16 once (shared by the heads: the expand's backward folds the
+    # gradient); the gates read and dlog_a, dgate written in fp32
+    c_heads = H if inputs[0].stride(1) else 1
+    bytes_moved = (3 * B * H * S * P * 2 + 4 * B * c_heads * S * N * 2
+                   + 4 * B * H * S * 4)
+    b_ms, b_by = bound(bytes_moved, flops, PEAK_BF16)
+    row = {"name": "ssd_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+           "replaces": "no Pallas counterpart: the JAX package cannot "
+                       "differentiate ssd_scan_pallas "
+                       "(src/repro/kernels/ssd/kernel.py:92)",
+           "max_abs_err": max(errs),
+           "ms": timer.ms(lambda: ssd_scan_bwd_cuda(*inputs, dy)),
+           "plain_ms": timer.ms(lambda: ssd_bwd_ref(*inputs, dy), iters=2,
+                                warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None,   # no one PyTorch call computes it
+           "flop": flops, "bytes": bytes_moved}
+    del inputs, dy
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def ssd_bwd_planted_faults(torch, randn, report):
+    """The backward's check must reject a wrong kernel, at the ragged case
+    whose state carries (B 2, H 5, S 1000, slow decay, a nonzero ds_final).
+    (1) Launched on each 128-row slice alone, the kernel starts every
+    slice's state and G from 0: it runs as if the carried terms were
+    dropped at those boundaries, with no edit to its source.  (2) The
+    kernel's dlog_a less <ds_final, S_last>: the term a kernel that forgot
+    it would lack."""
+    from repro_torch.kernels.common import REL_L2
+    from repro_torch.kernels.ssd.kernel import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_bwd_ref, ssd_ref
+
+    inputs, dy, ds = ssd_bwd_case(torch, randn, *SSD_BWD_CASES[1])
+    S = inputs[2].shape[2]
+    want = ssd_bwd_ref(*inputs, dy, ds)
+    parts = [ssd_scan_bwd_cuda(*[t[:, :, i:i + SSD_L] for t in inputs],
+                               dy[:, :, i:i + SSD_L],
+                               ds if i + SSD_L >= S else None)
+             for i in range(0, S, SSD_L)]
+    sliced = [torch.cat([p[k] for p in parts], dim=2) for k in range(5)]
+    res1 = ssd_bwd_check(torch, "", sliced, want, quiet=True)
+    got = list(ssd_scan_bwd_cuda(*inputs, dy, ds))
+    s_last = ssd_ref(*inputs)[1]
+    got[3] = got[3] - (ds * s_last).sum((-2, -1))[..., None]
+    res2 = ssd_bwd_check(torch, "", got, want, quiet=True)
+    for label, res in (("(carried terms dropped at 128-row slices)", res1),
+                       ("(<ds_final, S_last> dropped from dlog_a)", res2)):
+        log(f"    planted fault {label}: " + ", ".join(
+            f"{k} rel_l2 {v[2]:.3e} (limit {REL_L2[ssd_bwd_limits(k)]:g}), "
+            f"elementwise {'passes' if v[1] else 'fails'}"
+            for k, v in res.items()))
+    report["planted_fault ssd_scan_bwd"] = {"slices": res1, "ds_term": res2}
+    if any(v[0] for v in res1.values()):
+        fail("the SSD backward's check does not reject a kernel that drops "
+             "the carried terms")
+    if res2["dlog_a"][0]:
+        fail("the SSD backward's check does not reject a dlog_a without "
+             "<ds_final, S_last>")
 
 
 def ssd_wide_case(torch, randn, B, H, S, gates="path", shared=False):
@@ -1273,7 +1489,8 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
             (2, 24, 8, 1001, 64, True, 0),    # ragged S, group 3
             (1, 24, 8, 129, 64, True, 0),     # one row past a tile, D 64
             (1, 6, 2, 300, 64, False, 0),     # not causal, D 64
-            (1, 24, 8, 300, 64, True, 64)):   # windowed, D 64
+            (1, 24, 8, 300, 64, True, 64),    # windowed, D 64
+            (4, 32, 32, 2048, 64, True, 0)):  # zamba2's train step, group 1
         q, k, v = bshd(B, S, Hq, D), bshd(B, S, Hkv, D), bshd(B, S, Hkv, D)
         do = bshd(B, S, Hq, D)
         opts = dict(causal=causal, window=window)
@@ -1321,8 +1538,8 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
         torch.cuda.empty_cache()
         return out
 
-    # qwen2-7b's train step (D 128, group 7) and granite-moe-3b-a800m's
-    # (D 64, 24 q heads over 8)
+    # qwen2-7b's train step (D 128, group 7), granite-moe-3b-a800m's (D 64,
+    # 24 q heads over 8) and zamba2-1.2b's (D 64, 32 over 32)
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -1331,7 +1548,8 @@ def train_kernel_rows(torch, timer, randn, check, gen, report):
                     "(src/repro/kernels/flash_attention/kernel.py:103)",
         "max_abs_err": max(errs),
         **flash_bwd_timings(4, 28, 4, 2048, 128, planted=True),
-        "shapes": {"granite D64": flash_bwd_timings(4, 24, 8, 2048, 64)}})
+        "shapes": {"granite D64": flash_bwd_timings(4, 24, 8, 2048, 64),
+                   "zamba2 D64": flash_bwd_timings(4, 32, 32, 2048, 64)}})
 
     # ---- rmsnorm backward ------------------------------------------------
     # the train step's (8192, 3584) bf16 (the bulk path: two blocks an SM,
@@ -1924,7 +2142,7 @@ EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
             "decode_attention": 28 * 128, "cross_entropy": 0,
             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
             "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm": 0,
-            "moe_gmm_bwd": 0}
+            "moe_gmm_bwd": 0, "ssd_scan_bwd": 0}
 # zamba2-1.2b: 38 Mamba2 layers in 6 groups of 6 and a tail of 2, the shared
 # block after each group.  A pass runs 51 rmsnorms (one per Mamba2 layer,
 # two per shared block, the final one); a prefill wave 6 flash and 38 SSD
@@ -1934,7 +2152,8 @@ HYBRID_EXPECTED = {"rmsnorm": (38 + 2 * 6 + 1) * (2 + 128),
                    "flash_attention": 6 * 2, "decode_attention": 6 * 128,
                    "ssd_scan": 38 * 2, "cross_entropy": 0,
                    "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0,
-                   "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm_bwd": 0}
+                   "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm_bwd": 0,
+                   "ssd_scan_bwd": 0}
 # granite-moe-3b-a800m: 32 layers, each 2 rmsnorms and 3 grouped matmuls (the
 # experts' gate, up and down products), and the final norm: a pass (a
 # prefill wave or a decode step) is 65 rmsnorm and 96 moe_gmm launches.
@@ -1942,7 +2161,7 @@ MOE_EXPECTED = {"rmsnorm": (2 * 32 + 1) * (2 + 128), "flash_attention": 32 * 2,
                 "decode_attention": 32 * 128, "moe_gmm": 96 * (2 + 128),
                 "ssd_scan": 0, "cross_entropy": 0, "flash_attention_bwd": 0,
                 "rmsnorm_bwd": 0, "ssd_scan_wide": 0, "ssd_wide_prep": 0,
-                "moe_gmm_bwd": 0}
+                "moe_gmm_bwd": 0, "ssd_scan_bwd": 0}
 # xlstm-1.3b: 6 segments of 7 mLSTM blocks and one sLSTM block.  A pass (a
 # prefill wave or a decode step) runs 49 rmsnorms (one per block, the final
 # one); a prefill wave runs the wide SSD scan once per mLSTM block, 42, each
@@ -1953,14 +2172,15 @@ SSM_EXPECTED = {"rmsnorm": (48 + 1) * (2 + 128), "ssd_scan_wide": 42 * 2,
                 "ssd_wide_prep": 42 * 2, "flash_attention": 0,
                 "decode_attention": 0, "ssd_scan": 0, "cross_entropy": 0,
                 "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0,
-                "moe_gmm_bwd": 0}
+                "moe_gmm_bwd": 0, "ssd_scan_bwd": 0}
 # starcoder2-15b: 40 layers, each 2 rmsnorms, one flash launch a prefill wave
 # and one decode launch a step, and the final norm.
 STARCODER_EXPECTED = {"rmsnorm": (2 * 40 + 1) * (2 + 128),
                       "flash_attention": 40 * 2, "decode_attention": 40 * 128,
                       "cross_entropy": 0, "flash_attention_bwd": 0,
                       "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_wide": 0,
-                      "ssd_wide_prep": 0, "moe_gmm": 0, "moe_gmm_bwd": 0}
+                      "ssd_wide_prep": 0, "moe_gmm": 0, "moe_gmm_bwd": 0,
+                      "ssd_scan_bwd": 0}
 # nemotron-4-340b at NEMOTRON_LAYERS = 4 layers: the same per layer
 NEMOTRON_EXPECTED = {**STARCODER_EXPECTED,
                      "rmsnorm": (2 * NEMOTRON_LAYERS + 1) * (2 + 128),
@@ -2175,7 +2395,8 @@ def train_launches(layers: int, moe: bool = False) -> dict:
             "cross_entropy": TRAIN_MB, "decode_attention": 0, "ssd_scan": 0,
             "ssd_scan_wide": 0, "ssd_wide_prep": 0,
             "moe_gmm": TRAIN_MB * 3 * layers * 2 if moe else 0,
-            "moe_gmm_bwd": TRAIN_MB * 3 * layers if moe else 0}
+            "moe_gmm_bwd": TRAIN_MB * 3 * layers if moe else 0,
+            "ssd_scan_bwd": 0}
 
 
 # per step at L = 4, M = 2
@@ -2478,18 +2699,27 @@ def train_moe_phase(torch, np, report):
 
 def train_moe_grad_check(torch, np, report):
     """At TRAIN_MOE_CHECK's 2 layers with every expert chosen, the card's
-    loss and every gradient leaf against the CPU's fp32 run on the same
-    parameters and tokens, each within TRAIN_MOE_FLOOR_FACTOR of the CPU's
-    own bf16 run's distance from that fp32 run."""
+    loss and every gradient leaf against the CPU's fp32 run (``grad_check``)."""
+    c = TRAIN_MOE_CHECK
+    cfg = dataclasses.replace(train_moe_config(c["layers"]),
+                              top_k=train_moe_config().n_experts)
+    grad_check(torch, report, "train_moe_grad_check", cfg, c,
+               TRAIN_MOE_FLOOR_FACTOR,
+               f"2 layers, top_k {cfg.top_k}", {"top_k": cfg.top_k})
+
+
+def grad_check(torch, report, key, cfg, c, factor, what, extra=None):
+    """The card's loss and every gradient leaf of ``cfg`` (bf16) on
+    ``c["batch"]`` x ``c["seq"]`` tokens against the CPU's fp32 run on the
+    same parameters and tokens, each within ``factor`` times the CPU's own
+    bf16 run's distance from that fp32 run (the floor); the loss within
+    that factor of its floor or of half a bf16 ulp, whichever is larger."""
     from repro_torch.data.lm import DataConfig, global_batch_at
     from repro_torch.distributed.policy import tree_leaves_with_path
     from repro_torch.kernels.common import rel_l2
     from repro_torch.models import init_params, loss_fn
     from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-    c = TRAIN_MOE_CHECK
-    cfg = dataclasses.replace(train_moe_config(c["layers"]),
-                              top_k=train_moe_config().n_experts)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     data = DataConfig(vocab=cfg.vocab, seq_len=c["seq"],
                       global_batch=c["batch"], microbatches=1, seed=1)
@@ -2515,38 +2745,145 @@ def train_moe_grad_check(torch, np, report):
     cpu32 = tree_map(lambda t: t.detach().float().cpu(), card)
     del card
     torch.cuda.empty_cache()
+    walls = [time.perf_counter() - t0]
     want_loss, want = run(cpu32, cfg32, "cpu")
+    walls.append(time.perf_counter() - t0 - sum(walls))
     ref_loss, ref = run(cpu16, cfg, "cpu")
+    walls.append(time.perf_counter() - t0 - sum(walls))
     loss_err = abs(got_loss - want_loss) / abs(want_loss)
     loss_floor = abs(ref_loss - want_loss) / abs(want_loss)
-    loss_limit = TRAIN_MOE_FLOOR_FACTOR * max(loss_floor, 2.0 ** -9)
+    loss_limit = factor * max(loss_floor, 2.0 ** -9)
     rows, bad = {}, []
     for name, g, w, r in zip(names, got, want, ref):
         err, floor = rel_l2(g, w), rel_l2(r, w)
         rows[name] = {"rel_l2": err, "floor": floor}
-        ok = err <= TRAIN_MOE_FLOOR_FACTOR * floor
+        ok = err <= factor * floor
         if not ok:
             bad.append(name)
         log(f"    {name:24s} rel_l2 {err:.3e}  floor {floor:.3e}  "
             f"{'ok' if ok else 'OUT OF BOUND'}")
-    log(f"  2 layers, top_k {cfg.top_k}, {c['batch']} x {c['seq']} tokens: "
-        f"loss card {got_loss:.6f}, CPU fp32 {want_loss:.6f} (rel err "
-        f"{loss_err:.3e}, limit {loss_limit:.3e}; CPU bf16 {ref_loss:.6f}, "
-        f"floor {loss_floor:.3e}); {len(rows)} gradient leaves within "
-        f"{TRAIN_MOE_FLOOR_FACTOR:g} x their floor: {not bad} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    report["train_moe_grad_check"] = {
-        "layers": c["layers"], "top_k": cfg.top_k, "tokens": c["batch"] *
-        c["seq"], "loss": {"card": got_loss, "cpu_fp32": want_loss,
-                           "cpu_bf16": ref_loss, "rel_err": loss_err,
-                           "floor": loss_floor, "limit": loss_limit},
-        "leaves": rows, "factor": TRAIN_MOE_FLOOR_FACTOR}
+    log(f"  {what}, {c['batch']} x {c['seq']} tokens: loss card "
+        f"{got_loss:.6f}, CPU fp32 {want_loss:.6f} (rel err {loss_err:.3e}, "
+        f"limit {loss_limit:.3e}; CPU bf16 {ref_loss:.6f}, floor "
+        f"{loss_floor:.3e}); {len(rows)} gradient leaves within "
+        f"{factor:g} x their floor: {not bad} (card, CPU fp32, CPU bf16 "
+        f"{', '.join(f'{w:.1f}' for w in walls)} s)")
+    report[key] = {
+        "layers": cfg.n_layers, **(extra or {}),
+        "tokens": c["batch"] * c["seq"],
+        "loss": {"card": got_loss, "cpu_fp32": want_loss,
+                 "cpu_bf16": ref_loss, "rel_err": loss_err,
+                 "floor": loss_floor, "limit": loss_limit},
+        "leaves": rows, "factor": factor, "walls_s": walls}
     if loss_err > loss_limit:
-        fail(f"the card's MoE loss is off the CPU's fp32 loss by {loss_err} "
-             f"(limit {loss_limit})")
+        fail(f"{key}: the card's loss is off the CPU's fp32 loss by "
+             f"{loss_err} (limit {loss_limit})")
     if bad:
-        fail(f"MoE gradients off the CPU's fp32 run beyond "
-             f"{TRAIN_MOE_FLOOR_FACTOR:g} x their bf16 floor: {bad}")
+        fail(f"{key}: gradients off the CPU's fp32 run beyond {factor:g} x "
+             f"their bf16 floor: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12c: training zamba2-1.2b, full width and depth
+# ---------------------------------------------------------------------------
+
+# constant lr, as TRAIN_LR and TRAIN_MOE_LR
+TRAIN_HYBRID_LR = 1e-5
+# the card-against-CPU gradient check (as TRAIN_MOE_CHECK): 7 layers (one
+# group of 6, the shared block once, a tail of 1), 2 x 256 tokens
+TRAIN_HYBRID_CHECK = dict(layers=7, seq=256, batch=2)
+TRAIN_HYBRID_FLOOR_FACTOR = 2.0
+
+
+def hybrid_train_launches(cfg) -> dict:
+    """Launches of one zamba2 step at M = TRAIN_MB under the layer-granular
+    remat (``models/model.py:_hybrid_trunk``): each Mamba2 layer's rmsnorm
+    and SSD scan and each shared-block application's 2 rmsnorms and flash
+    forward run twice (the forward, then again in the backward); the final
+    norm and the CE head once; every backward once."""
+    from repro_torch.models.model import hybrid_layout
+    apps = hybrid_layout(cfg)[0]
+    norms = cfg.n_layers + 2 * apps
+    return {**train_launches(0), "rmsnorm": TRAIN_MB * (2 * norms + 1),
+            "rmsnorm_bwd": TRAIN_MB * (norms + 1),
+            "flash_attention": TRAIN_MB * 2 * apps,
+            "flash_attention_bwd": TRAIN_MB * apps,
+            "ssd_scan": TRAIN_MB * 2 * cfg.n_layers,
+            "ssd_scan_bwd": TRAIN_MB * cfg.n_layers}
+
+
+def train_hybrid_phase(torch, np, report):
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    from repro_torch.kernels.common import launches, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.models.model import hybrid_layout
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(HYBRID_ARCH)
+    groups, per, tail = hybrid_layout(cfg)
+    n = allocated_params(cfg)
+    log(f"  {HYBRID_ARCH} published width and depth: {cfg.n_layers} Mamba2 "
+        f"layers in {groups} groups of {per}, the shared attention+MLP "
+        f"block after each group, a tail of {tail}; {n / 1e9:.3f} B "
+        f"parameters x {TRAIN_STATE_B} B = {n * TRAIN_STATE_B / 1e9:.1f} GB "
+        f"of state; remat={cfg.remat} (each layer), {cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    step = make_train_step(cfg, adamw(lr=TRAIN_HYBRID_LR))
+    opt_state = step.init_opt_state(params)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, microbatches=TRAIN_MB,
+                      seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in global_batch_at(data, 0).items()}
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    losses, times, norms = [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"].item()))
+        norms.append(float(metrics["grad_norm"].item()))
+        times.append(time.perf_counter() - t0)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(times[1:])) * 1e3
+    log(f"  lr {TRAIN_HYBRID_LR:g}  losses {[round(v, 4) for v in losses]}  "
+        f"grad norms {[round(v, 3) for v in norms]}")
+    log(f"  step ms {[round(t * 1e3, 1) for t in times]}  (median after the "
+        f"first: {step_ms:.1f} ms)  tokens/s {tokens / step_ms * 1e3:.0f}  "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"  launches {counts}")
+    expected = {k: v * TRAIN_STEPS for k, v in
+                hybrid_train_launches(cfg).items()}
+    report["train_hybrid"] = {
+        "layers": cfg.n_layers, "lr": TRAIN_HYBRID_LR, "params": n,
+        "tokens_per_step": tokens, "losses": losses, "grad_norms": norms,
+        "step_s": times, "step_ms": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3, "peak_bytes": peak,
+        "launches": counts}
+    del params, opt_state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite hybrid training loss {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"the hybrid loss did not fall at every step on a repeated "
+             f"batch: {losses}")
+    if counts != expected:
+        fail(f"train_hybrid launch counts {counts}, expected {expected}")
+    c = TRAIN_HYBRID_CHECK
+    grad_check(torch, report, "train_hybrid_grad_check",
+               dataclasses.replace(cfg, n_layers=c["layers"]), c,
+               TRAIN_HYBRID_FLOOR_FACTOR,
+               f"{c['layers']} layers (one group, the shared block once, a "
+               f"tail of 1)")
+    return counts
 
 
 def loop_phase(torch, report):
@@ -2594,6 +2931,15 @@ DIST_LANES, DIST_PROMPT, DIST_CACHE, DIST_STEPS = 8, 1024, 2048, 16
 # perturbed by ~1/2 ulp, fed the same tokens, against the plain one), and
 # as many times the call's tie band for its tokens
 DIST_QWEN_LIMIT = CONSISTENCY_LIMIT[ARCH, None]
+# (a): qwen2-7b cut to 2 layers at its published width (28 layers took
+# ~40-54 s of the phase over gloo on the host), the fewest that still carry
+# the sequence-sharded cache and the TP decode from one layer to the next:
+# each of (a)'s checks compares with one process at the same depth, and
+# which cache slice a rank holds does not depend on the depth.  (b) serves
+# granite at its published 32: random-init granite routes chaotically
+# under EP, and cut to 2 or 8 layers it fell outside (b)'s limits on the
+# H100
+DIST_QWEN_LAYERS = 2
 DIST_MOE_FLOOR_FACTOR = 2.0
 # (c): 2 steps against the single-process step, then 4 with grad_compress
 DIST_TRAIN_STEPS, DIST_COMPRESS_STEPS = 2, 4
@@ -2631,12 +2977,13 @@ DIST_TIMEOUT_S = 900
 def _dist_expected(part: str) -> dict:
     """Exact launches a rank makes in each part."""
     calls = 1 + DIST_STEPS                     # prefill + decode steps
-    if part == "a":                            # qwen2-7b, 28 layers
-        n = 28
+    if part == "a":                            # qwen2-7b, cut
+        n = DIST_QWEN_LAYERS
         return {"rmsnorm": (2 * n + 1) * calls, "flash_attention": n,
                 "decode_attention": n * DIST_STEPS}
-    if part == "b":                            # granite, 32 layers, EP
-        n = 32
+    if part == "b":                            # granite, EP
+        from repro_torch.configs import get_config
+        n = get_config(MOE_ARCH).n_layers
         return {"rmsnorm": (2 * n + 1) * calls, "flash_attention": n,
                 "decode_attention": n * DIST_STEPS, "moe_gmm": 3 * n * calls}
     if part in ("c", "e"):                     # train, 2 layers, M 2
@@ -2652,6 +2999,15 @@ def _rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def _dist_serve_config(arch):
+    """(a)'s config, qwen2 at DIST_QWEN_LAYERS, or (b)'s, granite as
+    published."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return (dataclasses.replace(cfg, n_layers=DIST_QWEN_LAYERS)
+            if arch == ARCH else cfg)
+
+
 def _dist_serve_ref(torch, np, arch):
     """Single-process prefill of 8 x 1024 seeded tokens into a 2048 cache,
     then 16 greedy decode steps: the tokens fed (prompt, then each step's
@@ -2659,10 +3015,9 @@ def _dist_serve_ref(torch, np, arch):
     the same calls, fed the same tokens, with the embedding table perturbed
     by ~1/2 ulp (its rel L2 and, per lane, the tie band sqrt(2) x rms of
     the change)."""
-    from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params, prefill
 
-    cfg = get_config(arch)
+    cfg = _dist_serve_config(arch)
     rng = np.random.default_rng(7)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab, (DIST_LANES, DIST_PROMPT))).cuda()
@@ -2843,7 +3198,6 @@ def _dist_serve(torch, arch, mesh, ref, band_factor):
     16 teacher-forced decode steps under the decode policy; every call's
     logits against the single-process ones, on this rank, and its token
     within ``band_factor`` x the call's tie band (plus the top's ulp)."""
-    from repro_torch.configs import get_config
     from repro_torch.distributed.context import use_context
     from repro_torch.distributed.policy import (make_policy, param_pspecs,
                                                 shard_placer)
@@ -2852,7 +3206,7 @@ def _dist_serve(torch, arch, mesh, ref, band_factor):
     from repro_torch.models.model import param_specs
     from repro_torch.optim.optimizers import tree_leaves
 
-    cfg = get_config(arch)
+    cfg = _dist_serve_config(arch)
     pol = make_policy(cfg, ShapeConfig("decode", DIST_CACHE, DIST_LANES,
                                        "decode"), mesh)
     params = init_params(
@@ -5351,7 +5705,7 @@ OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "rms_dw_sum_kernel", "delta_kernel",
         "dkdv_kernel", "dq_kernel", "ce_tile_kernel", "ce_merge_kernel",
         "ssd_scan_kernel", "ssd_scan_wide_kernel", "ssd_wide_prep_kernel",
-        "moe_gmm_kernel",
+        "ssd_scan_bwd_kernel", "moe_gmm_kernel",
         "moe_gmm_decode_kernel", "gmm_dw_kernel")
 
 
@@ -5574,6 +5928,10 @@ def profile_phase(torch, np, report, phases):
         lines += profile_train_step(
             torch, report, train_moe_config(train_moe_depth(torch)[0]),
             TRAIN_MOE_LR)
+    if "train_hybrid" in phases:
+        from repro_torch.configs import get_config
+        lines += profile_train_step(torch, report, get_config(HYBRID_ARCH),
+                                    TRAIN_HYBRID_LR)
     if "serve" in phases:
         lines += profile_serving(torch, np, report, ARCH)
     if "serve_hybrid" in phases:
@@ -5771,6 +6129,11 @@ def main() -> None:
         log(f"[train_moe] make_train_step {MOE_ARCH} full width and depth")
         by_path["train_moe"] = timed("train_moe", train_moe_phase, torch, np,
                                      report)
+    if "train_hybrid" in phases:
+        log(f"[train_hybrid] make_train_step {HYBRID_ARCH} full width and "
+            f"depth")
+        by_path["train_hybrid"] = timed("train_hybrid", train_hybrid_phase,
+                                        torch, np, report)
     if "consistency_audio" in phases:
         log(f"[consistency_audio] full-width {AUDIO_ARCH}, B=2, embeddings")
         timed("consistency_audio", consistency_phase, torch, np, report,

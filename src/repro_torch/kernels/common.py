@@ -88,7 +88,8 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "decode_attention": 0, "cross_entropy": 0,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
                             "ssd_scan": 0, "ssd_scan_wide": 0,
-                            "ssd_wide_prep": 0, "moe_gmm": 0,
+                            "ssd_wide_prep": 0, "ssd_scan_bwd": 0,
+                            "moe_gmm": 0,
                             "moe_gmm_bwd": 0}
 
 
@@ -157,6 +158,25 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # interpret mode: sums over 512 state rows in another order, at most
     # 9.1e-6 at |y| up to 11.
     "ssd_wide/cpu_fp32": (2e-5, 1e-5),
+    # The SSD backward: the plain two-sweep backward (ssd_bwd_ref) and
+    # autograd through ssd_scan against jax.vjp of the JAX ssd_ref, fp32, at
+    # N 16 / P 32 and 64 / 64, S 64 and 70: the same products summed in
+    # another order (the sweeps' matrix-vector products against JAX's
+    # transposed scan), at most 3.5e-4 apart at |grad| up to 410, 1.3e-5
+    # relative where |grad| > 10.  dlog_a is a reverse cumulative sum of
+    # r_t - g_t·dgate_t over the rows, where JAX differentiates a_t·S_{t-1}
+    # row by row, so its error is that of the sum's largest partial sums
+    # (at most 3.8e-4 at |dlog_a| up to 525).
+    "ssd_bwd/cpu_fp32": (3e-4, 3e-5),
+    "ssd_bwd_dlog_a/cpu_fp32": (2e-3, 1e-5),
+    # The reduced zamba2 (5 Mamba2 layers, the shared block twice, d 128):
+    # every gradient leaf against jax.value_and_grad, fp32.  Here atol is a
+    # share of the leaf's largest |grad|: each leaf's error follows its own
+    # scale, and the embedding table's gradient sums every token's through
+    # the trunk, so an entry near 0 can keep the error of its large terms
+    # (6.5e-4 at |g| up to 37, rel L2 1.4e-5; w_in 5.3e-5 at up to 3.4; the
+    # other leaves at most 1.5e-5 of their largest).
+    "ssd/hybrid_grad_cpu_fp32": (5e-5, 1e-5),
     # One mLSTM or sLSTM block with its decode steps against the JAX
     # package's, fp32, another summation order: at most 3.6e-6 (reduced, d
     # 128, |out| up to 9) and 2.0e-5 at xlstm's real widths (d 2048, heads
@@ -231,6 +251,16 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # one bf16 ulp.  On the H100 the largest error is one ulp (1.0 at
     # |y| >= 128).  REL_L2 below holds the whole tensor.
     "ssd/card_bf16": (1e-2, 2.0 ** -7),
+    # SSD backward kernel against ssd_bwd_ref, fp32 out of the same bf16
+    # and fp32 inputs: the same sweeps, the state's updates fused
+    # (multiply-add) and the products summed in another order; dlog_a, a
+    # reverse sum over the rows, keeps the absolute error of its largest
+    # partial sums.  On the H100 the kernel is at most 4.9e-4 off (dgate at
+    # |dgate| ~ 2000, slow decay) and dlog_a 1.0e-2 (|dlog_a| ~ 1e4): each
+    # atol is about twice that, with rtol 1e-4 for the large entries.
+    # REL_L2 below holds the whole tensors.
+    "ssd_scan_bwd/card_fp32": (1e-3, 1e-4),
+    "ssd_scan_bwd_dlog_a/card_fp32": (5e-2, 1e-4),
     # Grouped matmul: products of bf16 values are exact in fp32 on both
     # sides (wgmma here, an fp32 product with TF32 off in the plain
     # version); the D fp32 sums run in another order, so an output next to
@@ -274,6 +304,15 @@ REL_L2: dict[str, float] = {
     # and 0.63 for y and 0.42 for s_final where the state carries.
     "ssd/card_bf16": 1e-3,
     "ssd_state/card_fp32": 1e-4,
+    # SSD backward: the sound kernel reads at most 2.3e-7 (dc, slow decay,
+    # S 1000) and 1.3e-5 for dlog_a (S 1001) on the H100, the limits ~13
+    # and ~15 times that.  At S 1 dlog_a is 0 in exact arithmetic and the
+    # plain version's is rounding alone, so chip_smoke.py divides by the
+    # atol's norm there (it reads 1.0e-4).  Dropping the carried state and
+    # G at 128-row slices reads 0.62-0.88 for every output, dropping
+    # <ds_final, S_last> 0.18 for dlog_a (chip_smoke.py's planted faults).
+    "ssd_scan_bwd/card_fp32": 3e-6,
+    "ssd_scan_bwd_dlog_a/card_fp32": 2e-4,
     # Grouped matmul: the same bf16 roundings on both sides except where an
     # fp32 sum in another order crosses a rounding boundary.  The sound
     # kernel reads at most 8.73e-5 on the H100 (prefill gate/up); the limit
@@ -443,6 +482,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         *([i64] * 12),                    # (b, h, s) strides: c b la g
         p]                                # stream
     lib.ssd_scan_wide_prep.restype = i
+    lib.ssd_scan_bwd.argtypes = [
+        p, p, p, p, p, p, p,              # c, b, x, dy, log_a, gate, ds_final
+        p, p, p, p, p,                    # dc, db, dx, dlog_a, dgate
+        i, i, i, i, i,                    # B, H, S, N, P
+        *([i64] * 16),                    # (b, h, s, last) strides: c b x dy
+        *([i64] * 6),                     # (b, h, s) strides: la g
+        p]                                # stream
+    lib.ssd_scan_bwd.restype = i
     lib.ssd_scan_wide_workspace.argtypes = [i, i, i]
     lib.ssd_scan_wide_workspace.restype = i64
     lib.moe_gmm_fwd.argtypes = [

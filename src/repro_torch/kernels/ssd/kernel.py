@@ -1,6 +1,7 @@
 """Launch of the CUDA chunked SSD-scan kernels: ``csrc/ssd_scan.cu`` for
 zamba2's N = P = 64 and ``csrc/ssd_scan_wide.cu`` for xlstm's N = 512,
-P = 513 (q and k as c and b, v with a column of ones as x).
+P = 513 (q and k as c and b, v with a column of ones as x); and of the
+backward, ``csrc/ssd_scan_bwd.cu``, at N = P = 64 only.
 
 Both replace ``src/repro/kernels/ssd/kernel.py:ssd_scan_pallas``; each
 source's header says what bounds it on the H100 and how its design answers
@@ -27,6 +28,8 @@ from ..common import check_status, count_launch, library, stream_ptr
 KERNELS = {(64, 64): "ssd_scan", (512, 513): "ssd_scan_wide"}
 SHAPES = tuple(KERNELS)
 WIDE = (512, 513)
+# (N, P) the backward kernel takes: zamba2's; xlstm's is queued
+BWD_SHAPES = ((64, 64),)
 
 # The wide kernel's first pass: one record a (batch, head, 64-row chunk),
 # M's bf16 high part and remainder as two 64 x 64 tiles (8 KB each) and the
@@ -140,3 +143,63 @@ def ssd_scan_cuda(c, b, x, log_a, gate):
     check_status(name, status)
     count_launch(name)
     return y, s_final
+
+
+def check_bwd_shape(N: int, P: int) -> None:
+    """Raise ``NotImplementedError`` for an (N, P) the backward kernel does
+    not take (the wide scan's backward is queued in ROADMAP.md)."""
+    if (N, P) not in BWD_SHAPES:
+        raise NotImplementedError(
+            f"the SSD scan's backward kernel takes (N, P) in {BWD_SHAPES} "
+            f"(zamba2), not ({N}, {P}): the backward at xlstm's (512, 513) "
+            "is queued in ROADMAP.md (A3, xlstm training)")
+
+
+def ssd_scan_bwd_cuda(c, b, x, log_a, gate, dy, ds_final=None):
+    """The backward of the scan (``ref.ssd_bwd_ref``'s function) on one
+    CUDA device: c, b (B, H, S, 64) bf16, x and the upstream dy (B, H, S,
+    64) bf16, log_a, gate (B, H, S) fp32, each read through its strides
+    (b and c may have a head stride of 0, dy any layout autograd hands
+    back); ds_final (B, H, 64, 64) fp32 or None for zero.  Returns (dc, db,
+    dx, dlog_a, dgate), dense fp32, dc and db per head."""
+    if c.dim() != 4 or b.shape != c.shape or x.dim() != 4:
+        raise ValueError("ssd scan backward takes c, b (B,H,S,N) and x "
+                         "(B,H,S,P)")
+    B, H, S, N = c.shape
+    P = x.shape[-1]
+    check_bwd_shape(N, P)
+    if x.shape[:3] != (B, H, S) or dy.shape != x.shape:
+        raise ValueError(f"shapes disagree: c {tuple(c.shape)}, x "
+                         f"{tuple(x.shape)}, dy {tuple(dy.shape)}")
+    if log_a.shape != (B, H, S) or gate.shape != (B, H, S):
+        raise ValueError(f"log_a and gate must be ({B}, {H}, {S}), got "
+                         f"{tuple(log_a.shape)} and {tuple(gate.shape)}")
+    if B == 0 or H == 0 or S == 0:
+        raise ValueError("ssd kernel needs B, H and S > 0")
+    for name, t in (("c", c), ("b", b), ("x", x), ("dy", dy)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"ssd backward takes bf16 c, b, x, dy; {name} "
+                            f"is {t.dtype}")
+    for name, t in (("log_a", log_a), ("gate", gate)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd backward takes fp32 {name}, got {t.dtype}")
+    if ds_final is not None:
+        if ds_final.shape != (B, H, N, P):
+            raise ValueError(f"ds_final must be ({B}, {H}, {N}, {P}), got "
+                             f"{tuple(ds_final.shape)}")
+        ds_final = ds_final.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dc, db = (torch.empty((B, H, S, N), **f32) for _ in range(2))
+    dx = torch.empty((B, H, S, P), **f32)
+    dlog_a, dgate = (torch.empty((B, H, S), **f32) for _ in range(2))
+    status = library().ssd_scan_bwd(
+        c.data_ptr(), b.data_ptr(), x.data_ptr(), dy.data_ptr(),
+        log_a.data_ptr(), gate.data_ptr(),
+        None if ds_final is None else ds_final.data_ptr(),
+        dc.data_ptr(), db.data_ptr(), dx.data_ptr(), dlog_a.data_ptr(),
+        dgate.data_ptr(), B, H, S, N, P, *c.stride(), *b.stride(),
+        *x.stride(), *dy.stride(), *log_a.stride(), *gate.stride(),
+        stream_ptr(x.device))
+    check_status("ssd_scan_bwd", status)
+    count_launch("ssd_scan_bwd")
+    return dc, db, dx, dlog_a, dgate

@@ -8,6 +8,8 @@ Per head, with state S ∈ R^{N×P}:
 
 ``ssd_ref`` runs the recurrence step by step in fp32: the CPU path of
 ``ssd_scan`` and the oracle the CUDA kernels are held against on the card.
+``ssd_bwd_ref`` is its backward (the counterpart of ``jax.vjp`` of the JAX
+``ssd_ref``), written as the two sweeps of ``csrc/ssd_scan_bwd.cu``.
 ``ssd_chunked_ref`` computes the same function in the kernels' chunked
 decomposition (the Mamba2 "state-space duality" form of the JAX package's
 Pallas kernel), in fp32, with the chunk length an argument;
@@ -58,6 +60,59 @@ def ssd_ref(c, b, x, log_a, gate, s0=None):
         ys.append(torch.bmm(cs[t], s))                   # (BH, 1, P)
     y = torch.cat(ys, dim=1).reshape(B, H, S, P)
     return y.to(x.dtype), s.reshape(B, H, N, P)
+
+
+def ssd_bwd_ref(c, b, x, log_a, gate, dy, ds_final=None):
+    """The gradients of ``ssd_ref``'s (y, s_final) for the upstream dy
+    (B, H, S, P) and the optional ds_final (B, H, N, P), in two sweeps.
+    With G_t = ∂L/∂S_t = c_t dy_tᵀ + a_{t+1}·G_{t+1} (G after the last row
+    is ds_final, else 0):
+
+        forward:  S_t again in fp32, dc_t = S_t dy_t, r_t = c_t·dc_t
+        reverse:  db_t = g_t·G_t x_t, dx_t = g_t·G_tᵀ b_t,
+                  dgate_t = b_t·G_t x_t
+        dlog_a_t = Σ_{u ≥ t} (r_u − g_u·dgate_u) + ⟨ds_final, S_last⟩
+
+    Returns (dc, db, dx, dlog_a, dgate) in fp32, per head: where c and b
+    are shared by the heads, the caller's expand folds dc and db."""
+    B, H, S, N = c.shape
+    P = x.shape[-1]
+    BH = B * H
+    cf = c.float().reshape(BH, S, N)
+    bf = b.float().reshape(BH, S, N)
+    cs = cf.reshape(BH, S, N, 1).unbind(1)              # (BH, N, 1)
+    bs = bf.reshape(BH, S, N, 1).unbind(1)
+    xs = x.float().reshape(BH, S, 1, P).unbind(1)        # (BH, 1, P)
+    dys = dy.float().reshape(BH, S, 1, P).unbind(1)
+    a_s = torch.exp(log_a.float()).reshape(BH, S, 1, 1).unbind(1)
+    g = gate.float().reshape(BH, S)
+    gs = g.reshape(BH, S, 1, 1).unbind(1)
+    s = torch.zeros((BH, N, P), dtype=torch.float32, device=x.device)
+    dcs = []
+    for t in range(S):                                   # as ssd_ref
+        s = a_s[t] * s + gs[t] * (bs[t] * xs[t])
+        dcs.append(torch.bmm(s, dys[t].transpose(1, 2)))  # (BH, N, 1)
+    dc = torch.cat(dcs, dim=2).transpose(1, 2)           # (BH, S, N)
+    r = (cf * dc).sum(-1)
+    G = (torch.zeros_like(s) if ds_final is None
+         else ds_final.float().reshape(BH, N, P).clone())
+    gx, gtb = [None] * S, [None] * S
+    for t in range(S - 1, -1, -1):
+        if t < S - 1:
+            G = a_s[t + 1] * G
+        G = G + cs[t] * dys[t]
+        gx[t] = torch.bmm(G, xs[t].transpose(1, 2))       # (BH, N, 1)
+        gtb[t] = torch.bmm(G.transpose(1, 2), bs[t])      # (BH, P, 1)
+    gx = torch.cat(gx, dim=2).transpose(1, 2)            # (BH, S, N)
+    gtb = torch.cat(gtb, dim=2).transpose(1, 2)          # (BH, S, P)
+    dgate = (bf * gx).sum(-1)
+    dlog_a = (r - g * dgate).flip(-1).cumsum(-1).flip(-1)
+    if ds_final is not None:
+        dlog_a = dlog_a + (ds_final.float().reshape(BH, N, P) * s).sum(
+            (1, 2))[:, None]
+    return (dc.reshape(B, H, S, N), (g[..., None] * gx).reshape(B, H, S, N),
+            (g[..., None] * gtb).reshape(B, H, S, P),
+            dlog_a.reshape(B, H, S), dgate.reshape(B, H, S))
 
 
 def _chunks(t, chunk):

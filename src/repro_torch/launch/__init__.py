@@ -6,17 +6,33 @@ import torch
 
 from ..kernels.decode_attention.kernel import HEAD_DIMS as DECODE_HEAD_DIMS
 from ..kernels.flash_attention.kernel import BWD_HEAD_DIMS, HEAD_DIMS
+from ..kernels.ssd.kernel import BWD_SHAPES as SSD_BWD_SHAPES
 from ..models.config import ModelConfig
+
+
+def _ssd_shape(cfg: ModelConfig) -> tuple[int, int] | None:
+    """The SSD scan's (N, P) on ``cfg``'s path, None without one: the
+    hybrid family's (state, head dim), the ssm family's mLSTM (d_head,
+    d_head + 1) (its normalizer rides as a column of ones)."""
+    if cfg.family == "hybrid":
+        return cfg.ssm_state, cfg.ssm_head_dim
+    if cfg.family == "ssm":
+        return cfg.d_head, cfg.d_head + 1
+    return None
 
 
 def missing_backwards(cfg: ModelConfig) -> list[str]:
     """The kernels on ``cfg``'s training path that have no backward on the
-    card: the SSD scan (ssm, hybrid) and the flash attention backward at a
-    head dim outside ``BWD_HEAD_DIMS``.  The grouped expert matmul (moe) has
-    its backward kernel."""
+    card: the SSD scan at an (N, P) outside the backward's shapes (xlstm's
+    512 / 513; zamba2's 64 / 64 has one) and the flash attention backward at
+    a head dim outside ``BWD_HEAD_DIMS``.  The grouped expert matmul (moe)
+    has its backward kernel."""
     missing = []
-    if cfg.family in ("ssm", "hybrid"):
-        missing.append("the SSD scan (kernels/ssd)")
+    shape = _ssd_shape(cfg)
+    if shape is not None and shape not in SSD_BWD_SHAPES:
+        missing.append(f"the SSD scan at N {shape[0]}, P {shape[1]} "
+                       f"(kernels/ssd; its backward is built at "
+                       f"{list(SSD_BWD_SHAPES)})")
     if cfg.uses_attention and cfg.d_head not in BWD_HEAD_DIMS:
         missing.append(f"the flash attention at head dim {cfg.d_head} "
                        f"(its backward is built at {list(BWD_HEAD_DIMS)})")

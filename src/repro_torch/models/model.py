@@ -11,13 +11,14 @@ and a gradient wanted, each layer runs under ``torch.utils.checkpoint``
 
 The moe family (granite, arctic) is the dense layer stack with a routed
 expert FFN (``models/moe.py``) in place of the MLP; it is served and
-trained (its grouped products have a backward kernel).  The hybrid family (zamba2) is served, not trained: groups of
-``attn_every`` Mamba2 layers, each group followed by the *same* shared
-attention+MLP block, then a tail of Mamba2 layers.  The ssm family (xlstm)
-is served, not trained: ``n_layers / slstm_period`` segments, each
-``slstm_period - 1`` mLSTM blocks (the SSD scan at N = d_head, P = d_head +
-1) and one sLSTM block (a sequential loop in plain torch), each block
-pre-normed and residual, with no attention and no MLP.  The vlm family
+trained (its grouped products have a backward kernel).  The hybrid family
+(zamba2) is served and trained (the SSD scan has a backward kernel at its
+N = P = 64): groups of ``attn_every`` Mamba2 layers, each group followed by
+the *same* shared attention+MLP block, then a tail of Mamba2 layers.  The
+ssm family (xlstm) is served, not trained: ``n_layers / slstm_period``
+segments, each ``slstm_period - 1`` mLSTM blocks (the SSD scan at N =
+d_head, P = d_head + 1) and one sLSTM block (a sequential loop in plain
+torch), each block pre-normed and residual, with no attention and no MLP.  The vlm family
 (internvl2) and the audio family (musicgen) are the dense layer stack fed by
 precomputed embeddings: their frontends (a ViT, EnCodec) are stubs in the
 JAX package too, so they have no embedding table; ``forward`` takes
@@ -380,52 +381,82 @@ def _attn_mlp_block(lp, x, cfg: ModelConfig, positions, specs=None):
     return x, (k, v)
 
 
-def _remat_layer(lp, x, cfg: ModelConfig, positions, specs=None):
-    """One layer that keeps only its input for the backward and runs its
-    forward again there (layer-granular remat, JAX's ``remat_policy
-    "full"``).  Under it each layer's 2 rmsnorm and 1 flash-attention
-    forwards launch twice a step.  The k/v it would hand to prefill are
-    dropped: remat applies only when they are not collected."""
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` keeping only its inputs for the backward and running it
+    again there (layer-granular remat, JAX's ``remat_policy "full"``)."""
     if cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r}: only 'full' is ported; the "
             "'dots' policy (save the matmul outputs) is queued in ROADMAP.md")
-    x, _ = checkpoint(_in_context, current_context(), lp, x, cfg, positions,
-                      specs, use_reentrant=False)
+    return checkpoint(_in_context, current_context(), fn, *args,
+                      use_reentrant=False)
+
+
+def _remat_layer(lp, x, cfg: ModelConfig, positions, specs=None):
+    """One attention+FFN layer under :func:`_remat`.  Under it each layer's
+    2 rmsnorm and 1 flash-attention forwards launch twice a step.  The k/v
+    it would hand to prefill are dropped: remat applies only when they are
+    not collected."""
+    x, _ = _remat(cfg, _attn_mlp_block, lp, x, cfg, positions, specs)
     return x
 
 
-def _in_context(ctx, *args):
-    """``_attn_mlp_block`` under ``ctx``: the backward recomputes the layer
-    on autograd's device thread, where the caller's (thread-local) sharding
+def _in_context(ctx, fn, *args):
+    """``fn(*args)`` under ``ctx``: the backward recomputes the layer on
+    autograd's device thread, where the caller's (thread-local) sharding
     context is not set."""
     with use_context(ctx):
-        return _attn_mlp_block(*args)
+        return fn(*args)
+
+
+def _mamba_layer(lp, x, cfg: ModelConfig, specs=None, return_state=False):
+    """One pre-normed, residual Mamba2 layer; with ``return_state`` also
+    the block's state."""
+    lp = _use(lp, specs, cfg)
+    h = norm(lp["norm"], x, cfg.norm_eps)
+    if return_state:
+        y, st = mamba_block(lp, h, cfg, return_state=True)
+        return x + y, st
+    return x + mamba_block(lp, h, cfg)
 
 
 def _hybrid_trunk(params, x, cfg: ModelConfig, positions, collect: bool):
     """The hybrid family's trunk: each group of Mamba2 layers, then the
     shared attention+MLP block (the same weights every time), then the
-    tail.  With ``collect`` also its states (see :func:`forward`)."""
+    tail.  With ``collect`` also its states (see :func:`forward`).
+
+    With ``cfg.remat`` and a gradient wanted, each Mamba2 layer and each
+    application of the shared block runs under :func:`_remat`.  The JAX
+    package remats the same layers and also each group around them
+    (``src/repro/models/model.py:_trunk``); that nesting changes no number
+    and would run every grouped layer's forward a third time, so the port
+    keeps the layer granularity: each Mamba2 layer's rmsnorm and SSD scan,
+    and the shared block's 2 rmsnorms and flash forward, launch twice."""
     groups, tail = _mamba_layers(params, cfg)
+    remat = cfg.remat and not collect and torch.is_grad_enabled()
     mamba_states, kvs = [], []
     g_specs, t_specs = _specs("groups", 2), _specs("tail", 1) if tail \
         else None
+    a_specs = _specs("shared_attn", 0)
 
     def mamba(lp, x, specs):
-        lp = _use(lp, specs, cfg)
-        h = norm(lp["norm"], x, cfg.norm_eps)
-        if collect:
-            y, st = mamba_block(lp, h, cfg, return_state=True)
-            mamba_states.append(st)
-            return x + y
-        return x + mamba_block(lp, h, cfg)
+        if remat:
+            return _remat(cfg, _mamba_layer, lp, x, cfg, specs)
+        if not collect:
+            return _mamba_layer(lp, x, cfg, specs)
+        x, st = _mamba_layer(lp, x, cfg, specs, return_state=True)
+        mamba_states.append(st)
+        return x
 
     for group in groups:
         for lp in group:
             x = mamba(lp, x, g_specs)
+        if remat:
+            x = _remat_layer(params["shared_attn"], x, cfg, positions,
+                             a_specs)
+            continue
         x, kv = _attn_mlp_block(params["shared_attn"], x, cfg, positions,
-                                _specs("shared_attn", 0))
+                                a_specs)
         if collect:
             kvs.append(kv)
     for lp in tail:

@@ -140,8 +140,9 @@ def test_card_config_check_takes_published_configs(arch):
     check_card_config(cfg, "cuda")
     check_card_config(cfg, torch.device("cuda", 0))
     # training reaches the flash backward, built at head dims 64 and 128,
-    # the grouped expert matmul's backward, and the SSD scan, which has none
-    if cfg.family in ("dense", "moe") and cfg.d_head in (64, 128):
+    # the grouped expert matmul's backward, and the SSD scan's, built at
+    # zamba2's (N, P) = (64, 64) and not at xlstm's (512, 513)
+    if cfg.family in ("dense", "moe", "hybrid") and cfg.d_head in (64, 128):
         check_card_config(cfg, "cuda", training=True)
     else:
         with pytest.raises(ValueError, match="has no backward|have no "
@@ -158,8 +159,8 @@ def test_card_config_check_names_missing_backward(arch, training):
     depth flag, which cannot help), exactly when it has one."""
     cfg = t_get_config(arch)
     want = []
-    if cfg.family in ("ssm", "hybrid"):
-        want.append("SSD scan")
+    if cfg.family == "ssm":
+        want.append("SSD scan at N 512, P 513")
     if cfg.uses_attention and cfg.d_head not in (64, 128):
         want.append(f"flash attention at head dim {cfg.d_head}")
     if not training or not want:
