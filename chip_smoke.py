@@ -912,71 +912,107 @@ def ssd_planted_fault(torch, report, name, *cases):
 # The SSD backward's cases (B, H, S, gates[, layout], ds_final): the train
 # step's shape (B 4, H 64, S 2048, b and c shared by the heads), a ragged S
 # with the state carrying and a nonzero ds_final, l falling by > 128 in
-# every chunk, per-head b and c at an odd H, one row.  dy is a (B, H, S, 64)
-# view of a (B, S, H, 64) tensor, as autograd hands it back through the
-# Mamba2 block's transpose.
+# every chunk, per-head b and c at an odd H, one row.  Shared b and c come
+# with a head dim of 1, as the Mamba2 block hands them over (the kernel sums
+# their gradients over the heads); dy is a (B, H, S, 64) view of a
+# (B, S, H, 64) tensor, as autograd hands it back through the block's
+# transpose.
 SSD_BWD_CASES = ((4, 64, 2048, "path", None, False),
                  (2, 5, 1000, "slow", None, True),
                  (1, 7, 1001, "overflow", None, False),
                  (2, 5, 300, "slow", "per-head", True),
                  (2, 3, 1, "slow", None, True))
 SSD_BWD_OUT = ("dc", "db", "dx", "dlog_a", "dgate")
-# autograd's gradients of the shared c and b against the plain version's
-# summed over the heads: this many times the rel L2 that casting the plain
-# per-head gradients to bf16 and folding them makes alone
+# autograd's gradients of the shared c and b against the step-by-step
+# oracle's summed over the heads: this many times the rel L2 that casting
+# the oracle's per-head gradients to bf16 and folding them makes alone
 SSD_BWD_FOLD_FACTOR = 2.0
 
 
 def ssd_bwd_case(torch, randn, B, H, S, gates, layout, ds):
-    """(inputs, dy, ds_final) of the SSD backward (``ssd_case``'s inputs)."""
+    """(inputs, dy, ds_final) of the SSD backward (``ssd_case``'s inputs,
+    shared c and b with their head dim of 1)."""
     inputs = ssd_case(torch, randn, B, H, S, gates, layout == "per-head")
+    if layout != "per-head":
+        inputs = (inputs[0][:, :1], inputs[1][:, :1], *inputs[2:])
     dy = randn(B, S, H, 64).transpose(1, 2)
     return inputs, dy, (randn(B, H, 64, 64, dtype=torch.float32) if ds
                         else None)
 
 
 def ssd_bwd_limits(name: str) -> str:
-    """The key of an SSD backward output's limits: dlog_a, a reverse sum
-    over the rows, has its own."""
+    """The key of an SSD backward output's limits: dx, dc and db (bf16)
+    are held in bf16 ulps, dlog_a, a reverse sum over the rows, has limits
+    of its own."""
+    if name in ("dc", "db", "dx"):
+        return "ssd_scan_bwd/card_bf16"
     return ("ssd_scan_bwd_dlog_a" if name == "dlog_a"
             else "ssd_scan_bwd") + "/card_fp32"
 
 
+def ssd_bwd_limit_text(name: str) -> str:
+    from repro_torch.kernels.common import BF16_ULPS, REL_L2
+    key = ssd_bwd_limits(name)
+    if key in BF16_ULPS:
+        return f"one ulp, in at most {BF16_ULPS[key][1]:g}"
+    return f"rel_l2 {REL_L2[key]:g}"
+
+
 def ssd_bwd_check(torch, case, got, want, quiet=False):
     """Each of the backward's five outputs against the plain version's
-    under its limits; {output: (within the limits, elementwise ok, rel L2,
-    max abs err)}.  The rel L2 divides by ‖want‖ or by the elementwise
-    atol's norm over the tensor, whichever is larger: dlog_a's first row is
-    0 in exact arithmetic (S before the first row is 0), so at S 1 the
-    plain version's dlog_a is rounding alone, which the atol holds."""
-    from repro_torch.kernels.common import (REL_L2, TOLERANCES, max_abs_err,
-                                            within)
+    under its limits; {output: (within the limits, elementwise ok, measure,
+    max abs err)}.  dx, dc and db (bf16) against the plain fp32 values
+    rounded to bf16 (``BF16_ULPS``): elementwise ok where no element is
+    more than one ulp off, the measure the share that is one ulp off.
+    dlog_a and dgate (fp32): elementwise under ``TOLERANCES``, the measure
+    their rel L2, which divides by ‖want‖ or by the elementwise atol's norm
+    over the tensor, whichever is larger: dlog_a's first row is 0 in exact
+    arithmetic (S before the first row is 0), so at S 1 the plain version's
+    dlog_a is rounding alone, which the atol holds."""
+    from repro_torch.kernels.common import (BF16_ULPS, REL_L2, TOLERANCES,
+                                            bf16_ulps, max_abs_err, within)
     out = {}
     for name, g, w in zip(SSD_BWD_OUT, got, want):
         key = ssd_bwd_limits(name)
-        scale = max(float(w.norm()), TOLERANCES[key][0] * w.numel() ** 0.5)
-        elem, rel = within(g, w, key), float((g - w).norm()) / scale
-        out[name] = (elem and rel <= REL_L2[key], elem, rel,
-                     max_abs_err(g, w))
-        if not quiet:
+        if key in BF16_ULPS:
+            u = bf16_ulps(g, w, key)
+            worst, share = float(u.max()), float((u > 0).float().mean())
+            elem = worst <= 1.0
+            out[name] = (elem and share <= BF16_ULPS[key][1], elem, share,
+                         max_abs_err(g, w))
+            detail = (f"max {worst:.3g} ulp, {share:.5f} one ulp off "
+                      f"(limit one ulp, in at most {BF16_ULPS[key][1]:g})")
+        else:
+            scale = max(float(w.norm()),
+                        TOLERANCES[key][0] * w.numel() ** 0.5)
+            elem, rel = within(g, w, key), float((g - w).norm()) / scale
+            out[name] = (elem and rel <= REL_L2[key], elem, rel,
+                         max_abs_err(g, w))
             atol, rtol = TOLERANCES[key]
+            detail = (f"max_abs_err={out[name][3]:.3e} (tolerance {atol:g} "
+                      f"+ {rtol:.4g}*|ref|) rel_l2={rel:.3e} (limit "
+                      f"{REL_L2[key]:g})")
+        if not quiet:
             verdict = "ok" if out[name][0] else "OUT OF TOLERANCE"
-            log(f"  {'ssd_scan_bwd':19s} {case + ' ' + name:44s} "
-                f"max_abs_err={out[name][3]:.3e} (tolerance {atol:g} + "
-                f"{rtol:.4g}*|ref|) rel_l2={rel:.3e} (limit "
-                f"{REL_L2[key]:g}) {verdict}")
+            log(f"  {'ssd_scan_bwd':19s} {case + ' ' + name:44s} {detail} "
+                f"{verdict}")
     return out
 
 
 def ssd_bwd_rows(torch, timer, randn, report):
-    """The SSD backward kernel against ``ssd_bwd_ref`` on the same inputs:
-    every output elementwise and by rel L2; ``ssd_scan`` under autograd
-    launches it; two calls equal bit for bit; two planted faults; time and
-    bound at the train step's shape (the first case)."""
+    """The SSD backward kernel against its plain twin
+    ``ssd_chunked_bwd_ref`` on the same inputs: dx, dc, db in bf16 ulps,
+    dlog_a and dgate elementwise and by rel L2; ``ssd_scan`` under autograd
+    launches it once and takes its gradients as they are (c's and b's summed
+    over the heads by the kernel, against the step-by-step oracle's folded);
+    two calls equal bit for bit; two planted faults; time and bound at the
+    train step's shape (the first case), beside the twin's and the oracle's
+    time."""
     from repro_torch.kernels.common import launches, rel_l2
-    from repro_torch.kernels.ssd.kernel import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd.kernel import (broadcast_heads,
+                                                ssd_scan_bwd_cuda)
     from repro_torch.kernels.ssd.ops import ssd_scan
-    from repro_torch.kernels.ssd.ref import ssd_bwd_ref
+    from repro_torch.kernels.ssd.ref import ssd_bwd_ref, ssd_chunked_bwd_ref
 
     errs = []
     for B, H, S, gates, layout, ds in SSD_BWD_CASES:
@@ -988,7 +1024,7 @@ def ssd_bwd_rows(torch, timer, randn, report):
         if not all(torch.isfinite(g).all() for g in got):
             fail(f"ssd_scan_bwd {case}: non-finite output")
         res = ssd_bwd_check(torch, case, got,
-                            ssd_bwd_ref(*inputs, dy, ds_final))
+                            ssd_chunked_bwd_ref(*inputs, dy, ds_final))
         report.setdefault("rel_l2", {}).update(
             {f"ssd_scan_bwd {case} {k}": v[2] for k, v in res.items()})
         errs += [v[3] for v in res.values()]
@@ -1000,29 +1036,28 @@ def ssd_bwd_rows(torch, timer, randn, report):
 
     B, H, S, gates, layout, ds = SSD_BWD_CASES[0]
     inputs, dy, _ = ssd_bwd_case(torch, randn, B, H, S, gates, layout, ds)
+    full = (*broadcast_heads(inputs[0], inputs[1], inputs[2]), *inputs[2:])
     got = ssd_scan_bwd_cuda(*inputs, dy)
-    # ssd_scan under autograd as the Mamba2 block calls it: c and b
-    # head-stride-0 expands of (B, S, 64) leaves.  One launch of the
-    # backward kernel; x's and the gates' gradients are the kernel's cast
-    # to their types, c's and b's its per-head ones cast to bf16 and folded
-    # over the heads by the expand's backward, held against the plain
-    # version's summed over the heads within twice the rel L2 of that
-    # rounding alone (the plain version's per-head gradients cast to bf16
-    # and folded)
-    shared = [t[:, 0].detach().clone().requires_grad_() for t in inputs[:2]]
-    rest = [t.detach().clone().requires_grad_() for t in inputs[2:]]
+    # ssd_scan under autograd as the Mamba2 block calls it: c and b (B, 1,
+    # S, 64) leaves.  One launch of the backward kernel, and every leaf's
+    # gradient is the kernel's output bit for bit: no cast or fold follows
+    # it.  c's and b's, summed over the heads in the kernel, are held
+    # against the step-by-step oracle's per-head gradients summed over the
+    # heads, within twice the rel L2 that casting those to bf16 and folding
+    # them makes alone
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
     before = launches()["ssd_scan_bwd"]
-    y, _ = ssd_scan(*[t[:, None].expand(B, H, S, 64) for t in shared],
-                    *rest)
+    y, _ = ssd_scan(*leaves)
     y.backward(dy)
     n = launches()["ssd_scan_bwd"] - before
-    same = all(torch.equal(t.grad, g.to(t.dtype))
-               for t, g in zip(rest, got[2:]))
-    want = ssd_bwd_ref(*inputs, dy)
+    same = all(t.grad.dtype == g.dtype and torch.equal(t.grad, g)
+               for t, g in zip(leaves, got))
+    want = ssd_bwd_ref(*full, dy)
     folds = {}
-    for name, t, w in zip(SSD_BWD_OUT, shared, want):
-        rel, floor = (rel_l2(t.grad, w.sum(1)),
-                      rel_l2(w.to(t.dtype).sum(1), w.sum(1)))
+    for name, t, w in zip(SSD_BWD_OUT, leaves[:2], want):
+        w1 = w.sum(1, keepdim=True)
+        rel, floor = (rel_l2(t.grad, w1),
+                      rel_l2(w.to(t.dtype).sum(1, keepdim=True), w1))
         folds[name] = (rel, floor)
         ok = rel <= SSD_BWD_FOLD_FACTOR * floor
         log(f"  {'ssd_scan_bwd':19s} {'autograd, folded ' + name:44s} "
@@ -1030,13 +1065,14 @@ def ssd_bwd_rows(torch, timer, randn, report):
             f"fold's {floor:.3e}) {'ok' if ok else 'OUT OF TOLERANCE'}")
     report["ssd_scan_bwd folded"] = folds
     log(f"  {'ssd_scan_bwd':19s} {'autograd through ssd_scan':44s} launches "
-        f"{n}, x and gate gradients the kernel's: {same}")
+        f"{n}, every gradient the kernel's output: {same}")
     if n != 1 or not same:
-        fail("ssd_scan under autograd did not run the backward kernel")
+        fail("ssd_scan under autograd did not take the backward kernel's "
+             "gradients as they are")
     if any(rel > SSD_BWD_FOLD_FACTOR * floor for rel, floor in folds.values()):
         fail("ssd_scan under autograd: the folded gradients of the shared c "
-             "and b disagree with the plain version's")
-    del shared, rest, y, got, want
+             "and b disagree with the oracle's")
+    del leaves, y, got, want
     same_bits(torch, "ssd_scan_bwd", f"B{B} H{H} S{S}",
               lambda: ssd_scan_bwd_cuda(*inputs, dy))
     ssd_bwd_planted_faults(torch, randn, report)
@@ -1048,9 +1084,9 @@ def ssd_bwd_rows(torch, timer, randn, report):
     fwd = 2 * L * L * N + 2 * L * L * P + 4 * L * N * P
     flops = B * H * -(-S // L) * (2 * fwd + 2 * L * L * N + 2 * L * N * P)
     # x and dy read and dx written in bf16; c and b read and dc, db written
-    # in bf16 once (shared by the heads: the expand's backward folds the
-    # gradient); the gates read and dlog_a, dgate written in fp32
-    c_heads = H if inputs[0].stride(1) else 1
+    # in bf16 once (shared by the heads: the kernel sums the gradient); the
+    # gates read and dlog_a, dgate written in fp32
+    c_heads = inputs[0].shape[1] if inputs[0].stride(1) else 1
     bytes_moved = (3 * B * H * S * P * 2 + 4 * B * c_heads * S * N * 2
                    + 4 * B * H * S * 4)
     b_ms, b_by = bound(bytes_moved, flops, PEAK_BF16)
@@ -1061,12 +1097,17 @@ def ssd_bwd_rows(torch, timer, randn, report):
                        "(src/repro/kernels/ssd/kernel.py:92)",
            "max_abs_err": max(errs),
            "ms": timer.ms(lambda: ssd_scan_bwd_cuda(*inputs, dy)),
-           "plain_ms": timer.ms(lambda: ssd_bwd_ref(*inputs, dy), iters=2,
-                                warmup=1),
+           "plain_ms": timer.ms(lambda: ssd_chunked_bwd_ref(*inputs, dy),
+                                iters=3, warmup=1),
+           # the step-by-step oracle (ssd_bwd_ref), the last design's twin
+           "oracle_ms": timer.ms(lambda: ssd_bwd_ref(*full, dy), iters=2,
+                                 warmup=1),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None,   # no one PyTorch call computes it
            "flop": flops, "bytes": bytes_moved}
-    del inputs, dy
+    log(f"  {'ssd_scan_bwd':19s} {'the step-by-step oracle ssd_bwd_ref':44s}"
+        f" {row['oracle_ms']:.4f} ms")
+    del inputs, dy, full
     torch.cuda.empty_cache()
     return [row]
 
@@ -1079,13 +1120,12 @@ def ssd_bwd_planted_faults(torch, randn, report):
     dropped at those boundaries, with no edit to its source.  (2) The
     kernel's dlog_a less <ds_final, S_last>: the term a kernel that forgot
     it would lack."""
-    from repro_torch.kernels.common import REL_L2
     from repro_torch.kernels.ssd.kernel import ssd_scan_bwd_cuda
-    from repro_torch.kernels.ssd.ref import ssd_bwd_ref, ssd_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref, ssd_ref
 
     inputs, dy, ds = ssd_bwd_case(torch, randn, *SSD_BWD_CASES[1])
     S = inputs[2].shape[2]
-    want = ssd_bwd_ref(*inputs, dy, ds)
+    want = ssd_chunked_bwd_ref(*inputs, dy, ds)
     parts = [ssd_scan_bwd_cuda(*[t[:, :, i:i + SSD_L] for t in inputs],
                                dy[:, :, i:i + SSD_L],
                                ds if i + SSD_L >= S else None)
@@ -1099,8 +1139,8 @@ def ssd_bwd_planted_faults(torch, randn, report):
     for label, res in (("(carried terms dropped at 128-row slices)", res1),
                        ("(<ds_final, S_last> dropped from dlog_a)", res2)):
         log(f"    planted fault {label}: " + ", ".join(
-            f"{k} rel_l2 {v[2]:.3e} (limit {REL_L2[ssd_bwd_limits(k)]:g}), "
-            f"elementwise {'passes' if v[1] else 'fails'}"
+            f"{k} {v[2]:.3e} (limit {ssd_bwd_limit_text(k)}), elementwise "
+            f"{'passes' if v[1] else 'fails'}"
             for k, v in res.items()))
     report["planted_fault ssd_scan_bwd"] = {"slices": res1, "ds_term": res2}
     if any(v[0] for v in res1.values()):
@@ -5705,7 +5745,7 @@ OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "rms_dw_sum_kernel", "delta_kernel",
         "dkdv_kernel", "dq_kernel", "ce_tile_kernel", "ce_merge_kernel",
         "ssd_scan_kernel", "ssd_scan_wide_kernel", "ssd_wide_prep_kernel",
-        "ssd_scan_bwd_kernel", "moe_gmm_kernel",
+        "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel", "moe_gmm_kernel",
         "moe_gmm_decode_kernel", "gmm_dw_kernel")
 
 

@@ -251,14 +251,17 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # one bf16 ulp.  On the H100 the largest error is one ulp (1.0 at
     # |y| >= 128).  REL_L2 below holds the whole tensor.
     "ssd/card_bf16": (1e-2, 2.0 ** -7),
-    # SSD backward kernel against ssd_bwd_ref, fp32 out of the same bf16
-    # and fp32 inputs: the same sweeps, the state's updates fused
-    # (multiply-add) and the products summed in another order; dlog_a, a
-    # reverse sum over the rows, keeps the absolute error of its largest
-    # partial sums.  On the H100 the kernel is at most 4.9e-4 off (dgate at
-    # |dgate| ~ 2000, slow decay) and dlog_a 1.0e-2 (|dlog_a| ~ 1e4): each
-    # atol is about twice that, with rtol 1e-4 for the large entries.
-    # REL_L2 below holds the whole tensors.
+    # SSD backward kernel's fp32 outputs (dgate; dlog_a below) against its
+    # plain twin ssd_chunked_bwd_ref (before it, against ssd_bwd_ref, with
+    # these limits): the same bf16 and fp32 inputs, the products' fp32
+    # operands in three bf16 parts (24 bits) on the tensor cores against
+    # fp32 products, summed in another order; dlog_a, a reverse sum over
+    # the rows, keeps the absolute error of its largest partial sums.  The
+    # step-by-step kernel read at most 4.9e-4 (dgate at |dgate| ~ 2000,
+    # slow decay) and dlog_a 1.0e-2 (|dlog_a| ~ 1e4) on the H100: each atol
+    # is about twice that, with rtol 1e-4 for the large entries.  REL_L2
+    # below holds the whole tensors; dx, dc and db, now bf16, are held by
+    # BF16_ULPS.
     "ssd_scan_bwd/card_fp32": (1e-3, 1e-4),
     "ssd_scan_bwd_dlog_a/card_fp32": (5e-2, 1e-4),
     # Grouped matmul: products of bf16 values are exact in fp32 on both
@@ -304,13 +307,15 @@ REL_L2: dict[str, float] = {
     # and 0.63 for y and 0.42 for s_final where the state carries.
     "ssd/card_bf16": 1e-3,
     "ssd_state/card_fp32": 1e-4,
-    # SSD backward: the sound kernel reads at most 2.3e-7 (dc, slow decay,
-    # S 1000) and 1.3e-5 for dlog_a (S 1001) on the H100, the limits ~13
-    # and ~15 times that.  At S 1 dlog_a is 0 in exact arithmetic and the
-    # plain version's is rounding alone, so chip_smoke.py divides by the
-    # atol's norm there (it reads 1.0e-4).  Dropping the carried state and
-    # G at 128-row slices reads 0.62-0.88 for every output, dropping
-    # <ds_final, S_last> 0.18 for dlog_a (chip_smoke.py's planted faults).
+    # SSD backward (dgate and dlog_a): the step-by-step kernel read at most
+    # 2.3e-7 (dc, slow decay, S 1000) and 1.3e-5 for dlog_a (S 1001)
+    # against ssd_bwd_ref on the H100, the limits ~13 and ~15 times that;
+    # the chunked kernel against its twin at most 7.7e-7 (dgate) and 3.5e-6
+    # (dlog_a).  At S 1 dlog_a is 0 in exact arithmetic and the plain
+    # version's is rounding alone, so chip_smoke.py divides by the atol's
+    # norm there.  Dropping the carried state and G at 128-row slices reads
+    # 0.62-0.88 for every output, dropping <ds_final, S_last> 0.18 for
+    # dlog_a (chip_smoke.py's planted faults, step-by-step kernel).
     "ssd_scan_bwd/card_fp32": 3e-6,
     "ssd_scan_bwd_dlog_a/card_fp32": 2e-4,
     # Grouped matmul: the same bf16 roundings on both sides except where an
@@ -327,6 +332,36 @@ REL_L2: dict[str, float] = {
     # times the largest reading, 4.26e-3.
     "moe/card_bf16": 1e-2,
 }
+
+
+# A bf16 output against the plain version's fp32 value rounded to bf16:
+# (floor, share).  The distance is counted in bf16 ulps of the rounded value,
+# or of floor × the tensor's rms where that is larger; every element must be
+# within one ulp, and at most `share` of them off by one.
+BF16_ULPS: dict[str, tuple[float, float]] = {
+    # SSD backward, dx, dc and db: the fp32 values the kernel rounds differ
+    # from the twin's as the fp32 limit allows, a relative 3e-6
+    # (REL_L2 "ssd_scan_bwd/card_fp32").  That flips the rounding of about
+    # 2 · 3e-6 / 2^-8 ≈ 0.15% of the values; the share is twice that.  Below
+    # 2^-10 of the rms one bf16 ulp (2^-8 of the value at least) is finer
+    # than 3e-6 of the rms, so an element that small, a sum that cancelled,
+    # is measured at that floor.  On the H100, before the kernel rounded
+    # once, db summed 64 heads in the tensor cores' accumulators and flipped
+    # 0.27% against an fp64 truth where the twin flipped 0.014%.
+    "ssd_scan_bwd/card_bf16": (2.0 ** -10, 3e-3),
+}
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
+              key: str) -> torch.Tensor:
+    """|got − bf16(want)| in bf16 ulps of max(|bf16(want)|, floor × rms of
+    want), elementwise (``BF16_ULPS[key]``'s floor)."""
+    floor, _ = BF16_ULPS[key]
+    w = want.float()
+    w_r = w.to(torch.bfloat16).float()
+    mag = torch.maximum(w_r.abs(), floor * w.square().mean().sqrt())
+    _, e = torch.frexp(mag.clamp_min(torch.finfo(torch.float32).tiny))
+    return (got.float() - w_r).abs() / torch.ldexp(torch.ones_like(mag), e - 8)
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -485,11 +520,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_bwd.argtypes = [
         p, p, p, p, p, p, p,              # c, b, x, dy, log_a, gate, ds_final
         p, p, p, p, p,                    # dc, db, dx, dlog_a, dgate
-        i, i, i, i, i,                    # B, H, S, N, P
-        *([i64] * 16),                    # (b, h, s, last) strides: c b x dy
-        *([i64] * 6),                     # (b, h, s) strides: la g
+        p,                                # workspace
+        i, i, i, i, i, i,                 # B, H, Hc, S, N, P
+        *([i64] * 15),                    # (b, h, s) strides: c b x dy dx
+        *([i64] * 12),                    # (b, h, s) strides: la g dla dg
         p]                                # stream
     lib.ssd_scan_bwd.restype = i
+    lib.ssd_scan_bwd_workspace.argtypes = [i, i, i]
+    lib.ssd_scan_bwd_workspace.restype = i64
     lib.ssd_scan_wide_workspace.argtypes = [i, i, i]
     lib.ssd_scan_wide_workspace.restype = i64
     lib.moe_gmm_fwd.argtypes = [

@@ -15,6 +15,11 @@ masked, decayed c·bᵀ and gates into the workspace, then the scan
 The JAX wrapper pads S to a multiple of the chunk with zeros; the kernels
 mask the ragged last chunk themselves (rows past S act as log_a = 0,
 gate = 0), so no padded copy is made.
+
+c and b may have a head dim of 1 (zamba2's Mamba2 block: one b and c for
+all heads, the JAX block's ``broadcast_to``): the forward reads them over
+x's heads with a head stride of 0, and the backward returns their gradients
+summed over the heads, in that shape.
 """
 
 from __future__ import annotations
@@ -57,10 +62,21 @@ def padded_like(x: torch.Tensor) -> torch.Tensor:
     return full[..., :last].permute(inv)
 
 
+def broadcast_heads(c, b, x):
+    """c and b seen over x's heads: a head dim of 1 expanded with a head
+    stride of 0 (no copy); any other shape as it is."""
+    if c.dim() == 4 and x.dim() == 4 and c.shape[1] == 1 and x.shape[1] > 1:
+        shape = (c.shape[0], x.shape[1], *c.shape[2:])
+        return c.expand(shape), b.expand(shape)
+    return c, b
+
+
 def ssd_launch_args(c, b, x, log_a, gate, y) -> tuple:
     """Check the inputs and the output y for the kernel and return the C
     call's scalar arguments: (B, H, S, N, P, 18 strides) with the
-    (batch, head, seq) strides of c, b, x, y, log_a and gate."""
+    (batch, head, seq) strides of c, b, x, y, log_a and gate.  c and b of
+    a head dim of 1 are read over x's heads (``broadcast_heads``)."""
+    c, b = broadcast_heads(c, b, x)
     if c.dim() != 4 or b.shape != c.shape or x.dim() != 4:
         raise ValueError("ssd scan takes c, b (B,H,S,N) and x (B,H,S,P)")
     B, H, S, N = c.shape
@@ -122,11 +138,12 @@ def ssd_wide_prep_cuda(c, b, log_a, gate) -> torch.Tensor:
 
 
 def ssd_scan_cuda(c, b, x, log_a, gate):
-    """c, b: (B, H, S, N) bf16; x: (B, H, S, P) bf16; log_a, gate: (B, H, S)
-    fp32; all on one CUDA device, read through their strides (zamba2's b and
-    c may have a head stride of 0).  Returns y (B, H, S, P) bf16 in x's
-    layout with a row pitch of a multiple of 8 (:func:`padded_like`), and
-    s_final (B, H, N, P) fp32."""
+    """c, b: (B, H, S, N) or (B, 1, S, N) bf16; x: (B, H, S, P) bf16;
+    log_a, gate: (B, H, S) fp32; all on one CUDA device, read through their
+    strides (zamba2's b and c may have a head stride of 0).  Returns y
+    (B, H, S, P) bf16 in x's layout with a row pitch of a multiple of 8
+    (:func:`padded_like`), and s_final (B, H, N, P) fp32."""
+    c, b = broadcast_heads(c, b, x)
     y = padded_like(x)
     args = ssd_launch_args(c, b, x, log_a, gate, y)
     B, H, _, N, P = args[:5]
@@ -155,20 +172,47 @@ def check_bwd_shape(N: int, P: int) -> None:
             "is queued in ROADMAP.md (A3, xlstm training)")
 
 
+# The backward's workspace: each (batch, head, 64-row chunk)'s state
+# entering the chunk and the gradient reaching its end, each a 64 x 64 fp32
+# matrix in the order of the wgmma accumulators that hold it
+# (csrc/ssd_scan_bwd.cu: STATE_BYTES)
+BWD_CHUNK = 64
+BWD_STATE_BYTES = 64 * 64 * 4
+
+
+def bwd_workspace_bytes(B: int, H: int, S: int) -> int:
+    """Bytes of the backward's workspace: two states a chunk."""
+    return 2 * B * H * -(-S // BWD_CHUNK) * BWD_STATE_BYTES
+
+
+def _tma_ready(t):
+    """t itself if TMA can read it (unit last stride, other strides
+    multiples of 8 elements, at most one of them 0, a 16-byte aligned
+    base), else a contiguous copy (dy as autograd may hand it back)."""
+    st = t.stride()
+    if (st[-1] == 1 and all(s % 8 == 0 for s in st[:3])
+            and sum(s == 0 for s in st[:3]) <= 1 and t.data_ptr() % 16 == 0):
+        return t
+    return t.contiguous()
+
+
 def ssd_scan_bwd_cuda(c, b, x, log_a, gate, dy, ds_final=None):
-    """The backward of the scan (``ref.ssd_bwd_ref``'s function) on one
-    CUDA device: c, b (B, H, S, 64) bf16, x and the upstream dy (B, H, S,
-    64) bf16, log_a, gate (B, H, S) fp32, each read through its strides
-    (b and c may have a head stride of 0, dy any layout autograd hands
-    back); ds_final (B, H, 64, 64) fp32 or None for zero.  Returns (dc, db,
-    dx, dlog_a, dgate), dense fp32, dc and db per head."""
+    """The backward of the scan (``ref.ssd_chunked_bwd_ref``'s function) on
+    one CUDA device: c, b (B, Hc, S, 64) bf16 with Hc = H, or 1 for a c
+    and b shared by the heads; x and the upstream dy (B, H, S, 64) bf16;
+    log_a, gate (B, H, S) fp32; each read through its strides (dy in any
+    layout autograd hands back); ds_final (B, H, 64, 64) fp32 or None for
+    zero.  Returns (dc, db, dx, dlog_a, dgate): dc and db (B, Hc, S, 64)
+    bf16, summed over the heads where Hc = 1; dx bf16 in x's layout (a row
+    pitch of a multiple of 8, :func:`padded_like`); dlog_a and dgate fp32
+    in log_a's layout.  Two kernels, one count."""
     if c.dim() != 4 or b.shape != c.shape or x.dim() != 4:
-        raise ValueError("ssd scan backward takes c, b (B,H,S,N) and x "
+        raise ValueError("ssd scan backward takes c, b (B,Hc,S,N) and x "
                          "(B,H,S,P)")
-    B, H, S, N = c.shape
-    P = x.shape[-1]
+    B, Hc, S, N = c.shape
+    H, P = x.shape[1], x.shape[-1]
     check_bwd_shape(N, P)
-    if x.shape[:3] != (B, H, S) or dy.shape != x.shape:
+    if x.shape[::2] != (B, S) or Hc not in (1, H) or dy.shape != x.shape:
         raise ValueError(f"shapes disagree: c {tuple(c.shape)}, x "
                          f"{tuple(x.shape)}, dy {tuple(dy.shape)}")
     if log_a.shape != (B, H, S) or gate.shape != (B, H, S):
@@ -188,17 +232,26 @@ def ssd_scan_bwd_cuda(c, b, x, log_a, gate, dy, ds_final=None):
             raise ValueError(f"ds_final must be ({B}, {H}, {N}, {P}), got "
                              f"{tuple(ds_final.shape)}")
         ds_final = ds_final.float().contiguous()
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dc, db = (torch.empty((B, H, S, N), **f32) for _ in range(2))
-    dx = torch.empty((B, H, S, P), **f32)
-    dlog_a, dgate = (torch.empty((B, H, S), **f32) for _ in range(2))
-    status = library().ssd_scan_bwd(
+    c, b, x, dy = (_tma_ready(t) for t in (c, b, x, dy))
+    bf = dict(dtype=torch.bfloat16, device=x.device)
+    dc, db = (torch.empty((B, Hc, S, N), **bf) for _ in range(2))
+    dx = padded_like(x)
+    dlog_a, dgate = (torch.empty_like(log_a) for _ in range(2))
+    ws = torch.empty(bwd_workspace_bytes(B, H, S), dtype=torch.uint8,
+                     device=x.device)
+    lib = library()
+    if lib.ssd_scan_bwd_workspace(B, H, S) != ws.numel():
+        raise RuntimeError("the ssd backward's workspace size disagrees "
+                           "with csrc/ssd_scan_bwd.cu")
+    status = lib.ssd_scan_bwd(
         c.data_ptr(), b.data_ptr(), x.data_ptr(), dy.data_ptr(),
         log_a.data_ptr(), gate.data_ptr(),
         None if ds_final is None else ds_final.data_ptr(),
         dc.data_ptr(), db.data_ptr(), dx.data_ptr(), dlog_a.data_ptr(),
-        dgate.data_ptr(), B, H, S, N, P, *c.stride(), *b.stride(),
-        *x.stride(), *dy.stride(), *log_a.stride(), *gate.stride(),
+        dgate.data_ptr(), ws.data_ptr(), B, H, Hc, S, N, P,
+        *c.stride()[:3], *b.stride()[:3], *x.stride()[:3],
+        *dy.stride()[:3], *dx.stride()[:3], *log_a.stride(),
+        *gate.stride(), *dlog_a.stride(), *dgate.stride(),
         stream_ptr(x.device))
     check_status("ssd_scan_bwd", status)
     count_launch("ssd_scan_bwd")

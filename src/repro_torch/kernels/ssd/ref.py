@@ -9,13 +9,15 @@ Per head, with state S ∈ R^{N×P}:
 ``ssd_ref`` runs the recurrence step by step in fp32: the CPU path of
 ``ssd_scan`` and the oracle the CUDA kernels are held against on the card.
 ``ssd_bwd_ref`` is its backward (the counterpart of ``jax.vjp`` of the JAX
-``ssd_ref``), written as the two sweeps of ``csrc/ssd_scan_bwd.cu``.
+``ssd_ref``), step by step in two sweeps: the oracle of the backward.
 ``ssd_chunked_ref`` computes the same function in the kernels' chunked
 decomposition (the Mamba2 "state-space duality" form of the JAX package's
 Pallas kernel), in fp32, with the chunk length an argument;
 ``ssd_chunk_m`` is its first part, each chunk's masked, decayed c·bᵀ and
 gates, which the wide CUDA kernel's first pass writes and the card check
-holds against this.
+holds against this.  ``ssd_chunked_bwd_ref`` is the backward in the same
+chunked form, the decomposition of ``csrc/ssd_scan_bwd.cu``: the CPU path of
+the backward and the plain version the kernel is held against.
 """
 
 from __future__ import annotations
@@ -37,11 +39,12 @@ def ssd_step(s, c_t, b_t, x_t, log_a_t, gate_t):
 
 
 def ssd_ref(c, b, x, log_a, gate, s0=None):
-    """c, b: (B, H, S, N); x: (B, H, S, P); log_a, gate: (B, H, S);
-    s0: optional (B, H, N, P) initial state.
+    """c, b: (B, H, S, N), or (B, 1, S, N) shared by the heads; x: (B, H,
+    S, P); log_a, gate: (B, H, S); s0: optional (B, H, N, P) initial state.
     Returns (y (B, H, S, P) in x's dtype, s_final (B, H, N, P) fp32)."""
-    B, H, S, N = c.shape
-    P = x.shape[-1]
+    B, _, S, N = c.shape
+    H, P = x.shape[1], x.shape[-1]
+    c, b = (t.expand(B, H, S, N) for t in (c, b))
     BH = B * H
     s = (torch.zeros((BH, N, P), dtype=torch.float32, device=x.device)
          if s0 is None else s0.float().reshape(BH, N, P))
@@ -115,14 +118,15 @@ def ssd_bwd_ref(c, b, x, log_a, gate, dy, ds_final=None):
             dlog_a.reshape(B, H, S), dgate.reshape(B, H, S))
 
 
-def _chunks(t, chunk):
-    """(B, H, S, ...) → (B, H, S/chunk, chunk, ...), rows past S zero (the
-    JAX wrapper's padding: log_a = gate = 0 there, so they add nothing)."""
+def _chunks(t, chunk, dtype=torch.float32):
+    """(B, H, S, ...) → (B, H, S/chunk, chunk, ...) in ``dtype``, rows past
+    S zero (the JAX wrapper's padding: log_a = gate = 0 there, so they add
+    nothing)."""
     B, H, S = t.shape[:3]
     n = -(-S // chunk) * chunk
     pad = [0, 0] * (t.dim() - 3) + [0, n - S]
-    return F.pad(t.float(), pad).reshape(B, H, n // chunk, chunk,
-                                         *t.shape[3:])
+    return F.pad(t.to(dtype), pad).reshape(B, H, n // chunk, chunk,
+                                           *t.shape[3:])
 
 
 def ssd_chunk_m(c, b, log_a, gate, chunk=64):
@@ -160,3 +164,83 @@ def ssd_chunked_ref(c, b, x, log_a, gate, chunk=64):
              @ xx[:, :, k])
     y = torch.cat(ys, dim=2)[:, :, :S]
     return y.to(x.dtype), s
+
+
+def ssd_chunked_bwd_ref(c, b, x, log_a, gate, dy, ds_final=None, chunk=64):
+    """``ssd_bwd_ref``'s function in the chunked form of the backward kernel,
+    fp32.  c, b: (B, Hc, S, N) with Hc = H, or Hc = 1 for a c and b shared
+    by the heads; x, dy: (B, H, S, P); log_a, gate: (B, H, S); ds_final:
+    (B, H, N, P) or None for zero.
+
+    Per chunk, with l the inclusive cumulative sum of log_a within it,
+    e_i = exp(l_i), u_j = exp(l_L − l_j), w_j = u_j g_j, D_ij =
+    exp(l_i − l_j) g_j for j <= i (the mask a select taken before the exp),
+    M = (c bᵀ) ∘ D, S_in the state entering the chunk and Ĝ the gradient
+    that reaches its last state from later chunks (ds_final at the last):
+
+        S_in ← exp(l_L) S_in + bᵀ(w ∘ x)    Ĝ ← exp(l_L) Ĝ + cᵀ(e ∘ dy)
+        dx = Mᵀ dy + w ∘ (b Ĝ)              dM = tril(dy xᵀ)
+        dc = e ∘ (dy S_inᵀ) + (dM ∘ D) b     db = (dM ∘ D)ᵀ c + w ∘ (x Ĝᵀ)
+        dgate_j = Σ_i dM_ij (c_i·b_j) exp(l_i − l_j) + u_j b_j·(Ĝ x_j)
+        dlog_a_t = Σ_{u >= t in the chunk} (c_u·dc_u − g_u dgate_u)
+                   + exp(l_L)⟨Ĝ, S_in⟩ + Σ_j w_j b_j·(Ĝ x_j)
+
+    (the last term is ⟨Ĝ, S_out⟩, the state leaving the chunk: dlog_a needs
+    no pass over the chunks).  The gates' cumulative sums and exps are taken
+    in fp64 and rounded once, so that l_i − l_j keeps fp32's relative
+    precision however far l falls.  Returns (dc, db, dx, dlog_a, dgate) in
+    fp32: dc and db of c's shape, summed over the heads where Hc = 1."""
+    B, Hc, S, N = c.shape
+    H, P = x.shape[1], x.shape[-1]
+    if Hc == 1 and H > 1:
+        c, b = (t.expand(B, H, S, N) for t in (c, b))
+    cc, bb, xx, dyy = (_chunks(t, chunk) for t in (c, b, x, dy))
+    l = _chunks(log_a, chunk, torch.float64).cumsum(-1)     # (B, H, n, L)
+    g = _chunks(gate, chunk)
+    ltot = l[..., -1:]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    E = torch.where(tri, torch.exp(torch.where(
+        tri, l[..., :, None] - l[..., None, :], 0.0)), 0.0).float()  # [i, j]
+    e, u = torch.exp(l).float(), torch.exp(ltot - l).float()
+    decay = torch.exp(ltot[..., 0]).float()                     # (B, H, n)
+    w = u * g
+    # the state passes: S_in entering each chunk, Ĝ reaching each chunk's end
+    n = cc.shape[2]
+    s = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    s_in = []
+    for k in range(n):
+        s_in.append(s)
+        s = (decay[:, :, k, None, None] * s
+             + (bb[:, :, k] * w[:, :, k, :, None]).transpose(-1, -2)
+             @ xx[:, :, k])
+    G = (torch.zeros_like(s) if ds_final is None
+         else ds_final.float().reshape(B, H, N, P))
+    g_hat = [None] * n
+    for k in range(n - 1, -1, -1):
+        g_hat[k] = G
+        G = (decay[:, :, k, None, None] * G
+             + (cc[:, :, k] * e[:, :, k, :, None]).transpose(-1, -2)
+             @ dyy[:, :, k])
+    s_in, g_hat = torch.stack(s_in, 2), torch.stack(g_hat, 2)
+    # each chunk on its own, given its S_in and Ĝ
+    cb = cc @ bb.transpose(-1, -2)                              # [i, j]
+    D = E * g[..., None, :]
+    dm = dyy @ xx.transpose(-1, -2)                             # [i, j]
+    pd = dm * D                                                 # dM ∘ D
+    xg = xx @ g_hat.transpose(-1, -2)                           # x Ĝᵀ
+    dx = ((cb * D).transpose(-1, -2) @ dyy
+          + w[..., None] * (bb @ g_hat))
+    dc = e[..., None] * (dyy @ s_in.transpose(-1, -2)) + pd @ bb
+    db = pd.transpose(-1, -2) @ cc + w[..., None] * xg
+    q = (bb * xg).sum(-1)                                       # b_j·(Ĝ x_j)
+    dgate = (dm * cb * E).sum(-2) + u * q
+    v = (cc * dc).sum(-1) - g * dgate
+    carry = (decay * (g_hat * s_in).sum((-2, -1))
+             + (w * q).sum(-1))[..., None]
+    dlog_a = v.flip(-1).cumsum(-1).flip(-1) + carry
+    dc, db, dx, dlog_a, dgate = (
+        t.reshape(B, H, n * chunk, *t.shape[4:])[:, :, :S]
+        for t in (dc, db, dx, dlog_a, dgate))
+    if Hc == 1 and H > 1:
+        dc, db = (t.sum(1, keepdim=True) for t in (dc, db))
+    return dc, db, dx, dlog_a, dgate

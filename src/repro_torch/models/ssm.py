@@ -63,7 +63,7 @@ def mamba_block(params, x, cfg: ModelConfig, return_state: bool = False):
     return_state → also (conv_state (B, k-1, di) fp32, ssd_state
     (B, H, N, P) fp32)."""
     B, S, _ = x.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
 
     xs_raw, z, b, c, dt = _split_proj(params, x, cfg)
     xs, _ = _causal_conv(xs_raw, params["w_conv"])
@@ -71,11 +71,11 @@ def mamba_block(params, x, cfg: ModelConfig, return_state: bool = False):
 
     log_a, gate = _gates(params, dt, cfg)          # (B, S, H)
     # (B, H, S, ·) views: x through the strides of its (B, S, H, P) layout,
-    # b and c shared by all heads with a head stride of 0, no copies
+    # b and c (B, 1, S, N), shared by all heads (the scan reads them with a
+    # head stride of 0 and returns their gradients summed over the heads),
+    # no copies
     xh = xs.view(B, S, H, P).transpose(1, 2)
-    bh = b[:, None].expand(B, H, S, N)
-    ch = c[:, None].expand(B, H, S, N)
-    y, s_fin = ssd_scan(ch, bh, xh, log_a.transpose(1, 2),
+    y, s_fin = ssd_scan(c[:, None], b[:, None], xh, log_a.transpose(1, 2),
                         gate.transpose(1, 2))      # y (B, H, S, P)
     y = y.transpose(1, 2).reshape(B, S, di)
     y = y + xs * _skip(params, cfg, x.dtype)

@@ -2,11 +2,15 @@
 package's, on the CPU, with JAX's parameters carried across by
 ``params_from_numpy``.
 
-* ``ssd_bwd_ref`` and autograd through ``ssd_scan`` against ``jax.vjp`` of
-  the JAX ``ssd_ref`` (the JAX package cannot differentiate its Pallas
-  scan), at N 16 / P 32 and 64 / 64, S a multiple of 64 and ragged, b and c
-  shared by the heads (head stride 0) and per head, ds_final zero and not.
-* ``ssd_scan`` under autograd on the CPU is exactly the plain backward.
+* ``ssd_bwd_ref``, its chunked twin ``ssd_chunked_bwd_ref`` (the
+  decomposition of the backward kernel, at chunk 64 and 16) and autograd
+  through ``ssd_scan`` against ``jax.vjp`` of the JAX ``ssd_ref`` (the JAX
+  package cannot differentiate its Pallas scan), at N 16 / P 32 and 64 /
+  64, S a multiple of 64, ragged and 1, b and c shared by the heads (a
+  head dim of 1, and a head stride of 0) and per head, ds_final zero and
+  not; the twin against both where l falls by more than 88 a chunk.
+* ``ssd_scan`` under autograd on the CPU is exactly the chunked twin, and a
+  head dim of 1 gets the twin's gradients summed over the heads.
 * The reduced zamba2 (fp32, 5 Mamba2 layers in 2 groups of 2 and a tail of
   1, the shared block after each group, d_model 128, 8 SSD heads of 32,
   state 16): the loss and every gradient against
@@ -42,7 +46,8 @@ from repro_torch.configs import reduced as t_reduced
 from repro_torch.kernels.common import TOLERANCES
 from repro_torch.kernels.ssd.kernel import check_bwd_shape, ssd_scan_bwd_cuda
 from repro_torch.kernels.ssd.ops import ssd_scan
-from repro_torch.kernels.ssd.ref import ssd_bwd_ref, ssd_ref
+from repro_torch.kernels.ssd.ref import (ssd_bwd_ref, ssd_chunked_bwd_ref,
+                                          ssd_ref)
 from repro_torch.models import loss_fn, model as t_model, params_from_numpy
 from repro_torch.optim import adamw
 from repro_torch.train import make_train_step
@@ -113,17 +118,21 @@ def _batch(jcfg, M, mb, S, seed=5):
 # the SSD scan's backward
 # ---------------------------------------------------------------------------
 
-def _scan_inputs(N, P, S, shared, seed=0, B=2, H=3):
+def _scan_inputs(N, P, S, shared, seed=0, B=2, H=3, gates="model"):
     """numpy inputs as the Mamba2 block makes them: c and b (B, 1, S, N)
     when shared by the heads, else (B, H, S, N); x (B, H, S, P); gate =
-    softplus(dt), log_a = -gate·exp(a_log), the model's gates; dy and
-    ds_final N(0, 1)."""
+    softplus(dt), log_a = -gate·exp(a_log), the model's gates ("overflow":
+    log_a <= -1.5, so l falls by more than 88 within a 64-row chunk and
+    exp(l_i - l_j) above the diagonal overflows fp32); dy and ds_final
+    N(0, 1)."""
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.normal(size=shape).astype(np.float32)
     hc = 1 if shared else H
     c, b, x = f(B, hc, S, N), f(B, hc, S, N), f(B, H, S, P)
-    gate = np.log1p(np.exp(f(B, H, S)))
-    log_a = -gate * np.exp(0.5 * f(H))[None, :, None]
+    dt = f(B, H, S)
+    gate = np.log1p(np.exp(dt))
+    log_a = {"model": -gate * np.exp(0.5 * f(H))[None, :, None],
+             "overflow": -1.5 - 0.5 * np.abs(dt)}[gates].astype(np.float32)
     return c, b, x, log_a, gate, f(B, H, S, P), f(B, H, N, P)
 
 
@@ -146,63 +155,104 @@ def _key(name):
 
 @pytest.mark.parametrize("ds", [False, True], ids=["ds0", "ds"])
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-head"])
-@pytest.mark.parametrize("S", [64, 70], ids=["S64", "S70"])
+@pytest.mark.parametrize("S", [64, 70, 1], ids=["S64", "S70", "S1"])
 @pytest.mark.parametrize("N,P", [(16, 32), (64, 64)], ids=["16x32", "64x64"])
 def test_ssd_bwd_matches_jax_vjp(N, P, S, shared, ds):
     """``ssd_bwd_ref`` (per head; summed over the heads where c and b are
-    shared) and ``ssd_scan`` under autograd against ``jax.vjp`` of the JAX
-    ``ssd_ref``, every input's gradient, with y's and s_final's upstream
-    gradients both nonzero where ``ds``."""
+    shared), ``ssd_chunked_bwd_ref`` at chunk 64 and 16 (given the shared c
+    and b with their head dim of 1, so it folds them itself) and
+    ``ssd_scan`` under autograd (shared c and b as expands and with a head
+    dim of 1) against ``jax.vjp`` of the JAX ``ssd_ref``, every input's
+    gradient, with y's and s_final's upstream gradients both nonzero where
+    ``ds``."""
     c, b, x, log_a, gate, dy, ds_final = _scan_inputs(N, P, S, shared)
     B, H = x.shape[:2]
     ds_final = ds_final if ds else np.zeros_like(ds_final)
     want = _jax_vjp(c, b, x, log_a, gate, dy, ds_final, H)
 
     t = [torch.from_numpy(a) for a in (c, b, x, log_a, gate)]
+    tdy, tds = torch.from_numpy(dy), torch.from_numpy(ds_final)
     full = [v.expand(B, H, *v.shape[2:]) for v in t[:2]] + t[2:]
-    got = list(ssd_bwd_ref(*full, torch.from_numpy(dy),
-                           torch.from_numpy(ds_final) if ds else None))
+    got = list(ssd_bwd_ref(*full, tdy, tds if ds else None))
     if shared:
         got[0], got[1] = (g.sum(1, keepdim=True) for g in got[:2])
+    for chunk in (64, 16):
+        twin = ssd_chunked_bwd_ref(*t, tdy, tds if ds else None, chunk=chunk)
+        for name, g, w in zip(GRADS, twin, want):
+            assert g.shape == w.shape and g.dtype == torch.float32, name
+            _close(g, w, _key(name))
     for name, g, w in zip(GRADS, got, want):
         assert g.shape == w.shape and g.dtype == torch.float32, name
         _close(g, w, _key(name))
 
-    leaves = [v.clone().requires_grad_() for v in t]
-    y, s_final = ssd_scan(*[v.expand(B, H, *v.shape[2:]) for v in
-                            leaves[:2]], *leaves[2:])
-    assert y.grad_fn is not None
-    torch.autograd.backward((y, s_final) if ds else (y,),
-                            (torch.from_numpy(dy), torch.from_numpy(ds_final))
-                            if ds else (torch.from_numpy(dy),))
-    for name, leaf, w in zip(GRADS, leaves, want):
-        _close(leaf.grad, w, _key(name))
+    views = [lambda v: v.expand(B, H, *v.shape[2:])] + (
+        [lambda v: v] if shared else [])
+    for view in views:
+        leaves = [v.clone().requires_grad_() for v in t]
+        y, s_final = ssd_scan(*map(view, leaves[:2]), *leaves[2:])
+        assert y.grad_fn is not None
+        torch.autograd.backward((y, s_final) if ds else (y,),
+                                (tdy, tds) if ds else (tdy,))
+        for name, leaf, w in zip(GRADS, leaves, want):
+            _close(leaf.grad, w, _key(name))
 
 
+@pytest.mark.parametrize("chunk", [64, 16])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-head"])
+def test_ssd_chunked_bwd_ref_holds_where_the_decay_overflows(shared, chunk):
+    """The twin against ``ssd_bwd_ref`` and ``jax.vjp`` where l falls by more
+    than 88 within a chunk, so exp(l_i - l_j) above the diagonal would be
+    inf (the twin's mask is a select taken before the exp, as the kernel's
+    is), at a ragged S, b and c shared by 4 heads or per head, a nonzero
+    ds_final."""
+    c, b, x, log_a, gate, dy, ds_final = _scan_inputs(
+        64, 64, 150, shared, H=4, gates="overflow")
+    B, H = x.shape[:2]
+    t = [torch.from_numpy(a) for a in (c, b, x, log_a, gate, dy, ds_final)]
+    got = ssd_chunked_bwd_ref(*t, chunk=chunk)
+    assert all(torch.isfinite(g).all() for g in got)
+    want = list(ssd_bwd_ref(*[v.expand(B, H, *v.shape[2:]) for v in t[:2]],
+                            *t[2:]))
+    if shared:
+        want[0], want[1] = (w.sum(1, keepdim=True) for w in want[:2])
+    for name, g, w in zip(GRADS, got, want):
+        _close(g, w, _key(name))
+    for name, g, w in zip(GRADS, got, _jax_vjp(c, b, x, log_a, gate, dy,
+                                               ds_final, H)):
+        _close(g, w, _key(name))
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per-head", "shared"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-def test_ssd_scan_autograd_on_cpu_is_the_plain_backward(dtype):
-    """On the CPU ``ssd_scan`` runs ``ssd_ref`` forward and, where a
-    gradient is wanted, its autograd Function's backward is
-    ``ssd_bwd_ref`` bit for bit, each gradient cast to its input's type
-    (bf16 c, b, x as the model's, fp32 gates)."""
-    c, b, x, log_a, gate, dy, ds_final = _scan_inputs(64, 64, 70, False)
+def test_ssd_scan_autograd_on_cpu_is_the_plain_backward(dtype, shared):
+    """On the CPU ``ssd_scan`` runs ``ssd_ref`` forward (c and b of a head
+    dim of 1 read over the heads) and, where a gradient is wanted, its
+    autograd Function's backward is the kernel's plain chunked twin
+    ``ssd_chunked_bwd_ref`` bit for bit, each gradient cast to its input's
+    type (bf16 c, b, x as the model's, fp32 gates): for a shared c and b the
+    twin's gradients summed over the heads, of their (B, 1, S, N) shape,
+    with no fold after it."""
+    c, b, x, log_a, gate, dy, ds_final = _scan_inputs(64, 64, 70, shared)
     t = [torch.from_numpy(a).to(dtype) for a in (c, b, x)] + [
         torch.from_numpy(a) for a in (log_a, gate)]
     dy, ds_final = torch.from_numpy(dy).to(dtype), torch.from_numpy(ds_final)
     leaves = [v.clone().requires_grad_() for v in t]
     y, s_final = ssd_scan(*leaves)
-    want_y, want_s = ssd_ref(*t)
+    B, H = x.shape[:2]
+    want_y, want_s = ssd_ref(*[v.expand(B, H, *v.shape[2:]) for v in t[:2]],
+                             *t[2:])
     assert torch.equal(y, want_y) and torch.equal(s_final, want_s)
     torch.autograd.backward((y, s_final), (dy, ds_final))
-    want = ssd_bwd_ref(*t, dy, ds_final)
+    want = ssd_chunked_bwd_ref(*t, dy, ds_final)
     for name, leaf, w in zip(GRADS, leaves, want):
         assert leaf.grad.dtype == leaf.dtype, name
+        assert leaf.grad.shape == leaf.shape, name
         assert torch.equal(leaf.grad, w.to(leaf.dtype)), name
     # only y used: s_final's gradient is None in the Function, not zeros
     leaves = [v.clone().requires_grad_() for v in t]
     ssd_scan(*leaves)[0].backward(dy)
-    want = ssd_bwd_ref(*t, dy)
+    want = ssd_chunked_bwd_ref(*t, dy)
     for name, leaf, w in zip(GRADS, leaves, want):
         assert torch.equal(leaf.grad, w.to(leaf.dtype)), name
 

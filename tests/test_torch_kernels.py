@@ -18,6 +18,8 @@ kernels of the two (``pallas_call`` has no reverse-mode rule), so its oracle
 is the function they compute.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +45,8 @@ from repro.kernels.ssd.ops import ssd_step as jax_ssd_step
 from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref
 from repro_torch.kernels import (decode_attention, flash_attention,
                                  fused_cross_entropy, rmsnorm, ssd_scan)
-from repro_torch.kernels.common import REL_L2, TOLERANCES, launches, rel_l2
+from repro_torch.kernels.common import (BF16_ULPS, REL_L2, TOLERANCES,
+                                        bf16_ulps, launches, rel_l2)
 from repro_torch.kernels.cross_entropy.kernel import ce_launch_args
 from repro_torch.kernels.cross_entropy.ops import ce_forward
 from repro_torch.kernels.cross_entropy.ref import (ce_backward_chunked,
@@ -58,7 +61,9 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.kernels.rmsnorm.kernel import (DW_SUM_WARPS,
                                                 rmsnorm_bwd_launch_args)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
-from repro_torch.kernels.ssd.kernel import (WIDE_RECORD, ssd_launch_args,
+from repro_torch.kernels.ssd.kernel import (WIDE_RECORD, bwd_workspace_bytes,
+                                             ssd_launch_args,
+                                             ssd_scan_bwd_cuda,
                                              wide_workspace_bytes)
 from repro_torch.kernels.ssd.ops import ssd_step
 from repro_torch.kernels.ssd.ref import (ssd_chunk_m, ssd_chunked_ref,
@@ -861,6 +866,74 @@ def test_ssd_launch_args_read_model_layout_through_strides():
     assert args[14:17] == (S * H * P, P, H * P)           # y
     assert args[17:20] == (S * H, 1, H)                   # log_a
     assert args[20:23] == (S * H, 1, H)                   # gate
+
+
+def test_ssd_scan_reads_a_head_dim_of_one_over_the_heads():
+    """zamba2's block hands the scan c and b of shape (B, 1, S, N): the
+    launch arguments are those of their expand over x's heads (a head
+    stride of 0), and on the CPU the output is the expand's bit for bit."""
+    B, H, S, N, P = 2, 4, 70, 64, 64
+    c, b, x, la, g = (torch.from_numpy(a) for a in _ssd_inputs(B, H, S, N, P))
+    c1, b1 = c[:, :1], b[:, :1]
+    bf = torch.bfloat16
+    y = torch.empty_like(x, dtype=bf)
+    args = ssd_launch_args(c1.to(bf), b1.to(bf), x.to(bf), la, g, y)
+    want = ssd_launch_args(*(t.to(bf).expand(B, H, S, N) for t in (c1, b1)),
+                           x.to(bf), la, g, y)
+    assert args[6] == args[9] == 0 and args == want
+    got_y, got_s = ssd_scan(c1, b1, x, la, g)
+    want_y, want_s = ssd_scan(c1.expand(B, H, S, N), b1.expand(B, H, S, N),
+                              x, la, g)
+    assert torch.equal(got_y, want_y) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.parametrize("bad", ["heads", "dtype", "gate_shape", "ds_final"])
+def test_ssd_scan_bwd_cuda_refuses_before_any_launch(bad):
+    """The backward's wrapper checks shapes and types before it builds or
+    loads anything: c and b of a head dim other than 1 or x's, fp32 c, a
+    gate of the wrong shape, a ds_final of the wrong shape."""
+    B, H, S = 1, 3, 64
+    bf = torch.bfloat16
+    c = torch.zeros(B, 1, S, 64, dtype=bf)
+    x = torch.zeros(B, H, S, 64, dtype=bf)
+    g = torch.zeros(B, H, S)
+    ds = None
+    if bad == "heads":
+        c = torch.zeros(B, 2, S, 64, dtype=bf)
+    elif bad == "dtype":
+        c = c.float()
+    elif bad == "gate_shape":
+        g = torch.zeros(B, H, S + 1)
+    else:
+        ds = torch.zeros(B, H, 64, 32)
+    with pytest.raises((ValueError, TypeError)):
+        ssd_scan_bwd_cuda(c, c, x, g, g, x, ds)
+    # two fp32 states a (batch, head, 64-row chunk)
+    assert bwd_workspace_bytes(4, 64, 2048) == 2 * 4 * 64 * 32 * 64 * 64 * 4
+    assert bwd_workspace_bytes(1, 1, 65) == 2 * 2 * 64 * 64 * 4
+
+
+def test_bf16_ulps_counts_one_ulp_off_above_the_floor():
+    """The card check of a bf16 output against a plain fp32 value: 0 where
+    the value rounds alike, 1 where it rounds one ulp away, and an element
+    below the floor (2^-10 of the rms) measured in ulps of the floor, so
+    that an fp32 error of the size the fp32 limit allows stays under one."""
+    key = "ssd_scan_bwd/card_bf16"
+    floor, share = BF16_ULPS[key]
+    assert floor == 2.0 ** -10 and share == 3e-3
+    want = torch.tensor([1.0, 3.0, -5.0, 1e-7, 2.0, 1.0 + 2.0 ** -9])
+    got = want.to(torch.bfloat16).float()
+    assert torch.equal(bf16_ulps(got, want, key), torch.zeros(6))
+    got[1] += 2.0 ** -6                  # one ulp at 3.0
+    got[2] -= 2.0 ** -5                  # one ulp at 5.0
+    got[3] = 3e-6                        # below the floor: a small share
+    u = bf16_ulps(got, want, key)
+    assert u[1] == 1.0 and u[2] == 1.0
+    assert 0 < u[3] < 1.0
+    mag = floor * float(want.square().mean().sqrt())
+    ulp = 2.0 ** (math.floor(math.log2(mag)) - 7)
+    small = float(torch.tensor(1e-7).to(torch.bfloat16).float())
+    assert float(u[3]) == pytest.approx((3e-6 - small) / ulp, rel=1e-5)
 
 
 @pytest.mark.parametrize("bad", ["state", "head_dim", "fp32", "gate_dtype",
