@@ -104,6 +104,26 @@ Phases, each of which must pass:
              shared block once, a tail of 1), the card's loss and each
              gradient leaf against the CPU's fp32 run, within twice the
              CPU's own bf16 run's distance from it.
+12d. train_ssm — xlstm-1.3b at its published width and depth (48 blocks:
+             6 segments of 7 mLSTM blocks on the wide SSD scan, N 512 and P
+             513, and one sLSTM block; 1.415 B parameters, 22.6 GB of
+             training state), through ``init_params``, ``adamw`` and
+             ``make_train_step`` with the remat of each mLSTM block: the
+             train phase's batch 4 times at a constant lr; the loss must
+             fall at every step and each kernel's launches match the path
+             exactly (the wide SSD scan and its backward kernel, 84
+             launches a step).  It reports the step time, tokens/s and peak
+             memory.  Then, with nothing else running before that, two
+             gradient checks, the card's loss and each gradient leaf
+             against the CPU's fp32 run, within twice the CPU's own bf16
+             run's distance from it (the CPU's runs on threads of their
+             own beside the card's): at 8 blocks (one segment), and at 2
+             blocks (one segment cut to 1 mLSTM block and its sLSTM
+             block), where the bf16 floors are small enough that the check
+             must also reject a planted fault in the training path (the
+             wide backward's dx without its w∘(B G) term; at 8 blocks the
+             same fault is reported, not judged).  ``--profile`` adds one
+             segment's profiled step and the sLSTM's share.
 13. consistency_audio, serve_audio — phases 4 and 5 for musicgen-medium
              (audio: the dense stack fed by precomputed EnCodec-frame
              embeddings, no embedding table) at its published width and
@@ -209,12 +229,17 @@ Phases, each of which must pass:
              within rel L2 2e-2 of one process and the tokens within its
              tie band; rank 3's slice empty (local length 0).  (b) granite-moe-3b-a800m at
              full width and depth on (1, 4), EP (12 local experts a rank):
-             the same, within twice the run's own bf16 floor.  (c) qwen2-7b
+             the same, within twice the run's own bf16 floor; beside it,
+             measured with no verdict (ROADMAP.md C8), the same at 2
+             layers: per call, the tokens whose top-k sets differ from one
+             process, each side's capacity, and the lanes that route alike
+             against the call's limit.  (c) qwen2-7b
              at 2 layers on (2, 2), tp and fsdp, on the train phase's
              batch: 2 steps within a band of ``make_train_step``'s loss and
-             grad norm; the params checkpointed on (2, 2) and restored on
-             (1, 4) with equal leaf sums; 4 steps with grad_compress, the
-             loss falling at each.  (d) ``vocab_parallel_ce`` at qwen2's
+             grad norm; the params checkpointed on (2, 2) (the files
+             written beside the next steps) and restored on (1, 4) with
+             equal leaf sums; 4 steps with grad_compress, the loss falling
+             at each.  (d) ``vocab_parallel_ce`` at qwen2's
              vocab (T 8192) against the CE kernel's loss and the plain
              backward's dx.  (e) Adafactor under ZeRO: qwen2-7b at 2
              layers on (2, 2), tp and fsdp, 2 steps within (c)'s band of
@@ -293,7 +318,8 @@ PHASES = ("device", "build", "kernels", "consistency", "serve",
           "serve_moe", "consistency_ssm", "serve_ssm",
           "consistency_starcoder2", "serve_starcoder2",
           "consistency_nemotron", "serve_nemotron", "consistency_llama3",
-          "train", "train_moe", "train_hybrid", "consistency_audio",
+          "train", "train_moe", "train_hybrid", "train_ssm",
+          "consistency_audio",
           "serve_audio", "consistency_vlm", "serve_vlm", "tabular",
           "agentic", "service", "fabric", "distributed", "dryrun")
 
@@ -640,6 +666,9 @@ def kernel_phase(torch, timer, report):
                                         ("internvl2", (64, 8, 128)))}})
     torch.cuda.empty_cache()
     rows += ssd_rows(torch, timer, randn, check, report)
+    # the wide backward first: its autograd check is the process's first
+    # backward on the card
+    rows += ssd_bwd_wide_rows(torch, timer, randn, report)
     rows += ssd_bwd_rows(torch, timer, randn, report)
     rows += moe_gmm_rows(torch, timer, randn, check, report)
     rows += moe_gmm_bwd_rows(torch, timer, randn, check)
@@ -940,25 +969,28 @@ def ssd_bwd_case(torch, randn, B, H, S, gates, layout, ds):
                         else None)
 
 
-def ssd_bwd_limits(name: str) -> str:
+def ssd_bwd_limits(name: str, rows: int = 0) -> str:
     """The key of an SSD backward output's limits: dx, dc and db (bf16)
     are held in bf16 ulps, dlog_a, a reverse sum over the rows, has limits
-    of its own."""
+    of its own, and others again at S 1 (``rows``), where it is rounding
+    alone."""
     if name in ("dc", "db", "dx"):
         return "ssd_scan_bwd/card_bf16"
-    return ("ssd_scan_bwd_dlog_a" if name == "dlog_a"
-            else "ssd_scan_bwd") + "/card_fp32"
+    if name == "dlog_a":
+        return ("ssd_scan_bwd_dlog_a_s1/card_fp32" if rows == 1
+                else "ssd_scan_bwd_dlog_a/card_fp32")
+    return "ssd_scan_bwd/card_fp32"
 
 
-def ssd_bwd_limit_text(name: str) -> str:
+def ssd_bwd_limit_text(name: str, rows: int = 0) -> str:
     from repro_torch.kernels.common import BF16_ULPS, REL_L2
-    key = ssd_bwd_limits(name)
+    key = ssd_bwd_limits(name, rows)
     if key in BF16_ULPS:
         return f"one ulp, in at most {BF16_ULPS[key][1]:g}"
     return f"rel_l2 {REL_L2[key]:g}"
 
 
-def ssd_bwd_check(torch, case, got, want, quiet=False):
+def ssd_bwd_check(torch, case, got, want, quiet=False, name="ssd_scan_bwd"):
     """Each of the backward's five outputs against the plain version's
     under its limits; {output: (within the limits, elementwise ok, measure,
     max abs err)}.  dx, dc and db (bf16) against the plain fp32 values
@@ -968,12 +1000,13 @@ def ssd_bwd_check(torch, case, got, want, quiet=False):
     their rel L2, which divides by ‖want‖ or by the elementwise atol's norm
     over the tensor, whichever is larger: dlog_a's first row is 0 in exact
     arithmetic (S before the first row is 0), so at S 1 the plain version's
-    dlog_a is rounding alone, which the atol holds."""
+    dlog_a is rounding alone, which the atol holds, under limits of its own
+    (``ssd_bwd_limits``)."""
     from repro_torch.kernels.common import (BF16_ULPS, REL_L2, TOLERANCES,
                                             bf16_ulps, max_abs_err, within)
-    out = {}
+    label, out = name, {}
     for name, g, w in zip(SSD_BWD_OUT, got, want):
-        key = ssd_bwd_limits(name)
+        key = ssd_bwd_limits(name, want[3].shape[-1])
         if key in BF16_ULPS:
             u = bf16_ulps(g, w, key)
             worst, share = float(u.max()), float((u > 0).float().mean())
@@ -994,7 +1027,7 @@ def ssd_bwd_check(torch, case, got, want, quiet=False):
                       f"{REL_L2[key]:g})")
         if not quiet:
             verdict = "ok" if out[name][0] else "OUT OF TOLERANCE"
-            log(f"  {'ssd_scan_bwd':19s} {case + ' ' + name:44s} {detail} "
+            log(f"  {label:19s} {case + ' ' + name:44s} {detail} "
                 f"{verdict}")
     return out
 
@@ -1069,6 +1102,33 @@ def ssd_bwd_rows(torch, timer, randn, report):
     if n != 1 or not same:
         fail("ssd_scan under autograd did not take the backward kernel's "
              "gradients as they are")
+    # ROADMAP.md C9: the kernel encodes TMA maps on the host; called as the
+    # first CUDA call of a thread of its own (no context is current there
+    # until csrc/hopper.cuh:encode_bf16 makes the device's so), its outputs
+    # must be the main thread's, bit for bit
+    import threading
+    box: dict = {}
+
+    def on_thread():
+        try:
+            box["got"] = ssd_scan_bwd_cuda(*inputs, dy)
+            torch.cuda.synchronize()
+        except Exception as exc:        # reported below, on the main thread
+            box["error"] = repr(exc)
+
+    th = threading.Thread(target=on_thread)
+    th.start()
+    th.join()
+    fresh = "got" in box and all(torch.equal(a, b)
+                                 for a, b in zip(box["got"], got))
+    err = f" {box['error']}" if "error" in box else ""
+    log(f"  {'ssd_scan_bwd':19s} {'first CUDA call of a new thread':44s} "
+        f"equal bit for bit: {fresh}{err}")
+    report["ssd_scan_bwd new thread"] = fresh
+    if not fresh:
+        fail(f"ssd_scan_bwd on a thread with no current context: "
+             f"{box.get('error', 'outputs differ')}")
+    del box
     if any(rel > SSD_BWD_FOLD_FACTOR * floor for rel, floor in folds.values()):
         fail("ssd_scan under autograd: the folded gradients of the shared c "
              "and b disagree with the oracle's")
@@ -1119,7 +1179,8 @@ def ssd_bwd_planted_faults(torch, randn, report):
     slice's state and G from 0: it runs as if the carried terms were
     dropped at those boundaries, with no edit to its source.  (2) The
     kernel's dlog_a less <ds_final, S_last>: the term a kernel that forgot
-    it would lack."""
+    it would lack.  (3) At S 1, the carry one row late
+    (``ssd_bwd_carry_late``)."""
     from repro_torch.kernels.ssd.kernel import ssd_scan_bwd_cuda
     from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref, ssd_ref
 
@@ -1136,19 +1197,225 @@ def ssd_bwd_planted_faults(torch, randn, report):
     s_last = ssd_ref(*inputs)[1]
     got[3] = got[3] - (ds * s_last).sum((-2, -1))[..., None]
     res2 = ssd_bwd_check(torch, "", got, want, quiet=True)
-    for label, res in (("(carried terms dropped at 128-row slices)", res1),
-                       ("(<ds_final, S_last> dropped from dlog_a)", res2)):
+    res3 = ssd_bwd_carry_late(torch, randn, ssd_bwd_case, SSD_BWD_CASES[4],
+                              "ssd_scan_bwd")
+    for label, res, rows in (
+            ("(carried terms dropped at 128-row slices)", res1, S),
+            ("(<ds_final, S_last> dropped from dlog_a)", res2, S),
+            ("(S 1: dlog_a's carry one row late)", res3, 1)):
         log(f"    planted fault {label}: " + ", ".join(
-            f"{k} {v[2]:.3e} (limit {ssd_bwd_limit_text(k)}), elementwise "
-            f"{'passes' if v[1] else 'fails'}"
+            f"{k} {v[2]:.3e} (limit {ssd_bwd_limit_text(k, rows)}), "
+            f"elementwise {'passes' if v[1] else 'fails'}"
             for k, v in res.items()))
-    report["planted_fault ssd_scan_bwd"] = {"slices": res1, "ds_term": res2}
+    report["planted_fault ssd_scan_bwd"] = {"slices": res1, "ds_term": res2,
+                                            "s1_dlog_a": res3}
     if any(v[0] for v in res1.values()):
         fail("the SSD backward's check does not reject a kernel that drops "
              "the carried terms")
     if res2["dlog_a"][0]:
         fail("the SSD backward's check does not reject a dlog_a without "
              "<ds_final, S_last>")
+    if res3["dlog_a"][0]:
+        fail("the SSD backward's check at S 1 does not reject a dlog_a whose "
+             "carry comes one row late")
+
+
+def ssd_bwd_carry_late(torch, randn, make, case, name):
+    """The control of dlog_a's limits at S 1 (``case``, with ds_final,
+    inputs from ``make``): the kernel's dlog_a plus <ds_final, S>, the
+    carry taken after the row's update and not before it, one row late."""
+    from repro_torch.kernels.ssd.kernel import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref, ssd_ref
+
+    inputs, dy, ds = make(torch, randn, *case)
+    got = list(ssd_scan_bwd_cuda(*inputs, dy, ds))
+    got[3] = got[3] + (ds * ssd_ref(*inputs)[1]).sum((-2, -1))[..., None]
+    return ssd_bwd_check(torch, "", got, ssd_chunked_bwd_ref(*inputs, dy, ds),
+                         quiet=True, name=name)
+
+
+# The wide SSD backward's cases (B, H, S, gates, shared, ds_final): the
+# train step's shape (B 4, H 4, S 2048, per-head q and k as c and b) with
+# ds_final zero and given, a ragged S with the state carrying, one row, and
+# q and k shared by the heads (a head stride of 0) at a ragged S.  x is v
+# with its column of ones as the mLSTM block makes it, and dy a (B, H, S,
+# 513) view of a dense (B, S, H, 513) tensor, as autograd may hand it back:
+# its 1,026-byte rows are not 16-byte aligned, so the wrapper copies them
+# into rows of a pitch of 520.
+SSD_BWD_WIDE_CASES = ((4, 4, 2048, "path", False, False),
+                      (4, 4, 2048, "path", False, True),
+                      (2, 4, 1000, "slow", False, True),
+                      (2, 3, 1, "slow", False, True),
+                      (2, 3, 300, "slow", True, True))
+
+
+def ssd_bwd_wide_case(torch, randn, B, H, S, gates, shared, ds):
+    """(inputs, dy, ds_final) of the wide SSD backward (``ssd_wide_case``'s
+    inputs)."""
+    inputs = ssd_wide_case(torch, randn, B, H, S, gates, shared)
+    dy = randn(B, S, H, 513).transpose(1, 2)
+    return inputs, dy, (randn(B, H, 512, 513, dtype=torch.float32) if ds
+                        else None)
+
+
+def ssd_bwd_wide_rows(torch, timer, randn, report):
+    """The wide SSD backward (N 512, P 513) against its plain twin
+    ``ssd_chunked_bwd_ref`` on the same inputs, under ``ssd_bwd_check``'s
+    limits (dx, dc, db in bf16 ulps, dlog_a and dgate elementwise and by rel
+    L2).  First ``ssd_scan`` under autograd as the mLSTM block calls it, the
+    process's first backward on the card: the wide backward is the first
+    CUDA call of autograd's device thread (ROADMAP.md C9); one launch, and
+    every leaf's gradient is the kernel's output bit for bit.  Then the
+    cases, two calls equal bit for bit, two planted faults, and time and
+    bound at the train step's shape (the first case) beside the twin's
+    time."""
+    from repro_torch.kernels.common import launches
+    from repro_torch.kernels.ssd.kernel import (padded_like,
+                                                ssd_scan_bwd_cuda)
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    inputs, dy, _ = ssd_bwd_wide_case(torch, randn, *SSD_BWD_WIDE_CASES[2])
+    # leaves in the layouts the block hands over: q and k (B, H, S, 512)
+    # views, x with rows of a pitch of 520, the gates (B, H, S) views
+    leaves = [t.detach().clone() if i != 2 else padded_like(t).copy_(t)
+              for i, t in enumerate(inputs)]
+    for t in leaves:
+        t.requires_grad_()
+    before = launches()["ssd_scan_bwd_wide"]
+    y, _ = ssd_scan(*leaves)
+    y.backward(dy)
+    n = launches()["ssd_scan_bwd_wide"] - before
+    got = ssd_scan_bwd_cuda(*inputs, dy)
+    same = all(t.grad.dtype == g.dtype and torch.equal(t.grad, g)
+               for t, g in zip(leaves, got))
+    log(f"  {'ssd_scan_bwd_wide':19s} "
+        f"{'autograd through ssd_scan, first on its thread':44s} launches "
+        f"{n}, every gradient the kernel's output: {same}")
+    report["ssd_scan_bwd_wide autograd"] = {"launches": n, "same": same}
+    if n != 1 or not same:
+        fail("ssd_scan under autograd did not take the wide backward "
+             "kernel's gradients as they are")
+    del leaves, y, got
+
+    errs = []
+    for B, H, S, gates, shared, ds in SSD_BWD_WIDE_CASES:
+        inputs, dy, ds_final = ssd_bwd_wide_case(torch, randn, B, H, S,
+                                                 gates, shared, ds)
+        case = (f"N512 P513 B{B} H{H} S{S} {gates}"
+                f"{' shared' if shared else ''}{' ds_final' if ds else ''}")
+        got = ssd_scan_bwd_cuda(*inputs, dy, ds_final)
+        if not all(torch.isfinite(g).all() for g in got):
+            fail(f"ssd_scan_bwd_wide {case}: non-finite output")
+        res = ssd_bwd_check(torch, case, got,
+                            ssd_chunked_bwd_ref(*inputs, dy, ds_final),
+                            name="ssd_scan_bwd_wide")
+        report.setdefault("rel_l2", {}).update(
+            {f"ssd_scan_bwd_wide {case} {k}": v[2] for k, v in res.items()})
+        errs += [v[3] for v in res.values()]
+        bad = [k for k, v in res.items() if not v[0]]
+        if bad:
+            fail(f"ssd_scan_bwd_wide {case}: {bad} disagree with the plain "
+                 "version")
+        del inputs, dy, ds_final, got
+
+    ssd_bwd_wide_planted_faults(torch, randn, report)
+    B, H, S, gates, shared, ds = SSD_BWD_WIDE_CASES[0]
+    inputs, dy, _ = ssd_bwd_wide_case(torch, randn, B, H, S, gates, shared,
+                                      ds)
+    same_bits(torch, "ssd_scan_bwd_wide", f"N512 P513 B{B} H{H} S{S}",
+              lambda: ssd_scan_bwd_cuda(*inputs, dy))
+    N, P, L = 512, 513, 64
+    # the chunked form over whole 64-row chunks: five products of 2·L·N·P
+    # (the two state passes, dY S_inᵀ, X Gᵀ, B G) and five of a 64 x 64
+    # matrix (C Bᵀ, dY Xᵀ, Mᵀ dY, (dM∘D) B, (dM∘D)ᵀ C), at the bf16 peak
+    flops = B * H * -(-S // L) * (5 * 2 * L * N * P
+                                  + 2 * L * L * (3 * N + 2 * P))
+    # c, b read and dc, db written (per head), x, dy read and dx written, in
+    # bf16; the gates read and dlog_a, dgate written in fp32
+    bytes_moved = (4 * B * H * S * N * 2 + 3 * B * H * S * P * 2
+                   + 4 * B * H * S * 4)
+    b_ms, b_by = bound(bytes_moved, flops, PEAK_BF16)
+    row = {"name": "ssd_scan_bwd_wide", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan_bwd_wide.cu",
+           "replaces": "no Pallas counterpart: the JAX package cannot "
+                       "differentiate ssd_scan_pallas "
+                       "(src/repro/kernels/ssd/kernel.py:92)",
+           "max_abs_err": max(errs),
+           "ms": timer.ms(lambda: ssd_scan_bwd_cuda(*inputs, dy)),
+           "plain_ms": timer.ms(lambda: ssd_chunked_bwd_ref(*inputs, dy),
+                                iters=3, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None,   # no one PyTorch call computes it
+           "flop": flops, "bytes": bytes_moved}
+    del inputs, dy
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def chunk_local_dx(inputs, dy):
+    """The wide backward's dx with each 64-row chunk launched alone and no
+    ds_final: G is 0 in every chunk, so dx is M^T dY alone, without its
+    w∘(B G) term."""
+    import torch
+
+    from repro_torch.kernels.ssd.kernel import ssd_scan_bwd_cuda
+    S = inputs[2].shape[2]
+    return torch.cat([ssd_scan_bwd_cuda(*[t[:, :, i:i + 64] for t in inputs],
+                                        dy[:, :, i:i + 64])[2]
+                      for i in range(0, S, 64)], dim=2)
+
+
+def ssd_bwd_wide_planted_faults(torch, randn, report):
+    """The wide backward's check must reject a wrong kernel, with no edit to
+    the kernel's source.  At the ragged case whose state carries (B 2, H 4,
+    S 1000, slow decay, a nonzero ds_final): (1) launched on each 128-row
+    slice alone, the kernel starts every slice's S_in and G from 0: the
+    carried terms dropped at those boundaries; (2) launched on each 64-row
+    chunk alone without ds_final, G is 0 in every chunk, so its dx is M^T
+    dY alone: dx without its w∘(B G) term (``chunk_local_dx``).  At S 1
+    with ds_final, where dlog_a is 0 in exact arithmetic and has limits of
+    its own: (3) dlog_a plus <ds_final, S>, the carry taken one row late
+    (after the row's update), the control of those limits."""
+    from repro_torch.kernels.ssd.kernel import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    inputs, dy, ds = ssd_bwd_wide_case(torch, randn, *SSD_BWD_WIDE_CASES[2])
+    S = inputs[2].shape[2]
+    want = ssd_chunked_bwd_ref(*inputs, dy, ds)
+    parts = [ssd_scan_bwd_cuda(*[t[:, :, i:i + SSD_L] for t in inputs],
+                               dy[:, :, i:i + SSD_L],
+                               ds if i + SSD_L >= S else None)
+             for i in range(0, S, SSD_L)]
+    name = "ssd_scan_bwd_wide"
+    res1 = ssd_bwd_check(torch, "", [torch.cat([p[k] for p in parts], dim=2)
+                                     for k in range(5)], want, quiet=True,
+                         name=name)
+    got = list(ssd_scan_bwd_cuda(*inputs, dy, ds))
+    got[2] = chunk_local_dx(inputs, dy)
+    res2 = ssd_bwd_check(torch, "", got, want, quiet=True, name=name)
+    res3 = ssd_bwd_carry_late(torch, randn, ssd_bwd_wide_case,
+                              SSD_BWD_WIDE_CASES[3], name)
+    for label, res, rows in (
+            ("(carried terms dropped at 128-row slices)", res1, S),
+            ("(dx without w∘(B G))", res2, S),
+            ("(S 1: dlog_a's carry one row late)", res3, 1)):
+        log(f"    planted fault {label}: " + ", ".join(
+            f"{k} {v[2]:.3e} (limit {ssd_bwd_limit_text(k, rows)}), "
+            f"elementwise "
+            f"{'passes' if v[1] else 'fails'}"
+            for k, v in res.items()))
+    report["planted_fault ssd_scan_bwd_wide"] = {"slices": res1, "dx": res2,
+                                                 "s1_dlog_a": res3}
+    if any(v[0] for v in res1.values()):
+        fail("the wide SSD backward's check does not reject a kernel that "
+             "drops the carried terms")
+    if res2["dx"][0]:
+        fail("the wide SSD backward's check does not reject a dx without "
+             "its w∘(B G) term")
+    if res3["dlog_a"][0]:
+        fail("the wide SSD backward's check at S 1 does not reject a dlog_a "
+             "whose carry comes one row late")
 
 
 def ssd_wide_case(torch, randn, B, H, S, gates="path", shared=False):
@@ -2182,7 +2449,7 @@ EXPECTED = {"rmsnorm": 57 * (2 + 128), "flash_attention": 28 * 2,
             "decode_attention": 28 * 128, "cross_entropy": 0,
             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssd_scan": 0,
             "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm": 0,
-            "moe_gmm_bwd": 0, "ssd_scan_bwd": 0}
+            "moe_gmm_bwd": 0, "ssd_scan_bwd": 0, "ssd_scan_bwd_wide": 0}
 # zamba2-1.2b: 38 Mamba2 layers in 6 groups of 6 and a tail of 2, the shared
 # block after each group.  A pass runs 51 rmsnorms (one per Mamba2 layer,
 # two per shared block, the final one); a prefill wave 6 flash and 38 SSD
@@ -2193,7 +2460,7 @@ HYBRID_EXPECTED = {"rmsnorm": (38 + 2 * 6 + 1) * (2 + 128),
                    "ssd_scan": 38 * 2, "cross_entropy": 0,
                    "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0,
                    "ssd_scan_wide": 0, "ssd_wide_prep": 0, "moe_gmm_bwd": 0,
-                   "ssd_scan_bwd": 0}
+                   "ssd_scan_bwd": 0, "ssd_scan_bwd_wide": 0}
 # granite-moe-3b-a800m: 32 layers, each 2 rmsnorms and 3 grouped matmuls (the
 # experts' gate, up and down products), and the final norm: a pass (a
 # prefill wave or a decode step) is 65 rmsnorm and 96 moe_gmm launches.
@@ -2201,7 +2468,7 @@ MOE_EXPECTED = {"rmsnorm": (2 * 32 + 1) * (2 + 128), "flash_attention": 32 * 2,
                 "decode_attention": 32 * 128, "moe_gmm": 96 * (2 + 128),
                 "ssd_scan": 0, "cross_entropy": 0, "flash_attention_bwd": 0,
                 "rmsnorm_bwd": 0, "ssd_scan_wide": 0, "ssd_wide_prep": 0,
-                "moe_gmm_bwd": 0, "ssd_scan_bwd": 0}
+                "moe_gmm_bwd": 0, "ssd_scan_bwd": 0, "ssd_scan_bwd_wide": 0}
 # xlstm-1.3b: 6 segments of 7 mLSTM blocks and one sLSTM block.  A pass (a
 # prefill wave or a decode step) runs 49 rmsnorms (one per block, the final
 # one); a prefill wave runs the wide SSD scan once per mLSTM block, 42, each
@@ -2212,7 +2479,7 @@ SSM_EXPECTED = {"rmsnorm": (48 + 1) * (2 + 128), "ssd_scan_wide": 42 * 2,
                 "ssd_wide_prep": 42 * 2, "flash_attention": 0,
                 "decode_attention": 0, "ssd_scan": 0, "cross_entropy": 0,
                 "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gmm": 0,
-                "moe_gmm_bwd": 0, "ssd_scan_bwd": 0}
+                "moe_gmm_bwd": 0, "ssd_scan_bwd": 0, "ssd_scan_bwd_wide": 0}
 # starcoder2-15b: 40 layers, each 2 rmsnorms, one flash launch a prefill wave
 # and one decode launch a step, and the final norm.
 STARCODER_EXPECTED = {"rmsnorm": (2 * 40 + 1) * (2 + 128),
@@ -2220,7 +2487,7 @@ STARCODER_EXPECTED = {"rmsnorm": (2 * 40 + 1) * (2 + 128),
                       "cross_entropy": 0, "flash_attention_bwd": 0,
                       "rmsnorm_bwd": 0, "ssd_scan": 0, "ssd_scan_wide": 0,
                       "ssd_wide_prep": 0, "moe_gmm": 0, "moe_gmm_bwd": 0,
-                      "ssd_scan_bwd": 0}
+                      "ssd_scan_bwd": 0, "ssd_scan_bwd_wide": 0}
 # nemotron-4-340b at NEMOTRON_LAYERS = 4 layers: the same per layer
 NEMOTRON_EXPECTED = {**STARCODER_EXPECTED,
                      "rmsnorm": (2 * NEMOTRON_LAYERS + 1) * (2 + 128),
@@ -2436,7 +2703,7 @@ def train_launches(layers: int, moe: bool = False) -> dict:
             "ssd_scan_wide": 0, "ssd_wide_prep": 0,
             "moe_gmm": TRAIN_MB * 3 * layers * 2 if moe else 0,
             "moe_gmm_bwd": TRAIN_MB * 3 * layers if moe else 0,
-            "ssd_scan_bwd": 0}
+            "ssd_scan_bwd": 0, "ssd_scan_bwd_wide": 0}
 
 
 # per step at L = 4, M = 2
@@ -2753,20 +3020,34 @@ def grad_check(torch, report, key, cfg, c, factor, what, extra=None):
     ``c["batch"]`` x ``c["seq"]`` tokens against the CPU's fp32 run on the
     same parameters and tokens, each within ``factor`` times the CPU's own
     bf16 run's distance from that fp32 run (the floor); the loss within
-    that factor of its floor or of half a bf16 ulp, whichever is larger."""
+    that factor of its floor or of half a bf16 ulp, whichever is larger
+    (:func:`grad_check_start`, then :func:`grad_check_finish`)."""
+    grad_check_finish(torch, report, key, grad_check_start(torch, cfg, c),
+                      factor, what, extra)
+
+
+def grad_check_start(torch, cfg, c) -> dict:
+    """``cfg``'s parameters drawn on the card (seed 1) and the tokens, then
+    the CPU's fp32 and bf16 runs started on a thread of their own, so that
+    a caller may run the card's work meanwhile.  The CPU's two runs go
+    without the remat, which changes no number there and would run every
+    layer's forward twice on the host; the card runs ``cfg`` as it is."""
+    import threading
+
     from repro_torch.data.lm import DataConfig, global_batch_at
     from repro_torch.distributed.policy import tree_leaves_with_path
-    from repro_torch.kernels.common import rel_l2
     from repro_torch.models import init_params, loss_fn
     from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
     data = DataConfig(vocab=cfg.vocab, seq_len=c["seq"],
                       global_batch=c["batch"], microbatches=1, seed=1)
     host = {k: torch.from_numpy(v[0]) for k, v in
             global_batch_at(data, 0).items()}
+    t0 = time.perf_counter()
     card = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
                        device="cuda")
+    cpu16 = tree_map(lambda t: t.detach().cpu(), card)
+    cpu32 = tree_map(lambda t: t.float(), cpu16)
 
     def run(params, run_cfg, device):
         leaves = tree_leaves(params)
@@ -2778,36 +3059,81 @@ def grad_check(torch, report, key, cfg, c, factor, what, extra=None):
         return float(loss.detach()), [g.detach().float().cpu()
                                       for g in grads]
 
+    state = {"cfg": cfg, "c": c, "run": run, "card": card,
+             "names": [path for path, _ in tree_leaves_with_path(card)],
+             "walls": {"draw": time.perf_counter() - t0}}
+
+    def references():
+        try:
+            for name, params, run_cfg in (
+                    ("cpu_fp32", cpu32, dataclasses.replace(
+                        cfg, dtype="float32", remat=False)),
+                    ("cpu_bf16", cpu16, dataclasses.replace(cfg,
+                                                            remat=False))):
+                t1 = time.perf_counter()
+                state[name] = run(params, run_cfg, "cpu")
+                state["walls"][name] = time.perf_counter() - t1
+        except BaseException as exc:    # re-raised by grad_check_finish
+            state["error"] = exc
+
+    state["thread"] = threading.Thread(target=references, daemon=True)
+    state["thread"].start()
+    return state
+
+
+def grad_check_finish(torch, report, key, state, factor, what, extra=None,
+                      planted=None):
+    """The card's run of :func:`grad_check_start`'s parameters, then the
+    CPU's runs waited for, and every comparison (``grad_check``).
+    ``planted``: (label, a context manager factory that plants a fault in
+    the card's path, whether the check must reject it): the card's run
+    again under the fault, held to the same limits; where it must be
+    rejected, the check fails if it passes, and else it is reported."""
+    from repro_torch.kernels.common import rel_l2
+
+    cfg, c = state["cfg"], state["c"]
     t0 = time.perf_counter()
-    got_loss, got = run(card, cfg, "cuda")
-    names = [path for path, _ in tree_leaves_with_path(card)]
-    cpu16 = tree_map(lambda t: t.detach().cpu(), card)
-    cpu32 = tree_map(lambda t: t.detach().float().cpu(), card)
-    del card
+    got_loss, got = state["run"](state["card"], cfg, "cuda")
+    faulty = None
+    if planted is not None:
+        with planted[1]():
+            faulty = state["run"](state["card"], cfg, "cuda")
+    del state["card"]
     torch.cuda.empty_cache()
-    walls = [time.perf_counter() - t0]
-    want_loss, want = run(cpu32, cfg32, "cpu")
-    walls.append(time.perf_counter() - t0 - sum(walls))
-    ref_loss, ref = run(cpu16, cfg, "cpu")
-    walls.append(time.perf_counter() - t0 - sum(walls))
-    loss_err = abs(got_loss - want_loss) / abs(want_loss)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state["thread"].join()
+    if "error" in state:
+        raise state["error"]
+    (want_loss, want), (ref_loss, ref) = state["cpu_fp32"], state["cpu_bf16"]
+    walls = [state["walls"]["draw"] + card_s, state["walls"]["cpu_fp32"],
+             state["walls"]["cpu_bf16"], time.perf_counter() - t0]
+    names = state["names"]
     loss_floor = abs(ref_loss - want_loss) / abs(want_loss)
     loss_limit = factor * max(loss_floor, 2.0 ** -9)
-    rows, bad = {}, []
-    for name, g, w, r in zip(names, got, want, ref):
-        err, floor = rel_l2(g, w), rel_l2(r, w)
-        rows[name] = {"rel_l2": err, "floor": floor}
-        ok = err <= factor * floor
-        if not ok:
-            bad.append(name)
-        log(f"    {name:24s} rel_l2 {err:.3e}  floor {floor:.3e}  "
-            f"{'ok' if ok else 'OUT OF BOUND'}")
+    floors = [rel_l2(r, w) for r, w in zip(ref, want)]
+
+    def held(loss, grads, quiet=False):
+        rows, bad = {}, []
+        for name, g, w, floor in zip(names, grads, want, floors):
+            err = rel_l2(g, w)
+            rows[name] = {"rel_l2": err, "floor": floor}
+            ok = err <= factor * floor
+            if not ok:
+                bad.append(name)
+            if not quiet:
+                log(f"    {name:24s} rel_l2 {err:.3e}  floor {floor:.3e}  "
+                    f"{'ok' if ok else 'OUT OF BOUND'}")
+        return abs(loss - want_loss) / abs(want_loss), rows, bad
+
+    loss_err, rows, bad = held(got_loss, got)
     log(f"  {what}, {c['batch']} x {c['seq']} tokens: loss card "
         f"{got_loss:.6f}, CPU fp32 {want_loss:.6f} (rel err {loss_err:.3e}, "
         f"limit {loss_limit:.3e}; CPU bf16 {ref_loss:.6f}, floor "
         f"{loss_floor:.3e}); {len(rows)} gradient leaves within "
         f"{factor:g} x their floor: {not bad} (card, CPU fp32, CPU bf16 "
-        f"{', '.join(f'{w:.1f}' for w in walls)} s)")
+        f"{', '.join(f'{w:.1f}' for w in walls[:3])} s; waited "
+        f"{walls[3]:.1f} s for the CPU's runs)")
     report[key] = {
         "layers": cfg.n_layers, **(extra or {}),
         "tokens": c["batch"] * c["seq"],
@@ -2821,6 +3147,23 @@ def grad_check(torch, report, key, cfg, c, factor, what, extra=None):
     if bad:
         fail(f"{key}: gradients off the CPU's fp32 run beyond {factor:g} x "
              f"their bf16 floor: {bad}")
+    if planted is None:
+        return
+    label, _, must_reject = planted
+    f_err, f_rows, f_bad = held(*faulty, quiet=True)
+    rejected = bool(f_bad) or f_err > loss_limit
+    log(f"    planted fault ({label}): loss rel err {f_err:.3e}; leaves out "
+        f"of bound: " + (", ".join(
+            f"{n} {f_rows[n]['rel_l2']:.3e} (floor {f_rows[n]['floor']:.3e})"
+            for n in f_bad) or "none") + (f"; rejected: {rejected}"
+        if must_reject else f"; rejected: {rejected} (measured, no "
+        f"verdict)"))
+    report[key]["planted"] = {"label": label, "loss_rel_err": f_err,
+                              "leaves": f_rows, "rejected": rejected,
+                              "must_reject": must_reject}
+    if must_reject and not rejected:
+        fail(f"{key}: the check does not reject the planted fault "
+             f"({label})")
 
 
 # ---------------------------------------------------------------------------
@@ -2926,6 +3269,159 @@ def train_hybrid_phase(torch, np, report):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12d: training xlstm-1.3b, full width and depth
+# ---------------------------------------------------------------------------
+
+# constant lr, as TRAIN_LR and TRAIN_HYBRID_LR
+TRAIN_SSM_LR = 1e-5
+TRAIN_SSM_STEPS = TRAIN_STEPS
+# the card-against-CPU gradient checks, each at 2 x 256 tokens.  8 blocks
+# (one segment: 7 mLSTM blocks and its sLSTM block), as TRAIN_HYBRID_CHECK;
+# its mLSTM leaves' bf16 floors read 0.25-0.37, because the gradient of the
+# mLSTM's normalizer max(|q·n|, 1) jumps where a rounding moves |q·n|
+# across 1, and 7 stacked blocks carry the jumps down
+# (scripts_xlstm_grad_floor.py, PERF.md §6): at 2 x floor that check
+# passes a wide backward whose dx lacks w∘(B G).  2 blocks (one segment
+# cut to 1 mLSTM block and its sLSTM block, slstm_period 2) have floors of
+# ~1e-2 on the CPU, and there the same check must reject that fault.
+TRAIN_SSM_CHECK = dict(layers=8, seq=256, batch=2)
+TRAIN_SSM_SHORT_CHECK = dict(layers=2, seq=256, batch=2, period=2)
+# --profile's train step: one segment
+TRAIN_SSM_PROFILE_LAYERS = 8
+TRAIN_SSM_FLOOR_FACTOR = 2.0
+
+
+def ssm_train_launches(cfg) -> dict:
+    """Launches of one xlstm step at M = TRAIN_MB under the block-granular
+    remat (``models/model.py:_ssm_trunk``): each mLSTM block's rmsnorm and
+    wide SSD scan (its first pass and the scan) run twice (the forward, then
+    again in the backward), each sLSTM block's rmsnorm once (it runs
+    outside the remat); the final norm and the CE head once; every backward
+    once, the wide SSD backward once an mLSTM block."""
+    from repro_torch.models.model import ssm_layout
+    segments, per = ssm_layout(cfg)
+    mlstm = segments * per
+    return {**train_launches(0), "rmsnorm": TRAIN_MB * (2 * mlstm + segments
+                                                        + 1),
+            "rmsnorm_bwd": TRAIN_MB * (cfg.n_layers + 1),
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "ssd_scan_wide": TRAIN_MB * 2 * mlstm,
+            "ssd_wide_prep": TRAIN_MB * 2 * mlstm,
+            "ssd_scan_bwd_wide": TRAIN_MB * mlstm}
+
+
+@contextlib.contextmanager
+def wide_dx_fault():
+    """The wide SSD backward as the training path calls it, with dx
+    without its w∘(B G) term (``chunk_local_dx``), the kernel's planted
+    fault (2) in ``ssd_bwd_wide_planted_faults``."""
+    import repro_torch.kernels.ssd.ops as ops
+    real = ops.ssd_scan_bwd_cuda
+
+    def faulty(c, b, x, log_a, gate, dy, ds_final=None):
+        out = list(real(c, b, x, log_a, gate, dy, ds_final))
+        out[2] = chunk_local_dx((c, b, x, log_a, gate), dy)
+        return tuple(out)
+
+    ops.ssd_scan_bwd_cuda = faulty
+    try:
+        yield
+    finally:
+        ops.ssd_scan_bwd_cuda = real
+
+
+def train_ssm_phase(torch, np, report):
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import DataConfig, global_batch_at
+    from repro_torch.kernels.common import launches, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.models.model import ssm_layout
+    from repro_torch.models.xlstm import release_scan_graphs
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(SSM_ARCH)
+    segments, per = ssm_layout(cfg)
+    n = allocated_params(cfg)
+    log(f"  {SSM_ARCH} published width and depth: {cfg.n_layers} blocks in "
+        f"{segments} segments of {per} mLSTM blocks (the wide SSD scan and "
+        f"its backward at N 512, P 513) and one sLSTM block; "
+        f"{n / 1e9:.3f} B parameters x {TRAIN_STATE_B} B = "
+        f"{n * TRAIN_STATE_B / 1e9:.1f} GB of state; remat={cfg.remat} "
+        f"(each mLSTM block), {cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    step = make_train_step(cfg, adamw(lr=TRAIN_SSM_LR))
+    opt_state = step.init_opt_state(params)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, microbatches=TRAIN_MB,
+                      seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in global_batch_at(data, 0).items()}
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    losses, times, norms = [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(TRAIN_SSM_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"].item()))
+        norms.append(float(metrics["grad_norm"].item()))
+        times.append(time.perf_counter() - t0)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(times[1:])) * 1e3
+    log(f"  lr {TRAIN_SSM_LR:g}  losses {[round(v, 4) for v in losses]}  "
+        f"grad norms {[round(v, 3) for v in norms]}")
+    log(f"  step ms {[round(t * 1e3, 1) for t in times]}  (median after the "
+        f"first: {step_ms:.1f} ms)  tokens/s {tokens / step_ms * 1e3:.0f}  "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"  launches {counts}")
+    expected = {k: v * TRAIN_SSM_STEPS for k, v in
+                ssm_train_launches(cfg).items()}
+    report["train_ssm"] = {
+        "layers": cfg.n_layers, "lr": TRAIN_SSM_LR, "params": n,
+        "tokens_per_step": tokens, "losses": losses, "grad_norms": norms,
+        "step_s": times, "step_ms": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3, "peak_bytes": peak,
+        "launches": counts}
+    del params, opt_state, batch, step
+    gc.collect()
+    release_scan_graphs()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite ssm training loss {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"the ssm loss did not fall at every step on a repeated "
+             f"batch: {losses}")
+    if counts != expected:
+        fail(f"train_ssm launch counts {counts}, expected {expected}")
+    # the checks after the timed steps: their CPU runs go on threads of
+    # their own while the card runs its side
+    c, short = TRAIN_SSM_CHECK, TRAIN_SSM_SHORT_CHECK
+    checks = [grad_check_start(torch, dataclasses.replace(
+        cfg, n_layers=c["layers"]), c), grad_check_start(
+        torch, dataclasses.replace(cfg, n_layers=short["layers"],
+                                   slstm_period=short["period"]), short)]
+    fault = "dx of the wide backward without w∘(B G)"
+    grad_check_finish(torch, report, "train_ssm_grad_check", checks[0],
+                      TRAIN_SSM_FLOOR_FACTOR,
+                      f"{c['layers']} blocks (one segment: "
+                      f"{c['layers'] - 1} mLSTM, 1 sLSTM)",
+                      planted=(fault, wide_dx_fault, False))
+    grad_check_finish(torch, report, "train_ssm_grad_check_short", checks[1],
+                      TRAIN_SSM_FLOOR_FACTOR,
+                      f"{short['layers']} blocks (one segment cut to 1 "
+                      f"mLSTM, 1 sLSTM)", {"slstm_period": short["period"]},
+                      planted=(fault, wide_dx_fault, True))
+    release_scan_graphs()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def loop_phase(torch, report):
     """TrainLoop on the card: an uninterrupted run against a run preempted
     at step 2 and resumed from its checkpoint."""
@@ -2981,6 +3477,12 @@ DIST_QWEN_LIMIT = CONSISTENCY_LIMIT[ARCH, None]
 # H100
 DIST_QWEN_LAYERS = 2
 DIST_MOE_FLOOR_FACTOR = 2.0
+# (b) at 2 layers, a measurement beside the check (ROADMAP.md C8): per call,
+# the tokens whose top-8 sets differ between EP and one process in any
+# layer, each side's capacity, and the logits of the lanes whose tokens all
+# route alike held to the call's limit (2 x its floor), as the check holds
+# every lane
+DIST_MOE_PROBE_LAYERS = 2
 # (c): 2 steps against the single-process step, then 4 with grad_compress
 DIST_TRAIN_STEPS, DIST_COMPRESS_STEPS = 2, 4
 # (c) and (e): qwen2 cut to 2 layers, half the train phase's 4: the parts
@@ -3021,9 +3523,8 @@ def _dist_expected(part: str) -> dict:
         n = DIST_QWEN_LAYERS
         return {"rmsnorm": (2 * n + 1) * calls, "flash_attention": n,
                 "decode_attention": n * DIST_STEPS}
-    if part == "b":                            # granite, EP
-        from repro_torch.configs import get_config
-        n = get_config(MOE_ARCH).n_layers
+    if part in ("b", "b2"):                    # granite, EP
+        n = _dist_serve_config(MOE_ARCH, part == "b2").n_layers
         return {"rmsnorm": (2 * n + 1) * calls, "flash_attention": n,
                 "decode_attention": n * DIST_STEPS, "moe_gmm": 3 * n * calls}
     if part in ("c", "e"):                     # train, 2 layers, M 2
@@ -3039,25 +3540,87 @@ def _rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def _dist_serve_config(arch):
+def _dist_serve_config(arch, probe: bool = False):
     """(a)'s config, qwen2 at DIST_QWEN_LAYERS, or (b)'s, granite as
-    published."""
+    published (at DIST_MOE_PROBE_LAYERS for the C8 measurement,
+    ``probe``)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return (dataclasses.replace(cfg, n_layers=DIST_QWEN_LAYERS)
-            if arch == ARCH else cfg)
+    if arch == ARCH:
+        return dataclasses.replace(cfg, n_layers=DIST_QWEN_LAYERS)
+    return dataclasses.replace(cfg, n_layers=DIST_MOE_PROBE_LAYERS) \
+        if probe else cfg
 
 
-def _dist_serve_ref(torch, np, arch):
+@contextlib.contextmanager
+def _routes_recorded(torch, into: dict):
+    """Each MoE layer call's routing while the block runs: its tokens' top-k
+    expert sets (sorted, on the host) in ``into["sets"]`` and the capacity
+    its dispatch used in ``into["caps"]`` (``moe.ROUTING_STATS``)."""
+    from repro_torch.models import moe
+
+    route = moe._route
+    into["sets"] = []
+
+    def recorded(params, x_flat, cfg):
+        w, e = route(params, x_flat, cfg)
+        into["sets"].append(e.sort(-1).values.to(torch.int16).cpu())
+        return w, e
+
+    moe._route, moe.ROUTING_STATS = recorded, []
+    try:
+        yield
+    finally:
+        into["caps"] = [st["capacity"] for st in moe.ROUTING_STATS]
+        moe._route, moe.ROUTING_STATS = route, None
+
+
+def _dist_route_probe(torch, got_logits, ref):
+    """C8's counts for each call (prefill, then each decode step) of a run
+    at DIST_MOE_PROBE_LAYERS against one process: the tokens whose top-k
+    sets differ in any layer, each side's capacities, and the rel L2 of the
+    lanes whose tokens all route alike, with its limit 2 x the call's
+    floor."""
+    n = DIST_MOE_PROBE_LAYERS
+    rows = []
+    for c, (got, want) in enumerate(zip(got_logits, ref["logits"])):
+        mine = ref["routes_got"]["sets"][c * n:(c + 1) * n]
+        theirs = ref["routes"]["sets"][c * n:(c + 1) * n]
+        diff = torch.zeros(mine[0].shape[0], dtype=torch.bool)
+        for a, b in zip(mine, theirs):
+            diff |= (a != b).any(-1)
+        lanes = diff.view(DIST_LANES, -1).any(-1)      # tokens by lane
+        keep = ~lanes
+        want = want.to(got.device)
+        rel_eq = (_rel_l2(got[keep.to(got.device)],
+                          want[keep.to(got.device)])
+                  if keep.any() else None)
+        limit = DIST_MOE_FLOOR_FACTOR * ref["floor"][c]
+        rows.append({
+            "tokens": int(diff.numel()), "tokens_differ": int(diff.sum()),
+            "caps_ep": ref["routes_got"]["caps"][c * n:(c + 1) * n],
+            "caps_one": ref["routes"]["caps"][c * n:(c + 1) * n],
+            "lanes_alike": int(keep.sum()), "rel_l2": _rel_l2(got, want),
+            "rel_l2_alike": rel_eq, "limit": limit,
+            "holds": _rel_l2(got, want) <= limit,
+            "alike_holds": rel_eq is None or rel_eq <= limit})
+    return rows
+
+
+def _dist_serve_ref(torch, np, arch, probe: bool = False):
     """Single-process prefill of 8 x 1024 seeded tokens into a 2048 cache,
     then 16 greedy decode steps: the tokens fed (prompt, then each step's
     greedy token), every call's fp32 logits, and each call's bf16 floor:
     the same calls, fed the same tokens, with the embedding table perturbed
     by ~1/2 ulp (its rel L2 and, per lane, the tie band sqrt(2) x rms of
-    the change)."""
+    the change).  With ``probe`` (C8) at DIST_MOE_PROBE_LAYERS, and the
+    unperturbed run's routing (``_routes_recorded``)."""
     from repro_torch.models import decode_step, init_params, prefill
 
-    cfg = _dist_serve_config(arch)
+    cfg = _dist_serve_config(arch, probe)
+    routes: dict = {}
+    record = (_routes_recorded(torch, routes) if probe
+              else contextlib.nullcontext())
     rng = np.random.default_rng(7)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab, (DIST_LANES, DIST_PROMPT))).cuda()
@@ -3065,14 +3628,15 @@ def _dist_serve_ref(torch, np, arch):
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
             0), device="cuda")
         t0 = time.perf_counter()
-        logits, st = prefill(params, {"tokens": prompt}, cfg, DIST_CACHE)
-        fed, out = [prompt], [logits.cpu()]
-        for _ in range(DIST_STEPS):
-            nxt = logits.argmax(-1, keepdim=True)
-            fed.append(nxt)
-            logits, st = decode_step(params, st, nxt, cfg)
-            out.append(logits.cpu())
-        torch.cuda.synchronize()
+        with record:
+            logits, st = prefill(params, {"tokens": prompt}, cfg, DIST_CACHE)
+            fed, out = [prompt], [logits.cpu()]
+            for _ in range(DIST_STEPS):
+                nxt = logits.argmax(-1, keepdim=True)
+                fed.append(nxt)
+                logits, st = decode_step(params, st, nxt, cfg)
+                out.append(logits.cpu())
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         del st
         perturb_half_ulp(torch, params["embed"]["tok"])
@@ -3088,7 +3652,8 @@ def _dist_serve_ref(torch, np, arch):
     return {"tokens": torch.cat(fed, dim=1).cpu(), "logits": logits,
             "wall_s": wall,
             "floor": [_rel_l2(p, o) for p, o in zip(perts, logits)],
-            "band": 2 ** 0.5 * (perts - logits).pow(2).mean(-1).sqrt()}
+            "band": 2 ** 0.5 * (perts - logits).pow(2).mean(-1).sqrt(),
+            **({"routes": routes} if probe else {})}
 
 
 def _dist_train_optimizer(part: str):
@@ -3237,7 +3802,10 @@ def _dist_serve(torch, arch, mesh, ref, band_factor):
     """(a) / (b): the arch's shards drawn one layer at a time, prefill and
     16 teacher-forced decode steps under the decode policy; every call's
     logits against the single-process ones, on this rank, and its token
-    within ``band_factor`` x the call's tie band (plus the top's ulp)."""
+    within ``band_factor`` x the call's tie band (plus the top's ulp).
+    Where ``ref`` holds the one process's routing (C8's measurement at
+    DIST_MOE_PROBE_LAYERS), this rank's routing against it, each call
+    (``_dist_route_probe``)."""
     from repro_torch.distributed.context import use_context
     from repro_torch.distributed.policy import (make_policy, param_pspecs,
                                                 shard_placer)
@@ -3246,7 +3814,11 @@ def _dist_serve(torch, arch, mesh, ref, band_factor):
     from repro_torch.models.model import param_specs
     from repro_torch.optim.optimizers import tree_leaves
 
-    cfg = _dist_serve_config(arch)
+    probe = "routes" in ref
+    cfg = _dist_serve_config(arch, probe)
+    routes: dict = {}
+    record = (_routes_recorded(torch, routes) if probe
+              else contextlib.nullcontext())
     pol = make_policy(cfg, ShapeConfig("decode", DIST_CACHE, DIST_LANES,
                                        "decode"), mesh)
     params = init_params(
@@ -3260,17 +3832,18 @@ def _dist_serve(torch, arch, mesh, ref, band_factor):
     rels, within, gaps, local_lens = [], [], [], []
     t0 = time.perf_counter()
     with torch.inference_mode(), use_context(pol.context()):
-        got, st = prefill(params, {"tokens": toks[:, :DIST_PROMPT]}, cfg,
-                          DIST_CACHE)
-        t_prefill = time.perf_counter() - t0
-        outs = [got]
-        for i in range(DIST_STEPS):
-            lens = st["len"]
-            local_lens.append(int((lens + 1 - lo).clamp(0, s_loc).min()))
-            col = DIST_PROMPT + i
-            got, st = decode_step(params, st, toks[:, col:col + 1], cfg)
-            outs.append(got)
-        torch.cuda.synchronize()
+        with record:
+            got, st = prefill(params, {"tokens": toks[:, :DIST_PROMPT]},
+                              cfg, DIST_CACHE)
+            t_prefill = time.perf_counter() - t0
+            outs = [got]
+            for i in range(DIST_STEPS):
+                lens = st["len"]
+                local_lens.append(int((lens + 1 - lo).clamp(0, s_loc).min()))
+                col = DIST_PROMPT + i
+                got, st = decode_step(params, st, toks[:, col:col + 1], cfg)
+                outs.append(got)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         for got, want, band in zip(outs, ref["logits"], ref["band"]):
             want = want.to(mesh.device)
@@ -3284,8 +3857,12 @@ def _dist_serve(torch, arch, mesh, ref, band_factor):
             gaps.append(float(gap.max()))
             within.append(bool((gap <= band_factor * band.to(mesh.device)
                                 + ulp).all()))
+        probed = (_dist_route_probe(torch, outs, {**ref, "routes_got":
+                                                  routes})
+                  if probe else None)
     del params, st, outs
     return {"tp": pol.tp, "ep_axis": pol.ep_axis, "weights_bytes": weights,
+            **({"probe": probed} if probe else {}),
             "rel_l2": rels, "within_band": within, "max_gap": gaps,
             "min_local_length": min(local_lens), "prefill_s": t_prefill,
             "decode_s": (wall - t_prefill) / DIST_STEPS}
@@ -3293,8 +3870,9 @@ def _dist_serve(torch, arch, mesh, ref, band_factor):
 
 def _dist_train(torch, device, ref, ckpt_dir):
     """(c): qwen2 at 2 layers on (2, 2) with tp and fsdp: 2 steps against
-    the single-process step; the params checkpointed on (2, 2) and restored
-    on (1, 4); then 4 steps with grad_compress on the repeated batch."""
+    the single-process step; the params checkpointed on (2, 2); 4 steps with
+    grad_compress on the repeated batch while rank 0 writes the checkpoint's
+    files (``async_write``); then the checkpoint restored on (1, 4)."""
     import torch.distributed as dist
 
     from repro_torch.ckpt import load_checkpoint, save_checkpoint
@@ -3342,10 +3920,24 @@ def _dist_train(torch, device, ref, ckpt_dir):
     flat_specs = dict(tree_leaves_with_path(param_pspecs(params, pol, cfg)))
     before = sums(params, flat_specs, mesh)
     t0 = time.perf_counter()
-    save_checkpoint(ckpt_dir, DIST_TRAIN_STEPS, params, shardings=
-                    tree_shardings(param_pspecs(params, pol, cfg), pol)).wait()
-    save_s = time.perf_counter() - t0
+    saving = save_checkpoint(
+        ckpt_dir, DIST_TRAIN_STEPS, params, async_write=True,
+        shardings=tree_shardings(param_pspecs(params, pol, cfg), pol))
+    save_s = time.perf_counter() - t0        # the gathers to rank 0
     del params
+
+    params = fresh()
+    step = make_train_step(cfg, adamw(lr=TRAIN_LR), policy=pol,
+                           grad_compress=True)
+    opt = step.init_opt_state(params)
+    compressed = []
+    for _ in range(DIST_COMPRESS_STEPS):
+        params, opt, m = step(params, opt, batch)
+        compressed.append(float(m["loss"]))
+    del params, opt
+    t0 = time.perf_counter()
+    saving.wait()                            # rank 0's files; a barrier
+    wait_s = time.perf_counter() - t0
     mesh14 = Mesh.over_world((1, 4), ("data", "model"), device)
     pol14 = make_policy(cfg, shape, mesh14, tp=True, fsdp=True,
                         microbatches=TRAIN_MB)
@@ -3360,16 +3952,6 @@ def _dist_train(torch, device, ref, ckpt_dir):
                    for p in before)
     del restored
     dist.barrier()
-
-    params = fresh()
-    step = make_train_step(cfg, adamw(lr=TRAIN_LR), policy=pol,
-                           grad_compress=True)
-    opt = step.init_opt_state(params)
-    compressed = []
-    for _ in range(DIST_COMPRESS_STEPS):
-        params, opt, m = step(params, opt, batch)
-        compressed.append(float(m["loss"]))
-    del params, opt
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
                                                        ref["losses"]))
     norm_rel = max(abs(a - b) / abs(b) for a, b in zip(norms,
@@ -3377,7 +3959,8 @@ def _dist_train(torch, device, ref, ckpt_dir):
     return {"losses": losses, "grad_norms": norms, "step_s": times,
             "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
             "ckpt_leaves": len(before), "ckpt_sum_rel": ckpt_rel,
-            "ckpt_save_s": save_s, "ckpt_load_s": load_s,
+            "ckpt_save_s": save_s, "ckpt_wait_s": wait_s,
+            "ckpt_load_s": load_s,
             "compressed_losses": compressed}
 
 
@@ -3484,6 +4067,8 @@ def distributed_rank(rank, world, device, ref_path, ckpt_dir):
     parts = {"a": lambda: _dist_serve(torch, ARCH, mesh, ref["a"], 1.0),
              "b": lambda: _dist_serve(torch, MOE_ARCH, mesh, ref["b"],
                                       DIST_MOE_FLOOR_FACTOR),
+             "b2": lambda: _dist_serve(torch, MOE_ARCH, mesh, ref["b2"],
+                                       DIST_MOE_FLOOR_FACTOR),
              "c": lambda: _dist_train(torch, device, ref["c"], ckpt_dir),
              "d": lambda: _dist_ce(torch, mesh, ref["d"]),
              "e": lambda: _dist_adafactor(torch, device, ref["e"]),
@@ -3494,7 +4079,7 @@ def distributed_rank(rank, world, device, ref_path, ckpt_dir):
         if rank == 0:             # as it goes; the verdicts come at the end
             log(f"  rank 0 ({part}) done in {out[part]['wall_s']:.1f} s: " +
                 ", ".join(f"{k} {v}" for k, v in out[part].items()
-                          if k not in ("launches", "wall_s")))
+                          if k not in ("launches", "wall_s", "probe")))
     out["loaded"] = sorted(m for m in ("jax", "repro") if m in sys.modules)
     return out
 
@@ -3508,6 +4093,7 @@ def distributed_phase(torch, np, report):
     t0 = time.perf_counter()
     ref = {"a": _dist_serve_ref(torch, np, ARCH),
            "b": _dist_serve_ref(torch, np, MOE_ARCH),
+           "b2": _dist_serve_ref(torch, np, MOE_ARCH, probe=True),
            "c": _dist_train_ref(torch), "d": _dist_ce_ref(torch),
            "e": _dist_train_ref(torch, "e")}
     ref_s = time.perf_counter() - t0
@@ -3548,7 +4134,9 @@ def distributed_phase(torch, np, report):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     problems = []
-    names = {"a": ARCH, "b": MOE_ARCH, "c": "train", "d": "vocab CE",
+    names = {"a": ARCH, "b": MOE_ARCH,
+             "b2": f"{MOE_ARCH} at {DIST_MOE_PROBE_LAYERS} layers (C8)",
+             "c": "train", "d": "vocab CE",
              "e": "train Adafactor", "e planted": "its planted control"}
     total = {k: 0 for k in LAUNCHES}
     for r, res in enumerate(ranks):
@@ -3556,7 +4144,8 @@ def distributed_phase(torch, np, report):
             problems.append(f"rank {r} loaded {res['loaded']}")
         for part in names:
             got = res[part]["launches"]
-            want = {k: _dist_expected(part[0]).get(k, 0) for k in got}
+            want = {k: _dist_expected(part.split()[0]).get(k, 0)
+                    for k in got}
             for k, v in got.items():    # the control is not the path
                 total[k] += v if part != "e planted" else 0
             if got != want:
@@ -3588,14 +4177,31 @@ def distributed_phase(torch, np, report):
                             f"{within}")
         if min(zero) != 0:
             problems.append(f"({part}) no rank saw a local length 0: {zero}")
+    # C8's measurement (reported, no verdict): rank 0's routing at 2 layers
+    probe = ranks[0]["b2"]["probe"]
+    log(f"  (b) at {DIST_MOE_PROBE_LAYERS} layers (C8, measured): per call, "
+        f"tokens whose top-k sets differ from one process in any layer, "
+        f"capacities EP / one process, lanes "
+        f"whose tokens all route alike and their rel L2 (the call's limit):")
+    for c_i, row in enumerate(probe):
+        alike = ("-" if row["rel_l2_alike"] is None
+                 else f"{row['rel_l2_alike']:.4e}")
+        log(f"    call {c_i:2d}: {row['tokens_differ']} of {row['tokens']} "
+            f"tokens differ; capacity {row['caps_ep']} / {row['caps_one']}; "
+            f"{row['lanes_alike']} lanes alike, rel L2 {alike}; all lanes "
+            f"{row['rel_l2']:.4e} (limit {row['limit']:.4e}): "
+            f"{'holds' if row['holds'] else 'over'}")
+    report["distributed_c8"] = probe
     c = [r["c"] for r in ranks]
     log(f"  (c) train (2, 2) tp fsdp: losses {c[0]['losses']} against "
         f"{ref['c']['losses']} (rel {c[0]['loss_rel']:.3e}, limit "
         f"{DIST_LOSS_RTOL:g}); grad norms {[round(v, 4) for v in c[0]['grad_norms']]} "
         f"(rel {c[0]['grad_norm_rel']:.3e}, limit {DIST_GNORM_RTOL:g}); "
         f"step s {[round(v, 2) for v in c[0]['step_s']]}; checkpoint of "
-        f"{c[0]['ckpt_leaves']} leaves saved on (2, 2) in "
-        f"{c[0]['ckpt_save_s']:.1f} s, restored on (1, 4) in "
+        f"{c[0]['ckpt_leaves']} leaves gathered on (2, 2) in "
+        f"{c[0]['ckpt_save_s']:.1f} s (rank 0's write beside the "
+        f"grad_compress steps, then waited {c[0]['ckpt_wait_s']:.1f} s), "
+        f"restored on (1, 4) in "
         f"{c[0]['ckpt_load_s']:.1f} s, leaf sums' worst rel "
         f"{max(x['ckpt_sum_rel'] for x in c):.2e}; grad_compress losses "
         f"{[round(v, 5) for v in c[0]['compressed_losses']]}")
@@ -5745,7 +6351,9 @@ OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "rms_dw_sum_kernel", "delta_kernel",
         "dkdv_kernel", "dq_kernel", "ce_tile_kernel", "ce_merge_kernel",
         "ssd_scan_kernel", "ssd_scan_wide_kernel", "ssd_wide_prep_kernel",
-        "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel", "moe_gmm_kernel",
+        "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel",
+        "wide_bwd_state_kernel", "wide_bwd_chunk_kernel",
+        "wide_bwd_out_kernel", "wide_bwd_finish_kernel", "moe_gmm_kernel",
         "moe_gmm_decode_kernel", "gmm_dw_kernel")
 
 
@@ -5960,6 +6568,72 @@ def slstm_share(torch, params, toks, cfg, report) -> str:
             f"{[round(t * 1e3, 3) for t in spent]}), share {share:.3f}")
 
 
+def slstm_train_share(torch, report) -> str:
+    """One sLSTM block of xlstm-1.3b forward and backward at a train
+    microbatch's shape (4 x 2048 tokens, d 2048, bf16), after a warm run:
+    its wall (3 runs, unprofiled) and its device time (one run under
+    torch.profiler), times 2 (one segment's block, 2 microbatches) against
+    the profiled one-segment train step's (``report["profile"]``), and
+    times 12 (6 blocks) against the train_ssm phase's unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import _xlstm_layers, ssm_layout
+    from repro_torch.models.xlstm import slstm_block
+
+    cfg = get_config(SSM_ARCH)
+    one = dataclasses.replace(cfg, n_layers=cfg.slstm_period)
+    params = init_params(one, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    lp = _xlstm_layers(params, one)[0][1]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B = TRAIN_BATCH // TRAIN_MB
+    x = torch.randn(B, TRAIN_SEQ, cfg.d_model, generator=gen, device="cuda"
+                    ).to(torch.bfloat16).requires_grad_()
+    dy = torch.randn(B, TRAIN_SEQ, cfg.d_model, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+
+    def run():
+        slstm_block(lp, x, cfg).backward(dy)
+        torch.cuda.synchronize()
+
+    run()                                              # warm: the captures
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    wall = (time.perf_counter() - t0) / 3              # unprofiled
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    _, busy, nk = _kernel_table(prof, 1)
+    busy /= 1e3                                        # µs -> ms
+    seg = TRAIN_MB                     # one segment's block, 2 microbatches
+    n_blocks = ssm_layout(cfg)[0] * TRAIN_MB
+    step = report.get("profile", {}).get(
+        f"train step ({cfg.name}, {TRAIN_SSM_PROFILE_LAYERS} layers, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens)", {})
+    step_busy = step.get("device_busy_ms")
+    out = {"wall_ms": wall * 1e3, "busy_ms": busy, "kernels": nk,
+           "blocks_a_step": n_blocks}
+    text = (f"sLSTM block fwd+bwd (B {B}, S {TRAIN_SEQ}, d {cfg.d_model}): "
+            f"wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms, {nk:.0f} "
+            f"kernels")
+    if step_busy:
+        out["share_of_segment_busy"] = seg * busy / step_busy
+        text += (f"; x {seg} against the profiled one-segment step: "
+                 f"{out['share_of_segment_busy']:.3f} of its device time")
+    full = report.get("train_ssm", {}).get("step_ms")
+    if full:
+        out["share_of_step_wall"] = n_blocks * wall * 1e3 / full
+        text += (f"; x {n_blocks} against the {cfg.n_layers}-block step's "
+                 f"{full:.1f} ms: {out['share_of_step_wall']:.3f}")
+    report.setdefault("profile", {})["slstm_train"] = out
+    del params, x, dy
+    torch.cuda.empty_cache()
+    return text
+
+
 def profile_phase(torch, np, report, phases):
     lines = []
     if "train" in phases:
@@ -5972,6 +6646,16 @@ def profile_phase(torch, np, report, phases):
         from repro_torch.configs import get_config
         lines += profile_train_step(torch, report, get_config(HYBRID_ARCH),
                                     TRAIN_HYBRID_LR)
+    if "train_ssm" in phases:
+        # one segment (8 blocks): the step's ~10^6 kernels at 48 blocks are
+        # more than the profiler's tables take in the run's time
+        from repro_torch.configs import get_config
+        from repro_torch.models.xlstm import release_scan_graphs
+        lines += profile_train_step(torch, report, dataclasses.replace(
+            get_config(SSM_ARCH), n_layers=TRAIN_SSM_PROFILE_LAYERS),
+            TRAIN_SSM_LR)
+        lines.append(slstm_train_share(torch, report))
+        release_scan_graphs()
     if "serve" in phases:
         lines += profile_serving(torch, np, report, ARCH)
     if "serve_hybrid" in phases:
@@ -6174,6 +6858,10 @@ def main() -> None:
             f"depth")
         by_path["train_hybrid"] = timed("train_hybrid", train_hybrid_phase,
                                         torch, np, report)
+    if "train_ssm" in phases:
+        log(f"[train_ssm] make_train_step {SSM_ARCH} full width and depth")
+        by_path["train_ssm"] = timed("train_ssm", train_ssm_phase, torch, np,
+                                     report)
     if "consistency_audio" in phases:
         log(f"[consistency_audio] full-width {AUDIO_ARCH}, B=2, embeddings")
         timed("consistency_audio", consistency_phase, torch, np, report,

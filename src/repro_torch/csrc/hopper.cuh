@@ -743,11 +743,20 @@ inline int sm_count() {
 // elements, byte strides of dims 1.. (dim 0 is contiguous), a box of
 // box[i] elements (box[0] = 64, 128 bytes), the 128-byte swizzle and zeros
 // outside the tensor.  Returns false if the driver refuses it.
+//
+// cuTensorMapEncodeTiled needs a current context.  A launch can be the
+// first CUDA call of its thread (autograd runs a backward on a thread of
+// its own), where none is current and the encoding fails with
+// CUDA_ERROR_INVALID_CONTEXT: cudaSetDevice makes the device's primary
+// context current on this thread first.
 inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
                         const cuuint64_t* dims, const cuuint64_t* strides,
                         const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
             const_cast<void*>(base), dims, strides, box, unit,

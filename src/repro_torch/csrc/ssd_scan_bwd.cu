@@ -903,15 +903,6 @@ extern "C" int ssd_scan_bwd(
   if (B <= 0 || H <= 0 || S <= 0) return -1;
   if (N != NS || P != PD) return -1;  // zamba2's state 64, head dim 64
   if (Hc != 1 && Hc != H) return -1;
-  // cuTensorMapEncodeTiled, which encodes the tensor maps, needs a current
-  // context: autograd runs the backward on a thread of its own, where this
-  // can be the first CUDA call (the encoding then returns
-  // CUDA_ERROR_INVALID_CONTEXT).  cudaSetDevice makes the device's primary
-  // context current on this thread.
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaSetDevice(dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const bool shared = Hc == 1;
   const int nc = (S + L - 1) / L;
   const ll state_blocks = 2ll * B * H;
@@ -952,7 +943,7 @@ extern "C" int ssd_scan_bwd(
   sp.H = H;
   sp.S = S;
   sp.n_chunks = nc;
-  err = cudaFuncSetAttribute(ssd_bwd_state_kernel,
+  cudaError_t err = cudaFuncSetAttribute(ssd_bwd_state_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              S_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -89,7 +89,7 @@ LAUNCHES: dict[str, int] = {"rmsnorm": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
                             "ssd_scan": 0, "ssd_scan_wide": 0,
                             "ssd_wide_prep": 0, "ssd_scan_bwd": 0,
-                            "moe_gmm": 0,
+                            "ssd_scan_bwd_wide": 0, "moe_gmm": 0,
                             "moe_gmm_bwd": 0}
 
 
@@ -186,6 +186,15 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     "xlstm/block_cpu_fp32": (1e-5, 1e-5),
     "xlstm/wide_cpu_fp32": (5e-5, 1e-5),
     "xlstm/model_cpu_fp32": (5e-5, 1e-5),
+    # Training xlstm: every gradient leaf against jax.grad, fp32, atol a
+    # share of the leaf's largest |grad| (as ssd/hybrid_grad_cpu_fp32).  One
+    # sLSTM block (the scan's written-out backward against the lax.scan's
+    # transpose): at most 5.2e-7 of the largest (d 128) and 1.6e-6 (d 2048,
+    # sums over 2048 terms); the reduced xlstm (4 blocks, the SSD backward
+    # at (32, 33)), remat off and on: at most 2.1e-6 (slstm/r).  Each limit
+    # is ~5 times that.
+    "xlstm/slstm_grad_cpu_fp32": (1e-5, 1e-5),
+    "xlstm/grad_cpu_fp32": (1e-5, 1e-5),
     # Grouped matmul, plain version against the JAX package's moe_gmm_ref,
     # its Pallas kernel in interpret mode and its equal-groups einsum: fp32
     # products of the same values summed over D <= 64 in another order (at
@@ -264,6 +273,8 @@ TOLERANCES: dict[str, tuple[float, float]] = {
     # BF16_ULPS.
     "ssd_scan_bwd/card_fp32": (1e-3, 1e-4),
     "ssd_scan_bwd_dlog_a/card_fp32": (5e-2, 1e-4),
+    # dlog_a at S 1, of either kernel (REL_L2 below says why it has a key)
+    "ssd_scan_bwd_dlog_a_s1/card_fp32": (5e-2, 1e-4),
     # Grouped matmul: products of bf16 values are exact in fp32 on both
     # sides (wgmma here, an fp32 product with TF32 off in the plain
     # version); the D fp32 sums run in another order, so an output next to
@@ -311,13 +322,27 @@ REL_L2: dict[str, float] = {
     # 2.3e-7 (dc, slow decay, S 1000) and 1.3e-5 for dlog_a (S 1001)
     # against ssd_bwd_ref on the H100, the limits ~13 and ~15 times that;
     # the chunked kernel against its twin at most 7.7e-7 (dgate) and 3.5e-6
-    # (dlog_a).  At S 1 dlog_a is 0 in exact arithmetic and the plain
-    # version's is rounding alone, so chip_smoke.py divides by the atol's
-    # norm there.  Dropping the carried state and G at 128-row slices reads
+    # (dlog_a).  Dropping the carried state and G at 128-row slices reads
     # 0.62-0.88 for every output, dropping <ds_final, S_last> 0.18 for
-    # dlog_a (chip_smoke.py's planted faults, step-by-step kernel).
+    # dlog_a (chip_smoke.py's planted faults, step-by-step kernel).  The
+    # wide backward (N 512, P 513, fp32 products on the CUDA cores) against
+    # the same twin is held to these limits: on the H100 its dlog_a reads
+    # 3.4e-7 to 5.3e-7.
     "ssd_scan_bwd/card_fp32": 3e-6,
     "ssd_scan_bwd_dlog_a/card_fp32": 2e-4,
+    # dlog_a at S 1 with a nonzero ds_final, either kernel: its one row is
+    # 0 in exact arithmetic (S before the first row is 0), the sum of g·u·q
+    # and w·q terms that cancel, where q_j = b_j·(G x_j) sums N·P products
+    # (4,096 at 64 / 64, 262,656 at 512 / 513).  What the kernel and the
+    # twin each keep there is rounding alone, so chip_smoke.py divides by
+    # the atol's norm where that is larger than the twin's.  On the H100
+    # the 64 / 64 kernel read 1.40e-4 and 2.16e-4 (two draws of the inputs),
+    # the wide one 3.05e-4.  The control, that row with the carry
+    # <ds_final, S> taken after the row's update and not before it (a
+    # carry one row late, chip_smoke.py's planted fault), reads 1.27e3 and
+    # 6.25e3 on the H100.  The limit sits ~3 times above the sound
+    # readings.
+    "ssd_scan_bwd_dlog_a_s1/card_fp32": 1e-3,
     # Grouped matmul: the same bf16 roundings on both sides except where an
     # fp32 sum in another order crosses a rounding boundary.  The sound
     # kernel reads at most 8.73e-5 on the H100 (prefill gate/up); the limit
@@ -528,6 +553,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_bwd.restype = i
     lib.ssd_scan_bwd_workspace.argtypes = [i, i, i]
     lib.ssd_scan_bwd_workspace.restype = i64
+    lib.ssd_scan_bwd_wide.argtypes = [
+        p, p, p, p, p, p, p,              # c, b, x, dy, log_a, gate, ds_final
+        p, p, p, p, p,                    # dc, db, dx, dlog_a, dgate
+        p,                                # workspace
+        i, i, i, i, i,                    # B, H, S, N, P
+        *([i64] * 15),                    # (b, h, s) strides: c b x dy dx
+        *([i64] * 12),                    # (b, h, s) strides: la g dla dg
+        p]                                # stream
+    lib.ssd_scan_bwd_wide.restype = i
+    lib.ssd_scan_bwd_wide_workspace.argtypes = [i, i, i]
+    lib.ssd_scan_bwd_wide_workspace.restype = i64
     lib.ssd_scan_wide_workspace.argtypes = [i, i, i]
     lib.ssd_scan_wide_workspace.restype = i64
     lib.moe_gmm_fwd.argtypes = [

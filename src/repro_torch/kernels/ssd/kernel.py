@@ -1,15 +1,16 @@
 """Launch of the CUDA chunked SSD-scan kernels: ``csrc/ssd_scan.cu`` for
 zamba2's N = P = 64 and ``csrc/ssd_scan_wide.cu`` for xlstm's N = 512,
 P = 513 (q and k as c and b, v with a column of ones as x); and of the
-backward, ``csrc/ssd_scan_bwd.cu``, at N = P = 64 only.
+backward at both shapes, ``csrc/ssd_scan_bwd.cu`` (64 / 64) and
+``csrc/ssd_scan_bwd_wide.cu`` (512 / 513).
 
-Both replace ``src/repro/kernels/ssd/kernel.py:ssd_scan_pallas``; each
-source's header says what bounds it on the H100 and how its design answers
-that.  This module checks what the kernels take, picks one by (N, P),
-allocates y, s_final and the wide kernel's workspace, launches on PyTorch's
-current stream and counts each launch under its kernel's name.  The wide
-scan is two kernels: a first pass (``ssd_wide_prep``) writes each chunk's
-masked, decayed c·bᵀ and gates into the workspace, then the scan
+Both forwards replace ``src/repro/kernels/ssd/kernel.py:ssd_scan_pallas``;
+each source's header says what bounds it on the H100 and how its design
+answers that.  This module checks what the kernels take, picks one by (N,
+P), allocates the outputs and the workspaces, launches on PyTorch's current
+stream and counts each launch under its kernel's name.  The wide scan is
+two kernels: a first pass (``ssd_wide_prep``) writes each chunk's masked,
+decayed c·bᵀ and gates into the workspace, then the scan
 (``ssd_scan_wide``) reads them.
 
 The JAX wrapper pads S to a multiple of the chunk with zeros; the kernels
@@ -33,8 +34,8 @@ from ..common import check_status, count_launch, library, stream_ptr
 KERNELS = {(64, 64): "ssd_scan", (512, 513): "ssd_scan_wide"}
 SHAPES = tuple(KERNELS)
 WIDE = (512, 513)
-# (N, P) the backward kernel takes: zamba2's; xlstm's is queued
-BWD_SHAPES = ((64, 64),)
+# (N, P) the backward kernels take: zamba2's and xlstm's
+BWD_SHAPES = ((64, 64), WIDE)
 
 # The wide kernel's first pass: one record a (batch, head, 64-row chunk),
 # M's bf16 high part and remainder as two 64 x 64 tiles (8 KB each) and the
@@ -163,49 +164,72 @@ def ssd_scan_cuda(c, b, x, log_a, gate):
 
 
 def check_bwd_shape(N: int, P: int) -> None:
-    """Raise ``NotImplementedError`` for an (N, P) the backward kernel does
-    not take (the wide scan's backward is queued in ROADMAP.md)."""
+    """Raise ``NotImplementedError`` for an (N, P) no backward kernel
+    takes."""
     if (N, P) not in BWD_SHAPES:
         raise NotImplementedError(
-            f"the SSD scan's backward kernel takes (N, P) in {BWD_SHAPES} "
-            f"(zamba2), not ({N}, {P}): the backward at xlstm's (512, 513) "
-            "is queued in ROADMAP.md (A3, xlstm training)")
+            f"the SSD scan's backward kernels take (N, P) in {BWD_SHAPES} "
+            f"(zamba2, xlstm), not ({N}, {P}): another shape needs its own "
+            "tiling (ROADMAP.md B5)")
 
 
-# The backward's workspace: each (batch, head, 64-row chunk)'s state
-# entering the chunk and the gradient reaching its end, each a 64 x 64 fp32
-# matrix in the order of the wgmma accumulators that hold it
-# (csrc/ssd_scan_bwd.cu: STATE_BYTES)
+# The backward's workspace at 64 / 64: each (batch, head, 64-row chunk)'s
+# state entering the chunk and the gradient reaching its end, each a 64 x 64
+# fp32 matrix in the order of the wgmma accumulators that hold it
+# (csrc/ssd_scan_bwd.cu: STATE_BYTES).  At 512 / 513 each chunk's S_in and G
+# as 512 x 576 fp32 (rows padded to 9 tiles of 64), a record (M, dM∘D and
+# its transpose, dgate's first term) and the column tiles' shares of the
+# sums over N and P (csrc/ssd_scan_bwd_wide.cu: STATE, REC, PART).
 BWD_CHUNK = 64
 BWD_STATE_BYTES = 64 * 64 * 4
+WIDE_BWD_CHUNK_FLOATS = (2 * 512 * 576 + (3 * 64 * 64 + 64)
+                         + (2 * 8 * 64 + 8 * 9))
 
 
-def bwd_workspace_bytes(B: int, H: int, S: int) -> int:
-    """Bytes of the backward's workspace: two states a chunk."""
-    return 2 * B * H * -(-S // BWD_CHUNK) * BWD_STATE_BYTES
+def bwd_workspace_bytes(B: int, H: int, S: int, shape=(64, 64)) -> int:
+    """Bytes of the backward's workspace at ``shape`` = (N, P): two states
+    a chunk at 64 / 64; at 512 / 513 two wide states, a record and the
+    shares."""
+    chunks = B * H * -(-S // BWD_CHUNK)
+    if tuple(shape) == WIDE:
+        return 4 * chunks * WIDE_BWD_CHUNK_FLOATS
+    return 2 * chunks * BWD_STATE_BYTES
 
 
 def _tma_ready(t):
-    """t itself if TMA can read it (unit last stride, other strides
-    multiples of 8 elements, at most one of them 0, a 16-byte aligned
-    base), else a contiguous copy (dy as autograd may hand it back)."""
+    """t itself if the backward kernels can read it (unit last stride,
+    other strides multiples of 8 elements, at most one of them 0, a 16-byte
+    aligned base), else a copy into a buffer laid out as t whose rows start
+    16-byte aligned (:func:`padded_like`).  dy comes back from autograd in
+    any layout, often dense: at P 513 a dense row is 1,026 bytes, so no
+    ``.contiguous()`` would do."""
     st = t.stride()
     if (st[-1] == 1 and all(s % 8 == 0 for s in st[:3])
             and sum(s == 0 for s in st[:3]) <= 1 and t.data_ptr() % 16 == 0):
         return t
-    return t.contiguous()
+    return padded_like(t).copy_(t)
+
+
+def wide_bwd_operands(c, b, x, dy):
+    """c, b, x and dy as the wide backward reads them (:func:`_tma_ready`)
+    and the dx it writes, in x's layout with a row pitch of a multiple of 8
+    (:func:`padded_like`): every row of each 16-byte aligned."""
+    c, b, x, dy = (_tma_ready(t) for t in (c, b, x, dy))
+    return c, b, x, dy, padded_like(x)
 
 
 def ssd_scan_bwd_cuda(c, b, x, log_a, gate, dy, ds_final=None):
     """The backward of the scan (``ref.ssd_chunked_bwd_ref``'s function) on
-    one CUDA device: c, b (B, Hc, S, 64) bf16 with Hc = H, or 1 for a c
-    and b shared by the heads; x and the upstream dy (B, H, S, 64) bf16;
-    log_a, gate (B, H, S) fp32; each read through its strides (dy in any
-    layout autograd hands back); ds_final (B, H, 64, 64) fp32 or None for
-    zero.  Returns (dc, db, dx, dlog_a, dgate): dc and db (B, Hc, S, 64)
-    bf16, summed over the heads where Hc = 1; dx bf16 in x's layout (a row
-    pitch of a multiple of 8, :func:`padded_like`); dlog_a and dgate fp32
-    in log_a's layout.  Two kernels, one count."""
+    one CUDA device, at (N, P) = (64, 64) or (512, 513): c, b (B, Hc, S, N)
+    bf16 with Hc = H, or at 64 / 64 1 for a c and b shared by the heads;
+    x and the upstream dy (B, H, S, P) bf16; log_a, gate (B, H, S) fp32;
+    each read through its strides (dy in any layout autograd hands back);
+    ds_final (B, H, N, P) fp32 or None for zero.  Returns (dc, db, dx,
+    dlog_a, dgate): dc and db (B, Hc, S, N) bf16, summed over the heads
+    where Hc = 1; dx bf16 in x's layout (a row pitch of a multiple of 8,
+    :func:`padded_like`); dlog_a and dgate fp32 in log_a's layout.  Several
+    kernels a call, one count: ``ssd_scan_bwd`` at 64 / 64,
+    ``ssd_scan_bwd_wide`` at 512 / 513."""
     if c.dim() != 4 or b.shape != c.shape or x.dim() != 4:
         raise ValueError("ssd scan backward takes c, b (B,Hc,S,N) and x "
                          "(B,H,S,P)")
@@ -232,6 +256,11 @@ def ssd_scan_bwd_cuda(c, b, x, log_a, gate, dy, ds_final=None):
             raise ValueError(f"ds_final must be ({B}, {H}, {N}, {P}), got "
                              f"{tuple(ds_final.shape)}")
         ds_final = ds_final.float().contiguous()
+    if (N, P) == WIDE:
+        if Hc != H:
+            raise ValueError("the wide backward takes c and b per head "
+                             f"(xlstm's q and k), got a head dim of {Hc}")
+        return _ssd_scan_bwd_wide(c, b, x, log_a, gate, dy, ds_final)
     c, b, x, dy = (_tma_ready(t) for t in (c, b, x, dy))
     bf = dict(dtype=torch.bfloat16, device=x.device)
     dc, db = (torch.empty((B, Hc, S, N), **bf) for _ in range(2))
@@ -255,4 +284,34 @@ def ssd_scan_bwd_cuda(c, b, x, log_a, gate, dy, ds_final=None):
         stream_ptr(x.device))
     check_status("ssd_scan_bwd", status)
     count_launch("ssd_scan_bwd")
+    return dc, db, dx, dlog_a, dgate
+
+
+def _ssd_scan_bwd_wide(c, b, x, log_a, gate, dy, ds_final):
+    """``csrc/ssd_scan_bwd_wide.cu`` on checked inputs: c, b (B, H, S, 512)
+    (a head stride of 0 allowed), x, dy (B, H, S, 513)."""
+    B, H, S, N = c.shape
+    P = x.shape[-1]
+    c, b, x, dy, dx = wide_bwd_operands(c, b, x, dy)
+    dc, db = (torch.empty((B, H, S, N), dtype=torch.bfloat16,
+                          device=x.device) for _ in range(2))
+    dlog_a, dgate = (torch.empty_like(log_a) for _ in range(2))
+    ws = torch.empty(bwd_workspace_bytes(B, H, S, WIDE), dtype=torch.uint8,
+                     device=x.device)
+    lib = library()
+    if lib.ssd_scan_bwd_wide_workspace(B, H, S) != ws.numel():
+        raise RuntimeError("the wide ssd backward's workspace size disagrees "
+                           "with csrc/ssd_scan_bwd_wide.cu")
+    status = lib.ssd_scan_bwd_wide(
+        c.data_ptr(), b.data_ptr(), x.data_ptr(), dy.data_ptr(),
+        log_a.data_ptr(), gate.data_ptr(),
+        None if ds_final is None else ds_final.data_ptr(),
+        dc.data_ptr(), db.data_ptr(), dx.data_ptr(), dlog_a.data_ptr(),
+        dgate.data_ptr(), ws.data_ptr(), B, H, S, N, P,
+        *c.stride()[:3], *b.stride()[:3], *x.stride()[:3],
+        *dy.stride()[:3], *dx.stride()[:3], *log_a.stride(),
+        *gate.stride(), *dlog_a.stride(), *dgate.stride(),
+        stream_ptr(x.device))
+    check_status("ssd_scan_bwd_wide", status)
+    count_launch("ssd_scan_bwd_wide")
     return dc, db, dx, dlog_a, dgate

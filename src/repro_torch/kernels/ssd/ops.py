@@ -6,8 +6,10 @@ Pallas kernel too).
 
 Where a gradient is wanted, ``ssd_scan`` goes through an
 ``autograd.Function`` whose backward is ``ssd_scan_bwd``: the backward
-kernel on the card (at 64 / 64; xlstm's 512 / 513 raises), its plain
-chunked twin ``ssd_chunked_bwd_ref`` on the CPU.  It saves the inputs, not
+kernel of its (N, P) on the card (``csrc/ssd_scan_bwd.cu`` at 64 / 64,
+``csrc/ssd_scan_bwd_wide.cu`` at xlstm's 512 / 513; any other shape raises
+before the forward), its plain chunked twin ``ssd_chunked_bwd_ref`` on the
+CPU.  It saves the inputs, not
 the states: the backward runs the recurrence again.
 
 c and b may have a head dim of 1, shared by x's heads (zamba2's block):

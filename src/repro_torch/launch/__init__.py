@@ -23,10 +23,10 @@ def _ssd_shape(cfg: ModelConfig) -> tuple[int, int] | None:
 
 def missing_backwards(cfg: ModelConfig) -> list[str]:
     """The kernels on ``cfg``'s training path that have no backward on the
-    card: the SSD scan at an (N, P) outside the backward's shapes (xlstm's
-    512 / 513; zamba2's 64 / 64 has one) and the flash attention backward at
-    a head dim outside ``BWD_HEAD_DIMS``.  The grouped expert matmul (moe)
-    has its backward kernel."""
+    card: the SSD scan at an (N, P) outside the backward's shapes (zamba2's
+    64 / 64 and xlstm's 512 / 513 have one) and the flash attention backward
+    at a head dim outside ``BWD_HEAD_DIMS``.  The grouped expert matmul
+    (moe) has its backward kernel."""
     missing = []
     shape = _ssd_shape(cfg)
     if shape is not None and shape not in SSD_BWD_SHAPES:

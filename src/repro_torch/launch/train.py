@@ -4,6 +4,7 @@ device or on every rank of a mesh.
     python -m repro_torch.launch.train --arch qwen2-7b --full --layers 4
     python -m repro_torch.launch.train --arch granite-moe-3b-a800m --full
     python -m repro_torch.launch.train --arch zamba2-1.2b --full
+    python -m repro_torch.launch.train --arch xlstm-1.3b --full
     python -m repro_torch.launch.train --arch qwen2-7b --device cpu --steps 4
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --mesh debug \
         --device cpu --steps 4
@@ -138,7 +139,7 @@ def main():
                     "122 GB and fail on one 80 GB card; cut the depth "
                     "with --layers (4 layers: 32.4 GB).  "
                     "granite-moe-3b-a800m's 32 need 63.7 GB and fit, "
-                    "zamba2-1.2b's 38 18.7 GB")
+                    "zamba2-1.2b's 38 18.7 GB, xlstm-1.3b's 48 22.6 GB")
     ap.add_argument("--layers", type=int, default=None,
                     help="override the number of layers")
     ap.add_argument("--steps", type=int, default=100)

@@ -15,10 +15,12 @@ trained (its grouped products have a backward kernel).  The hybrid family
 (zamba2) is served and trained (the SSD scan has a backward kernel at its
 N = P = 64): groups of ``attn_every`` Mamba2 layers, each group followed by
 the *same* shared attention+MLP block, then a tail of Mamba2 layers.  The
-ssm family (xlstm) is served, not trained: ``n_layers / slstm_period``
-segments, each ``slstm_period - 1`` mLSTM blocks (the SSD scan at N =
-d_head, P = d_head + 1) and one sLSTM block (a sequential loop in plain
-torch), each block pre-normed and residual, with no attention and no MLP.  The vlm family
+ssm family (xlstm) is served and trained (the SSD scan has a backward
+kernel at its N = d_head, P = d_head + 1 too): ``n_layers /
+slstm_period`` segments, each ``slstm_period - 1`` mLSTM blocks (the SSD
+scan) and one sLSTM block (a sequential loop in plain torch, its backward
+written out), each block pre-normed and residual, with no attention and no
+MLP.  The vlm family
 (internvl2) and the audio family (musicgen) are the dense layer stack fed by
 precomputed embeddings: their frontends (a ViT, EnCodec) are stubs in the
 JAX package too, so they have no embedding table; ``forward`` takes
@@ -464,30 +466,51 @@ def _hybrid_trunk(params, x, cfg: ModelConfig, positions, collect: bool):
     return x, ({"mamba": mamba_states, "kv": kvs} if collect else None)
 
 
+def _xlstm_layer(block, lp, x, cfg: ModelConfig, specs=None,
+                 return_state=False):
+    """One pre-normed, residual xLSTM block (``block``: ``mlstm_block`` or
+    ``slstm_block``); with ``return_state`` also the block's state."""
+    lp = _use(lp, specs, cfg)
+    h = norm(lp["norm"], x, cfg.norm_eps)
+    if return_state:
+        y, st = block(lp, h, cfg, return_state=True)
+        return x + y, st
+    return x + block(lp, h, cfg)
+
+
 def _ssm_trunk(params, x, cfg: ModelConfig, collect: bool):
     """The ssm family's trunk: each segment's mLSTM blocks, then its sLSTM
     block, each pre-normed and residual.  With ``collect`` also its states
-    (see :func:`forward`)."""
+    (see :func:`forward`).
+
+    With ``cfg.remat`` and a gradient wanted, each mLSTM block runs under
+    :func:`_remat`; the sLSTM block runs outside it, its scan keeping each
+    step's values (~0.8 GB a block at an xlstm-1.3b train microbatch)
+    where the remat would run its loop over time twice (on the H100, 2.90
+    s a step at a 28.8 GiB peak outside against 3.92 s at 25.1 GiB under
+    it, PERF.md §6).  The JAX package remats each mLSTM block and also each
+    segment around them (``src/repro/models/model.py:_trunk``); that
+    nesting changes no number and would run every mLSTM block's forward a
+    third time, so the port keeps the block granularity, as
+    :func:`_hybrid_trunk` does: each mLSTM block's rmsnorm and wide SSD
+    scan launch twice, the sLSTM block's once."""
+    remat = cfg.remat and not collect and torch.is_grad_enabled()
     m_states, s_states = [], []
     m_specs, s_specs = _specs("mlstm", 2), _specs("slstm", 1)
+
+    def layer(block, lp, x, specs, states, under_remat):
+        if under_remat:
+            return _remat(cfg, _xlstm_layer, block, lp, x, cfg, specs)
+        if not collect:
+            return _xlstm_layer(block, lp, x, cfg, specs)
+        x, st = _xlstm_layer(block, lp, x, cfg, specs, return_state=True)
+        states.append(st)
+        return x
+
     for mlstm, slp in _xlstm_layers(params, cfg):
         for lp in mlstm:
-            lp = _use(lp, m_specs, cfg)
-            h = norm(lp["norm"], x, cfg.norm_eps)
-            if collect:
-                y, st = mlstm_block(lp, h, cfg, return_state=True)
-                m_states.append(st)
-            else:
-                y = mlstm_block(lp, h, cfg)
-            x = x + y
-        slp = _use(slp, s_specs, cfg)
-        h = norm(slp["norm"], x, cfg.norm_eps)
-        if collect:
-            y, st = slstm_block(slp, h, cfg, return_state=True)
-            s_states.append(st)
-        else:
-            y = slstm_block(slp, h, cfg)
-        x = x + y
+            x = layer(mlstm_block, lp, x, m_specs, m_states, remat)
+        x = layer(slstm_block, slp, x, s_specs, s_states, False)
     return x, ({"mlstm": m_states, "slstm": s_states} if collect else None)
 
 

@@ -16,8 +16,9 @@ package's, on the CPU, with JAX's parameters carried across by
   state 16): the loss and every gradient against
   ``jax.value_and_grad(loss_fn)``, remat off and on; the remat reruns each
   Mamba2 layer and each application of the shared block; one AdamW step.
-* The backward's shape guard (xlstm's 512 / 513 is refused by name) and the
-  train CLI for the reduced zamba2 on the CPU.
+* The backward's shape guard (zamba2's 64 / 64 and xlstm's 512 / 513 are
+  taken, another shape is refused by name) and the train CLI for the
+  reduced zamba2 on the CPU.
 
 Tolerances are ``repro_torch.kernels.common.TOLERANCES`` entries.
 """
@@ -120,7 +121,8 @@ def _batch(jcfg, M, mb, S, seed=5):
 
 def _scan_inputs(N, P, S, shared, seed=0, B=2, H=3, gates="model"):
     """numpy inputs as the Mamba2 block makes them: c and b (B, 1, S, N)
-    when shared by the heads, else (B, H, S, N); x (B, H, S, P); gate =
+    when shared by the heads, else (B, H, S, N); x (B, H, S, P), its last
+    column ones where P = N + 1 (the mLSTM's x: v and the ones); gate =
     softplus(dt), log_a = -gate·exp(a_log), the model's gates ("overflow":
     log_a <= -1.5, so l falls by more than 88 within a 64-row chunk and
     exp(l_i - l_j) above the diagonal overflows fp32); dy and ds_final
@@ -129,6 +131,8 @@ def _scan_inputs(N, P, S, shared, seed=0, B=2, H=3, gates="model"):
     f = lambda *shape: rng.normal(size=shape).astype(np.float32)
     hc = 1 if shared else H
     c, b, x = f(B, hc, S, N), f(B, hc, S, N), f(B, H, S, P)
+    if P == N + 1:                     # the mLSTM's normalizer column
+        x[..., -1] = 1.0
     dt = f(B, H, S)
     gate = np.log1p(np.exp(dt))
     log_a = {"model": -gate * np.exp(0.5 * f(H))[None, :, None],
@@ -156,7 +160,8 @@ def _key(name):
 @pytest.mark.parametrize("ds", [False, True], ids=["ds0", "ds"])
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per-head"])
 @pytest.mark.parametrize("S", [64, 70, 1], ids=["S64", "S70", "S1"])
-@pytest.mark.parametrize("N,P", [(16, 32), (64, 64)], ids=["16x32", "64x64"])
+@pytest.mark.parametrize("N,P", [(16, 32), (64, 64), (32, 33)],
+                         ids=["16x32", "64x64", "32x33"])
 def test_ssd_bwd_matches_jax_vjp(N, P, S, shared, ds):
     """``ssd_bwd_ref`` (per head; summed over the heads where c and b are
     shared), ``ssd_chunked_bwd_ref`` at chunk 64 and 16 (given the shared c
@@ -164,7 +169,9 @@ def test_ssd_bwd_matches_jax_vjp(N, P, S, shared, ds):
     ``ssd_scan`` under autograd (shared c and b as expands and with a head
     dim of 1) against ``jax.vjp`` of the JAX ``ssd_ref``, every input's
     gradient, with y's and s_final's upstream gradients both nonzero where
-    ``ds``."""
+    ``ds``; at the reduced hybrid's (16, 32), zamba2's (64, 64) and the
+    reduced xlstm's (32, 33) with its column of ones (xlstm's real (512,
+    513) in tests/test_torch_xlstm_train.py)."""
     c, b, x, log_a, gate, dy, ds_final = _scan_inputs(N, P, S, shared)
     B, H = x.shape[:2]
     ds_final = ds_final if ds else np.zeros_like(ds_final)
@@ -258,16 +265,18 @@ def test_ssd_scan_autograd_on_cpu_is_the_plain_backward(dtype, shared):
 
 
 def test_ssd_backward_guard_names_the_wide_shape():
-    """The backward kernel takes zamba2's (64, 64); xlstm's (512, 513) is
-    refused by name before any launch, as a CUDA-destined scan with a
-    gradient wanted is (``ssd_scan`` calls the same guard)."""
+    """The backward kernels take zamba2's (64, 64) and xlstm's (512, 513);
+    another shape, the reduced hybrid's (16, 32), is refused by name before
+    any launch, as a CUDA-destined scan with a gradient wanted is
+    (``ssd_scan`` calls the same guard)."""
     check_bwd_shape(64, 64)
-    with pytest.raises(NotImplementedError, match=r"\(512, 513\)"):
-        check_bwd_shape(512, 513)
-    c = torch.zeros(1, 1, 3, 512, dtype=torch.bfloat16)
-    x = torch.zeros(1, 1, 3, 513, dtype=torch.bfloat16)
+    check_bwd_shape(512, 513)
+    with pytest.raises(NotImplementedError, match=r"not \(16, 32\)"):
+        check_bwd_shape(16, 32)
+    c = torch.zeros(1, 1, 3, 16, dtype=torch.bfloat16)
+    x = torch.zeros(1, 1, 3, 32, dtype=torch.bfloat16)
     g = torch.zeros(1, 1, 3)
-    with pytest.raises(NotImplementedError, match="queued in ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"\(512, 513\).*ROADMAP"):
         ssd_scan_bwd_cuda(c, c, x, g, g, x)
 
 

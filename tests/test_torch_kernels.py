@@ -887,15 +887,19 @@ def test_ssd_scan_reads_a_head_dim_of_one_over_the_heads():
     assert torch.equal(got_y, want_y) and torch.equal(got_s, want_s)
 
 
-@pytest.mark.parametrize("bad", ["heads", "dtype", "gate_shape", "ds_final"])
+@pytest.mark.parametrize("bad", ["heads", "dtype", "gate_shape", "ds_final",
+                                 "wide_shared"])
 def test_ssd_scan_bwd_cuda_refuses_before_any_launch(bad):
     """The backward's wrapper checks shapes and types before it builds or
     loads anything: c and b of a head dim other than 1 or x's, fp32 c, a
-    gate of the wrong shape, a ds_final of the wrong shape."""
+    gate of the wrong shape, a ds_final of the wrong shape, and at the wide
+    (512, 513) a head dim of 1 (its kernel takes xlstm's per-head q and
+    k)."""
     B, H, S = 1, 3, 64
     bf = torch.bfloat16
-    c = torch.zeros(B, 1, S, 64, dtype=bf)
-    x = torch.zeros(B, H, S, 64, dtype=bf)
+    N, P = (512, 513) if bad == "wide_shared" else (64, 64)
+    c = torch.zeros(B, 1, S, N, dtype=bf)
+    x = torch.zeros(B, H, S, -(-P // 8) * 8, dtype=bf)[..., :P]
     g = torch.zeros(B, H, S)
     ds = None
     if bad == "heads":
@@ -904,13 +908,16 @@ def test_ssd_scan_bwd_cuda_refuses_before_any_launch(bad):
         c = c.float()
     elif bad == "gate_shape":
         g = torch.zeros(B, H, S + 1)
-    else:
+    elif bad == "ds_final":
         ds = torch.zeros(B, H, 64, 32)
     with pytest.raises((ValueError, TypeError)):
         ssd_scan_bwd_cuda(c, c, x, g, g, x, ds)
-    # two fp32 states a (batch, head, 64-row chunk)
+    # two fp32 states a (batch, head, 64-row chunk); at 512 / 513 two
+    # 512 x 576 states, a record and the tiles' shares
     assert bwd_workspace_bytes(4, 64, 2048) == 2 * 4 * 64 * 32 * 64 * 64 * 4
     assert bwd_workspace_bytes(1, 1, 65) == 2 * 2 * 64 * 64 * 4
+    assert bwd_workspace_bytes(1, 1, 65, (512, 513)) == 2 * 4 * (
+        2 * 512 * 576 + 3 * 64 * 64 + 64 + 2 * 8 * 64 + 8 * 9)
 
 
 def test_bf16_ulps_counts_one_ulp_off_above_the_floor():

@@ -13,9 +13,8 @@ package's, on the CPU, with JAX's parameters carried across by
 * The reduced granite config (fp32, 2 layers, d_model 128, 8 experts padded
   to 16, top-2, head dim 32): the loss and every gradient against
   ``jax.value_and_grad(loss_fn)``, remat off and on; one AdamW step.
-* ``missing_backwards``: granite and zamba2 train on the card, the ssm
-  (the SSD scan at 512 / 513) and head-dim-192 configs do not; the train
-  CLI for granite on the CPU.
+* ``missing_backwards``: granite, zamba2 and xlstm train on the card, the
+  head-dim-192 config does not; the train CLI for granite on the CPU.
 
 Tolerances are ``repro_torch.kernels.common.TOLERANCES`` entries.
 """
@@ -322,31 +321,29 @@ def test_one_adamw_step_on_reduced_granite_matches_jax():
 
 def test_missing_backwards_after_the_moe_slice():
     """granite's path (the grouped matmul, the flash backward at head dim
-    64) has every backward, and so, since the hybrid slice, has zamba2's
-    (the SSD scan's backward at its N = P = 64); the SSD scan at xlstm's N
-    512, P 513 and the flash backward at head dim 192 (nemotron) are still
-    missing, by name.  A wide scan bound for the card with a gradient wanted
-    is refused by the same shape guard, before any launch (its message is
-    checked here on the CPU)."""
+    64) has every backward, and so, since the hybrid and ssm slices, have
+    zamba2's (the SSD scan's backward at its N = P = 64) and xlstm's (at N
+    512, P 513); the flash backward at head dim 192 (nemotron) is still
+    missing, by name.  A scan bound for the card at a shape no backward
+    kernel takes is refused by the shape guard, before any launch (its
+    message is checked here on the CPU)."""
     granite = t_get_config(ARCH)
     assert missing_backwards(granite) == []
     check_card_config(granite, "cuda", training=True)
-    zamba2 = t_get_config("zamba2-1.2b")
-    assert missing_backwards(zamba2) == []
-    check_card_config(zamba2, "cuda", training=True)
-    assert missing_backwards(t_get_config("xlstm-1.3b")) == [
-        "the SSD scan at N 512, P 513 (kernels/ssd; its backward is built "
-        "at [(64, 64)])"]
+    for arch in ("zamba2-1.2b", "xlstm-1.3b"):
+        cfg = t_get_config(arch)
+        assert missing_backwards(cfg) == [], arch
+        check_card_config(cfg, "cuda", training=True)
     assert missing_backwards(t_get_config("nemotron-4-340b")) == [
         "the flash attention at head dim 192 (its backward is built at "
         "[64, 128])"]
-    for arch, name in (("xlstm-1.3b", "SSD scan at N 512, P 513"),
-                       ("nemotron-4-340b", "head dim 192")):
-        with pytest.raises(ValueError, match=f"no backward.*{name}"):
-            check_card_config(t_get_config(arch), "cuda", training=True)
+    with pytest.raises(ValueError, match="no backward.*head dim 192"):
+        check_card_config(t_get_config("nemotron-4-340b"), "cuda",
+                          training=True)
+    check_bwd_shape(512, 513)
     with pytest.raises(NotImplementedError,
-                       match=r"not \(512, 513\).*ROADMAP"):
-        check_bwd_shape(512, 513)
+                       match=r"not \(32, 33\).*ROADMAP"):
+        check_bwd_shape(32, 33)
 
 
 def test_train_cli_trains_reduced_granite_on_cpu(tmp_path):

@@ -141,8 +141,8 @@ def test_card_config_check_takes_published_configs(arch):
     check_card_config(cfg, torch.device("cuda", 0))
     # training reaches the flash backward, built at head dims 64 and 128,
     # the grouped expert matmul's backward, and the SSD scan's, built at
-    # zamba2's (N, P) = (64, 64) and not at xlstm's (512, 513)
-    if cfg.family in ("dense", "moe", "hybrid") and cfg.d_head in (64, 128):
+    # zamba2's (N, P) = (64, 64) and xlstm's (512, 513)
+    if not cfg.uses_attention or cfg.d_head in (64, 128):
         check_card_config(cfg, "cuda", training=True)
     else:
         with pytest.raises(ValueError, match="has no backward|have no "
@@ -156,11 +156,11 @@ def test_card_config_check_takes_published_configs(arch):
 def test_card_config_check_names_missing_backward(arch, training):
     """Every published config is taken for serving; for training it is
     refused, naming each kernel of its path without a backward (and no
-    depth flag, which cannot help), exactly when it has one."""
+    depth flag, which cannot help), exactly when it has one: since the SSD
+    scan's backward took xlstm's N 512, P 513, only the flash backward at
+    head dim 192 (nemotron) is missing."""
     cfg = t_get_config(arch)
     want = []
-    if cfg.family == "ssm":
-        want.append("SSD scan at N 512, P 513")
     if cfg.uses_attention and cfg.d_head not in (64, 128):
         want.append(f"flash attention at head dim {cfg.d_head}")
     if not training or not want:
