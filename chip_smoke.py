@@ -1266,9 +1266,10 @@ def ssd_bwd_wide_rows(torch, timer, randn, report):
     process's first backward on the card: the wide backward is the first
     CUDA call of autograd's device thread (ROADMAP.md C9); one launch, and
     every leaf's gradient is the kernel's output bit for bit.  Then the
-    cases, two calls equal bit for bit, two planted faults, and time and
+    cases, two calls equal bit for bit, three planted faults, and time and
     bound at the train step's shape (the first case) beside the twin's
-    time."""
+    time, and each of its five kernels' device time there
+    (``ssd_bwd_wide_split``)."""
     from repro_torch.kernels.common import launches
     from repro_torch.kernels.ssd.kernel import (padded_like,
                                                 ssd_scan_bwd_cuda)
@@ -1348,9 +1349,41 @@ def ssd_bwd_wide_rows(torch, timer, randn, report):
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None,   # no one PyTorch call computes it
            "flop": flops, "bytes": bytes_moved}
+    split = ssd_bwd_wide_split(torch, timer,
+                               lambda: ssd_scan_bwd_cuda(*inputs, dy))
+    log(f"  {'ssd_scan_bwd_wide':19s} split at N512 P513 B{B} H{H} S{S} "
+        f"(torch.profiler, L2 flushed, µs a call): " +
+        ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    row["split_us"] = split
     del inputs, dy
     torch.cuda.empty_cache()
     return [row]
+
+
+# the wide backward's kernels by their profiler names, in launch order
+WIDE_BWD_KERNELS = (("wide_bwd_prep_kernel", "prep"),
+                    ("wide_bwd_band_kernel<0>", "dc pass"),
+                    ("wide_bwd_band_kernel<1>", "db pass"),
+                    ("wide_bwd_band_kernel<2>", "dx pass"),
+                    ("wide_bwd_finish_kernel", "finish"))
+
+
+def ssd_bwd_wide_split(torch, timer, call, n=5):
+    """Device µs of each kernel of one wide-backward call, from
+    torch.profiler over ``n`` calls, each after the L2 flush (the Timer's
+    cold start): {label: µs a call} in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            timer.flush_buf.zero_()
+            call()
+        torch.cuda.synchronize()
+    rows, _, _ = _kernel_table(prof, n)
+    return {label: sum(us for name, _, us in rows if key in name)
+            for key, label in WIDE_BWD_KERNELS}
 
 
 def chunk_local_dx(inputs, dy):
@@ -6352,8 +6385,8 @@ OURS = ("_rms_row", "flash_fwd_kernel", "decode_split_kernel",
         "dkdv_kernel", "dq_kernel", "ce_tile_kernel", "ce_merge_kernel",
         "ssd_scan_kernel", "ssd_scan_wide_kernel", "ssd_wide_prep_kernel",
         "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel",
-        "wide_bwd_state_kernel", "wide_bwd_chunk_kernel",
-        "wide_bwd_out_kernel", "wide_bwd_finish_kernel", "moe_gmm_kernel",
+        "wide_bwd_prep_kernel", "wide_bwd_band_kernel",
+        "wide_bwd_finish_kernel", "moe_gmm_kernel",
         "moe_gmm_decode_kernel", "gmm_dw_kernel")
 
 

@@ -1,6 +1,7 @@
 // Backward of the SSD scan at xlstm's wide state, N = 512 and P = 513 (the
 // mLSTM: c = q, b = k with d_head 512, x = v plus the normalizer's column of
-// ones), for Hopper: the gradients of the recurrence
+// ones), for Hopper, in the chunked form on the tensor cores: the gradients
+// of the recurrence
 //   S_t = a_t S_{t-1} + g_t b_t x_t^T,  y_t = S_t^T c_t  (a_t = exp(log_a_t))
 // for the upstream dy (and an optional ds_final, the gradient of the last
 // state).
@@ -23,48 +24,98 @@
 //   dC = e o (dY S_in^T) + (dM o D) B
 //   dB = (dM o D)^T C + w o (X G^T)
 //   dgate_j = sum_i dM_ij CB_ij E_ij + u_j q_j,  q_j = b_j.(G x_j)
-//   dlog_a_t = sum_{u >= t in the chunk} (c_u.dc_u - g_u dgate_u) + carry,
-//   carry = exp(l_L) <G, S_in> + sum_j w_j q_j.
+// and dlog_a telescoped over the whole sequence: <G_t, S_t> - <G_{t-1},
+// S_{t-1}> = c_t.dc_t - g_t dgate_t, so
+//   dlog_a_t = sum_{u >= t} (c_u.dc_u - g_u dgate_u) + <ds_final, S_final>,
+//   <ds_final, S_final> = exp(l_L) <ds_final, S_in> + sum_j w_j q_j
+// (both of the last chunk): no pass reads S_in beside G, and at S 1 the
+// constant is the twin's carry, sum_j w_j q_j, term for term.
 //
-// What bounds it on the H100: operations.  At the train shape (B 4, H 4,
-// S 2048: 512 (batch, head, chunk)s) the function's bytes are 235.6 MB
-// (c, b, x, dy read and dc, db, dx written in bf16, 2 bytes an element, and
-// the fp32 gates and their gradients: 0.070 ms at 3.35 TB/s); the chunked
-// form's products are 9.7e10 operations, 0.098 ms on the bf16 tensor cores
-// at 989 TFLOP/s.
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): operations.
+// At the train shape (B 4, H 4, S 2048: 512 (batch, head, chunk)s) the
+// function's bytes are 235.6 MB (c, b, x, dy read and dc, db, dx written in
+// bf16, the fp32 gates and their gradients: 0.070 ms); the chunked form's
+// products are 9.7e10 operations, 0.098 ms.  With every fp32 operand of a
+// product split into three bf16 parts (24 bits), this design's products
+// are 3.1e11 operations, 0.31 ms at the bf16 peak.
 //
-// Design: a first kernel that is right, on the CUDA cores in fp32; the
-// products at 67 TFLOP/s, ~1.5e-3 s at best, where a tensor-core design with
-// its fp32 operands split into bf16 parts would be bound near 0.3 ms
-// (ROADMAP.md B5).  Every operand is an exact fp32 value (bf16 inputs
-// widened, fp32 states and gates), every product and sum is fp32, the gates'
-// cumulative sums and exps are taken in fp64 and rounded once, as the twin
-// takes them, so the kernel differs from the twin by summation order alone.
-// Five launches, one launch count (the wrapper's):
-//  * wide_bwd_state_kernel<false>, <true>: the two passes over the chunks,
-//    one block a (64 x 64 tile of the 512 x 576 state, batch, head): 72
-//    tiles a head (P's 9th tile holds column 512 and 63 zero columns), each
-//    block's tile in registers (4 x 4 a thread) for the whole pass.  Before
-//    each chunk's update a block stores its tile to the workspace (S_in,
-//    then G, fp32, a row pitch of 576); the reverse pass, launched after
-//    the forward one, also reads S_in there and sums its tile's share of
-//    <G, S_in>;
-//  * wide_bwd_chunk_kernel: one block a (chunk, batch, head): CB and dM (64 x
-//    64, K = 512 and 513), then M, dM o D and its transpose and dgate's
-//    first term to the workspace;
-//  * wide_bwd_out_kernel: one block a (64-column tile, chunk, batch, head):
-//    9 tiles of dX, 8 of dC with c.dc's share of the tile, 8 of dB with q's;
-//  * wide_bwd_finish_kernel: one block a chunk sums the tiles' shares in a
-//    fixed order, then dgate and dlog_a (a reverse sum over the rows).
-// Each product runs over 32-deep slices of its operands staged in shared
-// memory as fp32 (a [k][m] and a [k][n] slice, pitch 68), each thread
-// holding a 4 x 4 tile of the 64 x 64 output.  Rows at or past S read as
-// zero and are not written; so are columns of x and dy past 513 (a row's
-// pitch is a multiple of 8 elements, so column 513..519 are read and
-// dropped).  Every output element is summed in one block in a fixed order:
-// no atomics, equal bits from call to call.  The workspace holds every
-// chunk's S_in and G, 1.2 GB at the train shape.
+// Design: the states never leave the chip.  Each is tiled into eight
+// 64-row bands, one block a (band, batch, head), 128 blocks a pass at the
+// train shape, one a streaming multiprocessor: the band (64 x 512 fp32) is
+// held by two warpgroups (64 x 256 each, 128 registers a thread) for the
+// whole pass, and every product that needs the state takes it from those
+// registers as wgmma's A operand, split in three.  Five launches, one
+// launch count (the wrapper's):
+//  * wide_bwd_prep_kernel, one block (one warpgroup) a (chunk, head,
+//    batch): C B^T and dY X^T (wgmma over K = 512 and 513, c, b, dy, x
+//    streamed by TMA through a ring of 4 stages), the gates (l scanned in
+//    fp64, the exps of fp64 values rounded once, as the twin takes them),
+//    and a 51 KB record: M and dM o D in three bf16 parts each, laid out as
+//    the 128-byte-swizzled tiles wgmma reads, and e, u, w, g, dgate's first
+//    term, (M^T dY)[:, 512], x[:, 512], dy[:, 512], exp(l_L);
+//  * wide_bwd_band_kernel<DC> over the chunks forward, state S_in[band, :]
+//    (rows n; P's column 512 beside it in shared memory, fp32): each chunk
+//    dC[:, band]^T = e o (S_in dY^T) + B^T (dM o D)^T (rs: A = the state's
+//    parts; then ss: A = the b tile, B = the record's parts), out through a
+//    TMA store, and its share of c.dc; then S += (w o B)^T X (ss, N 128:
+//    A = the b tile scaled and split, B = the x tile).  At the last chunk
+//    its share of <ds_final, S_in>;
+//  * wide_bwd_band_kernel<DB> backward from ds_final, state G[band, :]:
+//    dB[:, band]^T = w o (G X^T) + C^T (dM o D), its shares of q and of
+//    (B G)[:, 512]; then G += (e o C)^T dY;
+//  * wide_bwd_band_kernel<DX> backward, state G^T[band of P, :] (rows p,
+//    all 512 columns n; P's 513th column is the DB pass's): dX[:,
+//    band]^T = w o (G^T B^T) + dY^T M; then G^T += (e o dY)^T C;
+//  * wide_bwd_finish_kernel, one block a (batch, head): dgate, (B G)[:, 512]
+//    into dx's last column, and dlog_a, the reverse sum over the sequence in
+//    fp64 plus the last chunk's constant.
+// In a band block the two warpgroups split the state's 512 columns, so the
+// rs product over them is two partial sums: each warpgroup scales its own,
+// adds half of the small ss product (K = 32 of the chunk's 64 rows) and its
+// share of c.dc or q; warpgroup 1 hands its partial to warpgroup 0 through
+// shared memory, which adds it (0's + 1's) and stores.  Every sum across
+// warpgroups, bands or chunks is taken in a fixed order: no atomics, equal
+// bits from call to call.  Nothing between wgmma groups branches; the
+// branches between them run after every group has been waited for.
+// Precision: the tensor cores round their fp32 accumulator at every k16
+// step, so no long sum stays in one accumulator.  The rs product takes 32
+// columns at a time (low part's products first, high part's last) in an
+// accumulator of its own and adds it to the sum by one rounded fp32 add;
+// the update takes 128 columns at a time the same way and folds them into
+// the state by one fma (exp(l_L) S + U); the small ss product and the
+// first pass's C B^T and dY X^T (a box at a time) likewise.  Held in one
+// accumulator over 256 columns, the rs product's 48 steps left an element
+// of dx or db 2-3 bf16 ulps off the twin in most draws of the ds_final
+// case.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's kernel rows,
+// PERF.md §6): 0.9688 ms at the train shape, 9.9x the bound: the first
+// pass 83 us, the dc, db and dx passes 286, 306 and 224 us, the last 15
+// us.  scripts_ssd_bwd_wide_variants.py, the same card: without the rs
+// product (its results wrong) 0.650 ms, so the rs product and its splits
+// take a third; the dx pass, with the same products as the others but no
+// column 512 and no c.dc or q share, is 60-80 us shorter than they are.
+// Tried and dropped (that script rebuilds them): the rs product's 256
+// columns in one accumulator, 0.916-0.924 ms, but 4 of 6 draws of the
+// ds_final case with a dx or db element 2-3 ulps off; the update's parts
+// straight into the state's accumulators (N 256), 0.980-0.983 ms, no
+// faster, the state rounded at 12 steps a chunk instead of one.
+// Workspace at the train shape: 512 records of 52,224 bytes (26.7 MB) and
+// the shares (3.1 MB): 29.9 MB, where the first design wrote each chunk's
+// S_in and G in fp32 (1.21 GB) and read them back three times (2.42 GB;
+// ~3.6 GB with the rest).  This one's DRAM traffic, counted: c, b, x, dy
+// read by the first pass (135 MB), the records written (26.7 MB), dc, db,
+// dx written (101 MB): 0.26 GB.  The bands read each chunk's tiles and
+// record again, 8 bands x 3 passes (2.07 GB), from L2 when a head's 8
+// bands run together, as they do in a wave; how much of it misses L2 is
+// not measured (no ncu on that machine).
+// Later work: the rs product's fragments built while the previous group
+// multiplies (two groups in flight need 48 more registers than the 255 a
+// thread has); the shares and column 512 by the tensor cores; the three
+// passes run as 384 blocks in three waves of 128 on 132 SMs.
+// Rows at or past S read as zero (TMA's fill) and have log_a = gate = 0,
+// so they add nothing; they are not written.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
 
@@ -72,510 +123,841 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using ll = long long;
+namespace hp = repro::hopper;
 
 constexpr int L = 64;                  // chunk length
 constexpr int NS = 512;                // state size N
 constexpr int PD = 513;                // head dim P (with the ones column)
-constexpr int NT = NS / 64;            // 64-row tiles of N
-constexpr int PT = (PD + 63) / 64;     // 64-column tiles of P
-constexpr int PP = PT * 64;            // a workspace state's row pitch, fp32
-constexpr ll STATE = (ll)NS * PP;      // floats of a workspace state
-constexpr int KS = 32;                 // depth of a product's slice
-constexpr int SP = 68;                 // a slice's row pitch in floats
-constexpr int KP = (PD + KS - 1) / KS * KS;   // P in whole slices: 544
-constexpr int NTH = 256;
-constexpr int OUT_TILES = PT + 2 * NT; // dX, dC, dB tiles of a chunk
-// a chunk's record: M [i][j], dM o D [i][j] and its transpose [j][i], and
-// dgate's first term
-constexpr int REC_P = L * L, REC_PT = 2 * L * L, REC_DG = 3 * L * L;
-constexpr int REC = 3 * L * L + L;
-// a chunk's shares: c.dc and q by N tile, <G, S_in> by state tile
-constexpr int PART_Q = NT * L, PART_DOT = 2 * NT * L;
-constexpr int PART = 2 * NT * L + NT * PT;
+constexpr int BANDS = 8;               // 64-row bands of a state a pass
+constexpr int BOX = L * 128;           // a 64 x 64 bf16 tile, 8 KB
+constexpr int HALF = 4 * BOX;          // a warpgroup's 256 columns of a tile
 
-struct Slice {
-  float a[KS][SP];                     // [k][m]
-  float b[KS][SP];                     // [k][n]
-};
+// A chunk's record (bytes): M's three parts, the floats, dM o D's three
+// parts, so that the dX pass copies [M, floats] and the others [floats,
+// dM o D] in one bulk copy each, with the tiles 1024-byte aligned.
+constexpr int REC_M = 0;
+constexpr int REC_F = 3 * BOX;
+constexpr int REC_FBYTES = 3072;
+constexpr int REC_PD = REC_F + REC_FBYTES;
+constexpr int REC = REC_PD + 3 * BOX;            // 52,224
+constexpr int REC_LOAD = 3 * BOX + REC_FBYTES;   // what a band pass copies
+// the floats (indices from REC_F)
+constexpr int F_E = 0, F_U = L, F_W = 2 * L, F_G = 3 * L, F_DG1 = 4 * L,
+              F_MD = 5 * L, F_DY = 6 * L, F_X = 7 * L, F_DECAY = 8 * L;
+// A chunk's shares (floats): c.dc, q and (B G)[:, 512], by band
+constexpr int SH_CDC = 0, SH_Q = BANDS * L, SH_X = 2 * BANDS * L;
+constexpr int SHARE = 3 * BANDS * L;
 
-struct Gates {
-  double l[L];
-  float g[L], e[L], u[L], w[L];
-  float decay;
-};
+enum Mode { DC = 0, DB = 1, DX = 2 };
 
-struct Args {
-  const bf16 *c, *b, *x, *dy;
-  const float *log_a, *gate, *ds_final;
-  bf16 *dc, *db, *dx;
-  float *dlog_a, *dgate;
-  float *ws_s, *ws_g, *ws_rec, *ws_part;
-  ll c_s[3], b_s[3], x_s[3], dy_s[3], dx_s[3];
-  ll la_s[3], g_s[3], dla_s[3], dg_s[3];
-  int H, S, nc;
-};
-
-// The chunk's first row of a (B, H, S, ·) tensor read through its strides.
-template <typename T>
-__device__ __forceinline__ const T* chunk_rows(const T* p, const ll* s,
-                                               int b, int h, int k) {
-  return p + b * s[0] + h * s[1] + (ll)k * L * s[2];
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Chunk k's gates, by one warp (lane holds rows 2·lane and 2·lane + 1;
-// log_a = gate = 0 past S): l scanned in fp64, the exps of fp64 values
-// rounded once, as the twin takes them.
-__device__ __forceinline__ void chunk_gates(const Args& a, int b, int h,
-                                            int k, int lane, Gates& gt) {
-  double v[2];
-  float gv[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int row = k * L + 2 * lane + e;
-    const bool in = row < a.S;
-    v[e] = in ? (double)a.log_a[b * a.la_s[0] + h * a.la_s[1] +
-                                 row * a.la_s[2]]
-              : 0.0;
-    gv[e] = in ? a.gate[b * a.g_s[0] + h * a.g_s[1] + row * a.g_s[2]] : 0.f;
-  }
-  double incl = v[0] + v[1];
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += o;
-  }
-  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.0;
-  const double ltot = __shfl_sync(0xffffffffu, incl, 31);
-  const double l[2] = {excl + v[0], excl + v[0] + v[1]};
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int r = 2 * lane + e;
-    gt.l[r] = l[e];
-    gt.g[r] = gv[e];
-    gt.e[r] = (float)exp(l[e]);
-    const float u = (float)exp(ltot - l[e]);
-    gt.u[r] = u;
-    gt.w[r] = u * gv[e];
-  }
-  if (lane == 0) gt.decay = (float)exp(ltot);
+// Two floats → three bf16 parts (high, middle, low), each packed in pairs:
+// each float is the sum of its parts to ~2^-26 of itself.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const float ra = a - hf.x, rb = b - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(m);
+  hi = as_u32(h);
+  mid = as_u32(m);
+  lo = repro::pack_bf16(ra - mf.x, rb - mf.y);
 }
 
-// dst[kk][m] = src[k0 + kk][col0 + m] · scale[k0 + kk] (scale null: 1), a
-// bf16 source with rows of `rs` elements; rows at or past `rows` and
-// columns at or past `cols` read as 0.  One 16-byte load a thread.
-__device__ __forceinline__ void fill_nat_bf16(float (*dst)[SP],
-                                              const bf16* src, ll rs,
-                                              int rows, int k0, int col0,
-                                              int cols, const float* scale) {
-  const int t = threadIdx.x, kk = t >> 3, m = 8 * (t & 7);
-  const int row = k0 + kk, col = col0 + m;
-  float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (row < rows && col < cols) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + row * rs + col);
-    repro::unpack8_bf16(raw, f);
-    const float sc = scale ? scale[row] : 1.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = col + e < cols ? f[e] * sc : 0.f;
-  }
-  *reinterpret_cast<float4*>(&dst[kk][m]) = make_float4(f[0], f[1], f[2],
-                                                        f[3]);
-  *reinterpret_cast<float4*>(&dst[kk][m + 4]) = make_float4(f[4], f[5], f[6],
-                                                            f[7]);
-}
-
-// dst[kk][m] = src[m][k0 + kk], a bf16 source with 64 rows of `rs`
-// elements, K along the row; rows at or past `rows` and columns at or past
-// `cols` read as 0.
-__device__ __forceinline__ void fill_tr_bf16(float (*dst)[SP],
-                                             const bf16* src, ll rs, int rows,
-                                             int k0, int cols) {
-  const int t = threadIdx.x, m = t & 63, g = t >> 6;
-  const int col = k0 + 8 * g;
-  float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (m < rows && col < cols) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + m * rs + col);
-    repro::unpack8_bf16(raw, f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (col + e >= cols) f[e] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) dst[8 * g + e][m] = f[e];
-}
-
-// dst[kk][m] = src[k0 + kk][col0 + m], an fp32 workspace source with rows
-// of `rs` floats.
-__device__ __forceinline__ void fill_nat_f32(float (*dst)[SP],
-                                             const float* src, int rs,
-                                             int k0, int col0) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = threadIdx.x + NTH * r, kk = i >> 4, m = 4 * (i & 15);
-    *reinterpret_cast<float4*>(&dst[kk][m]) =
-        *reinterpret_cast<const float4*>(src + (ll)(k0 + kk) * rs + col0 + m);
-  }
-}
-
-// dst[kk][m] = src[m][k0 + kk], an fp32 workspace source of 64 rows of `rs`
-// floats, K along the row.
-__device__ __forceinline__ void fill_tr_f32(float (*dst)[SP],
-                                            const float* src, int rs,
-                                            int k0) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = threadIdx.x + NTH * r, m = i & 63, g = i >> 6;
-    const float4 v =
-        *reinterpret_cast<const float4*>(src + (ll)m * rs + k0 + 4 * g);
-    dst[4 * g][m] = v.x;
-    dst[4 * g + 1][m] = v.y;
-    dst[4 * g + 2][m] = v.z;
-    dst[4 * g + 3][m] = v.w;
-  }
-}
-
-// acc[i][j] += sum_k a[k][4ty + i] · b[k][4tx + j] over the slice, in k's
-// order.
-__device__ __forceinline__ void fma_slice(const Slice& s, float (&acc)[4][4],
-                                          int ty, int tx) {
-#pragma unroll 8
-  for (int k = 0; k < KS; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(&s.a[k][4 * ty]);
-    const float4 bv = *reinterpret_cast<const float4*>(&s.b[k][4 * tx]);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-  }
-}
-
-// A 64-row product whose slices `fill(k0)` stages: each slice filled, then
-// multiplied, by all the block's threads.
-template <typename Fill>
-__device__ __forceinline__ void product(Slice& s, float (&acc)[4][4], int ty,
-                                        int tx, int depth, Fill fill) {
-  for (int k0 = 0; k0 < depth; k0 += KS) {
-    fill(k0);
-    __syncthreads();
-    fma_slice(s, acc, ty, tx);
-    __syncthreads();
-  }
-}
-
-// The 16 lanes of a thread row (same ty) sum r; every lane gets the sum.
-__device__ __forceinline__ float row_sum16(float r) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    r += __shfl_xor_sync(0xffffffffu, r, off);
-  return r;
+// The element (row, col) of a 64 x 64 bf16 tile with the 128-byte swizzle.
+__device__ __forceinline__ float tile_at(const unsigned char* tile, int row,
+                                         int col) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(
+      tile + hp::swz(row, col >> 3) + 2 * (col & 7)));
 }
 
 // ---------------------------------------------------------------------------
-// the state passes
+// the records: M, dM o D and the gates of one chunk
 // ---------------------------------------------------------------------------
 
-template <bool REV>
-__global__ void __launch_bounds__(NTH) wide_bwd_state_kernel(const Args a) {
-  __shared__ __align__(16) Slice s;
-  __shared__ Gates gt;
-  __shared__ float red[NTH / 32];
-  const int tile = blockIdx.x, bh = blockIdx.y;
-  const int n0 = 64 * (tile / PT), p0 = 64 * (tile % PT);
-  const int b = bh / a.H, h = bh % a.H;
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15, lane = t & 31,
-            warp = t >> 5;
-  // forward: S += B^T (w o X); reverse: G += C^T (e o dY)
-  const bf16* A = REV ? a.c : a.b;
-  const ll* as = REV ? a.c_s : a.b_s;
-  const bf16* X = REV ? a.dy : a.x;
-  const ll* xs = REV ? a.dy_s : a.x_s;
-  float* slots = (REV ? a.ws_g : a.ws_s) + (ll)bh * a.nc * STATE;
+constexpr int PREP_SLOTS = 4;          // (c, b) or (dy, x) box pairs
+constexpr int PREP_Q = NS / 64 + 9;    // 8 pairs for C B^T, 9 for dY X^T
+constexpr int PREP_SMEM = PREP_SLOTS * 2 * BOX + 1024;
+static_assert(REC <= PREP_SLOTS * 2 * BOX, "the record is staged in the ring");
 
-  float acc[4][4];
+struct PrepParams {
+  const float *log_a, *gate;
+  ll la_s[3], g_s[3];
+  const bf16 *x, *dy;
+  ll x_s[3], dy_s[3];
+  unsigned char* rec;
+  int perm_c, perm_b, perm_x, perm_dy;
+  int c_head, b_head;                  // 0: the map is over one head
+  int H, S;
+};
+
+// A warpgroup's 64 x 64 accumulator (rows 16·w4 + g (+ 8), columns 8k + 2t)
+// into three 128-byte-swizzled bf16 part tiles, rows as the accumulator's.
+__device__ __forceinline__ void store_parts(const float (&a)[32], uint32_t hi,
+                                            int w4, int lane) {
+  const int mm = lane >> 3, mr = lane & 7;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int k = 0; k < 8; k += 2) {
+    uint32_t h4[4], m4[4], l4[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * ty + i, p = p0 + 4 * tx + j;
-      acc[i][j] = REV && a.ds_final && p < PD
-                      ? a.ds_final[(ll)bh * NS * PD + (ll)n * PD + p]
-                      : 0.f;
+    for (int m = 0; m < 4; ++m) {
+      const int kk = k + (m >> 1), r = m & 1;
+      split3(a[4 * kk + 2 * r], a[4 * kk + 2 * r + 1], h4[m], m4[m], l4[m]);
     }
+    const uint32_t off = hp::swz(16 * w4 + 8 * (mm & 1) + mr, k + (mm >> 1));
+    hp::stmatrix_x4(hi + off, h4[0], h4[1], h4[2], h4[3]);
+    hp::stmatrix_x4(hi + BOX + off, m4[0], m4[1], m4[2], m4[3]);
+    hp::stmatrix_x4(hi + 2 * BOX + off, l4[0], l4[1], l4[2], l4[3]);
+  }
+}
 
-  for (int it = 0; it < a.nc; ++it) {
-    const int k = REV ? a.nc - 1 - it : it;
-    if (warp == 0) chunk_gates(a, b, h, k, lane, gt);
-    // the state entering chunk k (forward) or the gradient reaching its
-    // end (reverse), to the workspace
-    float* dst = slots + (ll)k * STATE;
+__global__ void __launch_bounds__(128)
+    wide_bwd_prep_kernel(const __grid_constant__ CUtensorMap c_map,
+                         const __grid_constant__ CUtensorMap b_map,
+                         const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap dy_map,
+                         const PrepParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[PREP_SLOTS];
+  __shared__ double lsh[L];
+  __shared__ float gsh[L], d512[L];
+  __shared__ __align__(16) float fl[F_DECAY + 4];
+  __shared__ float red[2][4][L];
+  const uint32_t raw = hp::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int k = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x, r0 = k * L;
+  const int tid = threadIdx.x, w4 = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, row0 = 16 * w4 + g;
+
+  if (tid == 0) {
+    for (int i = 0; i < PREP_SLOTS; ++i) hp::bar_init(&full[i], 1);
+    hp::bar_init_fence();
+  }
+  __syncthreads();
+  // pair q into slot q % 4: boxes 64q of c and b (q < 8), then 64(q - 8) of
+  // dy and x
+  auto load = [&](bool pred, int q) {
+    const int s = q % PREP_SLOTS;
+    const bool first = q < NS / 64;
+    const int d = 64 * (first ? q : q - NS / 64);
+    unsigned char* dst = smem + s * 2 * BOX;
+    hp::bar_arrive_tx_if(pred, &full[s], 2 * BOX);
+    hp::attn_load_box(pred, dst, first ? &c_map : &dy_map, &full[s],
+                      first ? p.perm_c : p.perm_dy, d,
+                      first ? h * p.c_head : h, r0, b);
+    hp::attn_load_box(pred, dst + BOX, first ? &b_map : &x_map, &full[s],
+                      first ? p.perm_b : p.perm_x, d,
+                      first ? h * p.b_head : h, r0, b);
+  };
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(&dst[(n0 + 4 * ty + i) * PP + p0 + 4 * tx]) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    if (REV) {                         // this tile's share of <G, S_in>
-      const float* sin = a.ws_s + ((ll)bh * a.nc + k) * STATE;
+  for (int q = 0; q < PREP_SLOTS; ++q) load(tid == 0, q);
+
+  if (w4 == 0) {
+    // the gates: l scanned in fp64 (lane holds rows 2·lane and + 1; log_a =
+    // gate = 0 past S), the exps of fp64 values rounded once
+    double v[2];
+    float gv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = r0 + 2 * lane + e;
+      const bool in = row < p.S;
+      v[e] = in ? (double)p.log_a[b * p.la_s[0] + h * p.la_s[1] +
+                                  row * p.la_s[2]]
+                : 0.0;
+      gv[e] = in ? p.gate[b * p.g_s[0] + h * p.g_s[1] + row * p.g_s[2]] : 0.f;
+    }
+    double incl = v[0] + v[1];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.0;
+    const double ltot = __shfl_sync(0xffffffffu, incl, 31);
+    const double l[2] = {excl + v[0], excl + v[0] + v[1]};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 2 * lane + e;
+      lsh[r] = l[e];
+      gsh[r] = gv[e];
+      const float u = (float)exp(ltot - l[e]);
+      fl[F_E + r] = (float)exp(l[e]);
+      fl[F_U + r] = u;
+      fl[F_W + r] = u * gv[e];
+      fl[F_G + r] = gv[e];
+    }
+    if (lane == 0) fl[F_DECAY] = (float)exp(ltot);
+  } else if (w4 >= 2) {
+    // column 512 of dy and x (0 past S)
+    const int i = tid - 64, row = r0 + i;
+    const bool in = row < p.S;
+    const float dv =
+        in ? __bfloat162float(p.dy[b * p.dy_s[0] + h * p.dy_s[1] +
+                                   row * p.dy_s[2] + NS])
+           : 0.f;
+    d512[i] = dv;
+    fl[F_DY + i] = dv;
+    fl[F_X + i] = in ? __bfloat162float(p.x[b * p.x_s[0] + h * p.x_s[1] +
+                                            row * p.x_s[2] + NS])
+                     : 0.f;
+  }
+
+  // C B^T (rows i, columns j) over K = 512, then dY X^T over K = 513 (box 8
+  // holds column 512 and TMA's zeros)
+  // (a box's four k16 steps in an accumulator of their own, added to the
+  // sum by one rounded fp32 add; the slot refilled once they are done)
+  float cb[32], dm[32];
+#pragma unroll
+  for (int q = 0; q < PREP_Q; ++q) {
+    const int s = q % PREP_SLOTS;
+    const uint32_t a_s = base + s * 2 * BOX, b_s = a_s + BOX;
+    hp::bar_wait(&full[s], (q / PREP_SLOTS) & 1);
+    float T[32];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hp::Wgmma<64>::ss<0, 0>(T, hp::desc_kmajor(a_s, kk),
+                              hp::desc_kmajor(b_s, kk), kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(T);
+    float(&acc)[32] = q < NS / 64 ? cb : dm;
+    const bool first = q == 0 || q == NS / 64;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = first ? T[i] : acc[i] + T[i];
+    if (q + PREP_SLOTS < PREP_Q) load(tid == 0, q + PREP_SLOTS);
+  }
+  __syncthreads();                     // the gates are in; the ring is free
+
+  // M = CB o D and dM o D in place; dgate's first term sum_i dM CB E and
+  // (M^T dY)[:, 512] by column, this thread's two rows first
+  float dgc[16], mdc[16];
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * kc + 2 * t + e;
+      float dsum = 0.f, msum = 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = row0 + 8 * r, a = 4 * kc + 2 * r + e;
+        const float E = j <= i ? (float)exp(lsh[i] - lsh[j]) : 0.f;
+        const float D = E * gsh[j];
+        const float m = cb[a] * D;
+        dsum += dm[a] * cb[a] * E;
+        msum += m * d512[i];
+        cb[a] = m;
+        dm[a] = dm[a] * D;
+      }
+      dgc[2 * kc + e] = dsum;
+      mdc[2 * kc + e] = msum;
+    }
+#pragma unroll
+  for (int c = 0; c < 16; ++c)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      dgc[c] += __shfl_xor_sync(0xffffffffu, dgc[c], off);
+      mdc[c] += __shfl_xor_sync(0xffffffffu, mdc[c], off);
+    }
+  if (g == 0) {
+#pragma unroll
+    for (int kc = 0; kc < 8; ++kc)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[0][w4][8 * kc + 2 * t + e] = dgc[2 * kc + e];
+        red[1][w4][8 * kc + 2 * t + e] = mdc[2 * kc + e];
+      }
+  }
+  store_parts(cb, base + REC_M, w4, lane);
+  store_parts(dm, base + REC_PD, w4, lane);
+  __syncthreads();
+  float* fo = reinterpret_cast<float*>(smem + REC_F);
+  if (tid < L) {                       // the warps' sums, in their order
+    fl[F_DG1 + tid] =
+        ((red[0][0][tid] + red[0][1][tid]) + red[0][2][tid]) + red[0][3][tid];
+    fl[F_MD + tid] =
+        ((red[1][0][tid] + red[1][1][tid]) + red[1][2][tid]) + red[1][3][tid];
+  }
+  __syncthreads();
+  for (int i = tid; i < F_DECAY + 4; i += 128) fo[i] = fl[i];
+  hp::fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    hp::bulk_store(p.rec + (((ll)b * p.H + h) * nc + k) * (ll)REC, base, REC);
+    hp::bulk_commit();
+    hp::bulk_wait();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the band passes
+// ---------------------------------------------------------------------------
+
+// shared memory of a band block (bytes from the 1024-aligned base)
+constexpr int B_V = 0;                 // each warpgroup's 4 boxes of V
+constexpr int B_Z = 2 * HALF;          // each warpgroup's 4 boxes of Z
+constexpr int B_BAND = 4 * HALF;       // the band's tiles (two)
+constexpr int B_REC = B_BAND + 2 * BOX;          // the record's copy
+constexpr int B_BUILT = B_REC + REC_LOAD;        // the scaled tile's parts
+constexpr int B_XCH = B_BUILT + 3 * BOX;         // the hand-over, the store
+constexpr int BAND_SMEM = B_XCH + 16384 + 1024;
+static_assert(B_BUILT % 1024 == 0 && B_XCH % 1024 == 0, "tiles aligned");
+
+struct BandParams {
+  const float* ds_final;
+  const unsigned char* rec;
+  float* share;                        // (B·H·chunks) x SHARE
+  float* ds_share;                     // (B·H) x BANDS: <ds_final, S_in>
+  int perm_c, perm_b, perm_x, perm_dy, perm_dc, perm_dx;
+  int c_head, b_head;
+  int H, nc;
+};
+
+// A warpgroup's share, by column j, of sum_r tile(j, r) P[r, j] (P rows
+// 16·w4 + g (+ 8), columns 8k + 2t (+ 1)) into red[w4][j].
+__device__ __forceinline__ void column_share(const float (&P)[32],
+                                             const unsigned char* tile,
+                                             float (*red)[L], int w4,
+                                             int lane) {
+  const int g = lane >> 2, t = lane & 3, row0 = 16 * w4 + g;
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * kc + 2 * t + e;
+      float s = tile_at(tile, j, row0) * P[4 * kc + e];
+      s = fmaf(tile_at(tile, j, row0 + 8), P[4 * kc + 2 + e], s);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (g == 0) red[w4][j] = s;
+    }
+}
+
+template <int MODE>
+__device__ __forceinline__ void band_pass(
+    const CUtensorMap* c_map, const CUtensorMap* b_map,
+    const CUtensorMap* x_map, const CUtensorMap* dy_map,
+    const CUtensorMap* dc_map, const CUtensorMap* db_map,
+    const CUtensorMap* dx_map, const BandParams& p, unsigned char* smem,
+    uint32_t base, uint64_t* vfull, uint64_t* zfull, uint64_t* rfull,
+    float (*red)[4][L], float (*col)[L], float* dsred) {
+  constexpr bool REV = MODE != DC;
+  constexpr bool COL = MODE != DX;     // P's column 512 beside the state
+  const int band = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, w4 = wt >> 5,
+            lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * w4 + g;        // accumulator rows row0, row0 + 8
+  const int nc = p.nc;
+  const int hb = h * p.b_head, hc = h * p.c_head;
+  // V: the rs product's B operand; Z: the update's; the band's tiles
+  const CUtensorMap* vmap = MODE == DC ? dy_map : MODE == DB ? x_map : b_map;
+  const int vperm = MODE == DC ? p.perm_dy : MODE == DB ? p.perm_x : p.perm_b;
+  const int vh = MODE == DX ? hb : h;
+  const CUtensorMap* zmap = MODE == DC ? x_map : MODE == DB ? dy_map : c_map;
+  const int zperm = MODE == DC ? p.perm_x : MODE == DB ? p.perm_dy : p.perm_c;
+  const int zh = MODE == DX ? hc : h;
+  const CUtensorMap* t0map = MODE == DC ? b_map : MODE == DB ? c_map : dy_map;
+  const int t0perm = MODE == DC ? p.perm_b : MODE == DB ? p.perm_c : p.perm_dy;
+  const int t0h = MODE == DC ? hb : MODE == DB ? hc : h;
+  const CUtensorMap* t1map = MODE == DC ? c_map : b_map;
+  const int t1perm = MODE == DC ? p.perm_c : p.perm_b;
+  const int t1h = MODE == DC ? hc : hb;
+  const CUtensorMap* omap = MODE == DC ? dc_map : MODE == DB ? db_map : dx_map;
+  const int operm = MODE == DX ? p.perm_dx : p.perm_dc;
+  constexpr int FOFF = MODE == DX ? 3 * BOX : 0;   // the floats in the copy
+  constexpr int POFF = MODE == DX ? 0 : REC_FBYTES; // the record's parts
+  const unsigned char* tile0 = smem + B_BAND;
+  const unsigned char* tile1 = smem + B_BAND + BOX;
+  const float* fl = reinterpret_cast<const float*>(smem + B_REC + FOFF);
+
+  auto chunk_of = [&](int it) { return REV ? nc - 1 - it : it; };
+  // iteration it's V and Z boxes of this warpgroup's 256 columns (its
+  // first thread), the record and the band's tiles (the block's first)
+  auto issue_v = [&](int it) {
+    const bool go = wt == 0 && it < nc;
+    const int r0 = chunk_of(it) * L;
+    hp::bar_arrive_tx_if(go, &vfull[wg], HALF);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      hp::attn_load_box(go, smem + B_V + wg * HALF + q * BOX, vmap,
+                        &vfull[wg], vperm, 256 * wg + 64 * q, vh, r0, b);
+  };
+  auto issue_z = [&](int it) {
+    const bool go = wt == 0 && it < nc;
+    const int r0 = chunk_of(it) * L;
+    hp::bar_arrive_tx_if(go, &zfull[wg], HALF);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      hp::attn_load_box(go, smem + B_Z + wg * HALF + q * BOX, zmap,
+                        &zfull[wg], zperm, 256 * wg + 64 * q, zh, r0, b);
+  };
+  auto issue_rec = [&](int it) {
+    const bool go = tid == 0 && it < nc;
+    const int k = chunk_of(it);
+    hp::bar_arrive_tx_if(go, rfull, REC_LOAD + (COL ? 2 : 1) * BOX);
+    hp::bulk_load_if(go, smem + B_REC,
+                     p.rec + ((ll)bh * nc + (go ? k : 0)) * REC +
+                         (MODE == DX ? REC_M : REC_F),
+                     REC_LOAD, rfull);
+    hp::attn_load_box(go, smem + B_BAND, t0map, rfull, t0perm, 64 * band, t0h,
+                      k * L, b);
+    if (COL)
+      hp::attn_load_box(go, smem + B_BAND + BOX, t1map, rfull, t1perm,
+                        64 * band, t1h, k * L, b);
+  };
+
+  if (tid == 0) {
+    hp::tma_prefetch_map(vmap);
+    hp::tma_prefetch_map(zmap);
+    hp::tma_prefetch_map(t0map);
+  }
+  issue_v(0);
+  issue_z(0);
+  issue_rec(0);
+
+  // the state: S_in (0), G (ds_final) or G^T (ds_final^T); this warpgroup's
+  // columns 256·wg ..
+  float st[128];
+  {
+    const float* ds = REV && p.ds_final ? p.ds_final + (ll)bh * NS * PD
+                                        : nullptr;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int rr = 64 * band + row0 + 8 * r;
+          const int cc = 256 * wg + 8 * j + 2 * t + e;
+          st[4 * j + 2 * r + e] =
+              ds ? (MODE == DX ? ds[(ll)cc * PD + rr] : ds[(ll)rr * PD + cc])
+                 : 0.f;
+        }
+    if (COL && tid < L)
+      col[0][tid] = ds ? ds[(ll)(64 * band + tid) * PD + NS] : 0.f;
+  }
+  __syncthreads();
+
+  for (int it = 0; it < nc; ++it) {
+    const int k = chunk_of(it), ph = it & 1;
+    hp::bar_wait(rfull, ph);
+    if (MODE == DC && it == nc - 1) {
+      // the last chunk's S_in against ds_final (column 512 too)
       float d = 0.f;
+      if (p.ds_final) {
+        const float* ds = p.ds_final + (ll)bh * NS * PD;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            &sin[(n0 + 4 * ty + i) * PP + p0 + 4 * tx]);
-        d = fmaf(acc[i][0], v.x, d);
-        d = fmaf(acc[i][1], v.y, d);
-        d = fmaf(acc[i][2], v.z, d);
-        d = fmaf(acc[i][3], v.w, d);
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              d = fmaf(st[4 * j + 2 * r + e],
+                       ds[(ll)(64 * band + row0 + 8 * r) * PD + 256 * wg +
+                          8 * j + 2 * t + e],
+                       d);
+        if (tid < L)
+          d = fmaf(col[ph][tid], ds[(ll)(64 * band + tid) * PD + NS], d);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         d += __shfl_xor_sync(0xffffffffu, d, off);
-      if (lane == 0) red[warp] = d;
-    }
-    __syncthreads();                   // the gates and the shares are in
-    if (REV && t == 0) {
-      float d = 0.f;
-      for (int w = 0; w < NTH / 32; ++w) d += red[w];
-      a.ws_part[((ll)bh * a.nc + k) * PART + PART_DOT + tile] = d;
-    }
-    const float dec = gt.decay;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= dec;
-    const int rows = a.S - k * L;
-    const bf16* ak = chunk_rows(A, as, b, h, k);
-    const bf16* xk = chunk_rows(X, xs, b, h, k);
-    const float* scale = REV ? gt.e : gt.w;
-    product(s, acc, ty, tx, L, [&](int k0) {
-      fill_nat_bf16(s.a, ak, as[2], rows, k0, n0, NS, scale);
-      fill_nat_bf16(s.b, xk, xs[2], rows, k0, p0, PD, nullptr);
-    });
-  }
-}
-
-// ---------------------------------------------------------------------------
-// each chunk's 64 x 64 products
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NTH) wide_bwd_chunk_kernel(const Args a) {
-  __shared__ __align__(16) Slice s;
-  __shared__ Gates gt;
-  __shared__ float red[16][L];
-  const int k = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15, lane = t & 31;
-  if ((t >> 5) == 0) chunk_gates(a, b, h, k, lane, gt);
-  const int rows = a.S - k * L;
-  const bf16* ck = chunk_rows(a.c, a.c_s, b, h, k);
-  const bf16* bk = chunk_rows(a.b, a.b_s, b, h, k);
-  const bf16* xk = chunk_rows(a.x, a.x_s, b, h, k);
-  const bf16* dyk = chunk_rows(a.dy, a.dy_s, b, h, k);
-  float cb[4][4] = {}, dm[4][4] = {};  // rows i, columns j
-  product(s, cb, ty, tx, NS, [&](int k0) {
-    fill_tr_bf16(s.a, ck, a.c_s[2], rows, k0, NS);
-    fill_tr_bf16(s.b, bk, a.b_s[2], rows, k0, NS);
-  });
-  product(s, dm, ty, tx, KP, [&](int k0) {
-    fill_tr_bf16(s.a, dyk, a.dy_s[2], rows, k0, PD);
-    fill_tr_bf16(s.b, xk, a.x_s[2], rows, k0, PD);
-  });
-  float* rec = a.ws_rec + ((ll)bh * a.nc + k) * REC;
-  float dg[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i4 = 0; i4 < 4; ++i4) {
-    const int i = 4 * ty + i4;
-    float m4[4], p4[4];
-#pragma unroll
-    for (int j4 = 0; j4 < 4; ++j4) {
-      const int j = 4 * tx + j4;
-      const float E = j <= i ? (float)exp(gt.l[i] - gt.l[j]) : 0.f;
-      const float D = E * gt.g[j];
-      m4[j4] = cb[i4][j4] * D;
-      p4[j4] = dm[i4][j4] * D;
-      dg[j4] += dm[i4][j4] * cb[i4][j4] * E;
-      rec[REC_PT + j * L + i] = p4[j4];
-    }
-    *reinterpret_cast<float4*>(&rec[i * L + 4 * tx]) =
-        make_float4(m4[0], m4[1], m4[2], m4[3]);
-    *reinterpret_cast<float4*>(&rec[REC_P + i * L + 4 * tx]) =
-        make_float4(p4[0], p4[1], p4[2], p4[3]);
-  }
-#pragma unroll
-  for (int j4 = 0; j4 < 4; ++j4) red[ty][4 * tx + j4] = dg[j4];
-  __syncthreads();
-  if (t < L) {                         // sum over i, in the rows' order
-    float d = 0.f;
-    for (int r = 0; r < 16; ++r) d += red[r][t];
-    rec[REC_DG + t] = d;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// each chunk's dX, dC and dB tiles
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NTH) wide_bwd_out_kernel(const Args a) {
-  __shared__ __align__(16) Slice s;
-  __shared__ Gates gt;
-  const int tile = blockIdx.x, k = blockIdx.y, bh = blockIdx.z;
-  const int b = bh / a.H, h = bh % a.H;
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15, lane = t & 31;
-  if ((t >> 5) == 0) chunk_gates(a, b, h, k, lane, gt);
-  const int rows = a.S - k * L;
-  const bf16* ck = chunk_rows(a.c, a.c_s, b, h, k);
-  const bf16* bk = chunk_rows(a.b, a.b_s, b, h, k);
-  const bf16* xk = chunk_rows(a.x, a.x_s, b, h, k);
-  const bf16* dyk = chunk_rows(a.dy, a.dy_s, b, h, k);
-  const ll slot = (ll)bh * a.nc + k;
-  const float* sin = a.ws_s + slot * STATE;
-  const float* gk = a.ws_g + slot * STATE;
-  const float* rec = a.ws_rec + slot * REC;
-  float* part = a.ws_part + slot * PART;
-  float acc[4][4] = {};
-  auto scale_rows = [&](const float* v) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float f = v[4 * ty + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= f;
-    }
-  };
-
-  if (tile < PT) {
-    // dX[:, p0 ..] = w o (B G) + M^T dY: rows j, columns p
-    const int p0 = 64 * tile;
-    product(s, acc, ty, tx, NS, [&](int k0) {
-      fill_tr_bf16(s.a, bk, a.b_s[2], rows, k0, NS);
-      fill_nat_f32(s.b, gk, PP, k0, p0);
-    });
-    scale_rows(gt.w);
-    product(s, acc, ty, tx, L, [&](int k0) {
-      fill_nat_f32(s.a, rec, L, k0, 0);
-      fill_nat_bf16(s.b, dyk, a.dy_s[2], rows, k0, p0, PD, nullptr);
-    });
-    bf16* dx = a.dx + b * a.dx_s[0] + h * a.dx_s[1] + (ll)k * L * a.dx_s[2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = 4 * ty + i;
-      if (j >= rows) continue;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int p = p0 + 4 * tx + q;
-        if (p < PD) dx[j * a.dx_s[2] + p] = __float2bfloat16_rn(acc[i][q]);
+      if (lane == 0) dsred[tid >> 5] = d;
+      hp::named_sync(1, 256);
+      if (tid == 0) {
+        float s = 0.f;
+        for (int w = 0; w < 8; ++w) s += dsred[w];
+        p.ds_share[(ll)bh * BANDS + band] = s;
       }
     }
-    return;
-  }
-  const bool is_dc = tile < PT + NT;
-  const int nt = tile - (is_dc ? PT : PT + NT), n0 = 64 * nt;
-  if (is_dc) {
-    // dC[:, n0 ..] = e o (dY S_in^T) + (dM o D) B: rows i, columns n
-    product(s, acc, ty, tx, KP, [&](int k0) {
-      fill_tr_bf16(s.a, dyk, a.dy_s[2], rows, k0, PD);
-      fill_tr_f32(s.b, sin + (ll)n0 * PP, PP, k0);
-    });
-    scale_rows(gt.e);
-    product(s, acc, ty, tx, L, [&](int k0) {
-      fill_nat_f32(s.a, rec + REC_PT, L, k0, 0);
-      fill_nat_bf16(s.b, bk, a.b_s[2], rows, k0, n0, NS, nullptr);
-    });
-  } else {
-    // dB[:, n0 ..] = w o (X G^T) + (dM o D)^T C: rows j, columns n
-    product(s, acc, ty, tx, KP, [&](int k0) {
-      fill_tr_bf16(s.a, xk, a.x_s[2], rows, k0, PD);
-      fill_tr_f32(s.b, gk + (ll)n0 * PP, PP, k0);
-    });
-  }
-  // c_i.dc_i (dC) or q_j = b_j.(X G^T)_j (dB, before w scales it), this
-  // tile's share; rows past S have c = b = 0
-  const bf16* vk = is_dc ? ck : bk;
-  const ll vs = is_dc ? a.c_s[2] : a.b_s[2];
+
+    // (1) P = this warpgroup's share of T V^T: K over its 256 columns, A the
+    // state's three parts from the accumulators.  Each group of 32 columns
+    // (two k16 steps) goes to an accumulator of its own, the low part's
+    // products first and the high part's last, and is added to P by one
+    // rounded fp32 add: the tensor cores round their accumulator at every
+    // step, so a long sum in one accumulator loses what the twin keeps
+    hp::bar_wait(&vfull[wg], ph);
+    float P[32];
+    const uint32_t vb = base + B_V + wg * HALF;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    float d = 0.f;
-    if (r < rows) {
-      const bf16* v = vk + r * vs + n0 + 4 * tx;
+    for (int gq = 0; gq < 8; ++gq) {
+      uint32_t fr[3][2][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) d = fmaf(__bfloat162float(v[q]), acc[i][q], d);
+      for (int kq = 0; kq < 2; ++kq) {
+        const int j0 = 4 * gq + 2 * kq, j1 = j0 + 1;
+        split3(st[4 * j0], st[4 * j0 + 1], fr[0][kq][0], fr[1][kq][0],
+               fr[2][kq][0]);
+        split3(st[4 * j0 + 2], st[4 * j0 + 3], fr[0][kq][1], fr[1][kq][1],
+               fr[2][kq][1]);
+        split3(st[4 * j1], st[4 * j1 + 1], fr[0][kq][2], fr[1][kq][2],
+               fr[2][kq][2]);
+        split3(st[4 * j1 + 2], st[4 * j1 + 3], fr[0][kq][3], fr[1][kq][3],
+               fr[2][kq][3]);
+      }
+      float T[32];
+      hp::wgmma_fence();
+#pragma unroll
+      for (int pt = 0; pt < 3; ++pt)
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq)
+          hp::Wgmma<64>::rs<0>(
+              T, fr[2 - pt][kq],
+              hp::desc_kmajor(vb + (gq >> 1) * BOX, 2 * (gq & 1) + kq),
+              pt > 0 || kq > 0);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(T);
+      hp::fence_regs(fr[0]);
+      hp::fence_regs(fr[1]);
+      hp::fence_regs(fr[2]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) P[i] = gq > 0 ? P[i] + T[i] : T[i];
     }
-    d = row_sum16(d);
-    if (tx == 0) part[(is_dc ? 0 : PART_Q) + nt * L + r] = d;
-  }
-  if (!is_dc) {
-    scale_rows(gt.w);
-    product(s, acc, ty, tx, L, [&](int k0) {
-      fill_nat_f32(s.a, rec + REC_P, L, k0, 0);
-      fill_nat_bf16(s.b, ck, a.c_s[2], rows, k0, n0, NS, nullptr);
-    });
-  }
-  // dC and dB: (B, H, S, 512) contiguous
-  bf16* out = (is_dc ? a.dc : a.db) + ((ll)bh * a.S + (ll)k * L) * NS + n0;
+    hp::named_sync(2 + wg, 128);       // the warpgroup's V boxes are read
+    issue_v(it + 1);
+
+    // (2) column 512's rank-1 term (warpgroup 0's share), q's share (DB),
+    // the scale, half of the small product, c.dc's share (DC)
+    if (COL) {
+      const float* vec = fl + (MODE == DC ? F_DY : F_X);
+      const float f = wg == 0 ? 1.f : 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (r >= rows) continue;
-    uint2 v;
-    v.x = repro::pack_bf16(acc[i][0], acc[i][1]);
-    v.y = repro::pack_bf16(acc[i][2], acc[i][3]);
-    *reinterpret_cast<uint2*>(out + (ll)r * NS + 4 * tx) = v;
+      for (int r = 0; r < 2; ++r) {
+        const float cv = f * col[ph][row0 + 8 * r];
+#pragma unroll
+        for (int kc = 0; kc < 8; ++kc) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(&vec[8 * kc + 2 * t]);
+          P[4 * kc + 2 * r] = fmaf(cv, v.x, P[4 * kc + 2 * r]);
+          P[4 * kc + 2 * r + 1] = fmaf(cv, v.y, P[4 * kc + 2 * r + 1]);
+        }
+      }
+    }
+    if (MODE == DB) column_share(P, tile1, red[wg], w4, lane);
+    {
+      const float* sc = fl + (MODE == DC ? F_E : F_W);
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc) {
+        const float2 v = *reinterpret_cast<const float2*>(&sc[8 * kc + 2 * t]);
+        P[4 * kc] *= v.x;
+        P[4 * kc + 1] *= v.y;
+        P[4 * kc + 2] *= v.x;
+        P[4 * kc + 3] *= v.y;
+      }
+    }
+    {
+      // in an accumulator of its own, low part first, then added to P once
+      const uint32_t t0 = base + B_BAND, parts = base + B_REC + POFF;
+      float Q[32];
+      hp::wgmma_fence();
+#pragma unroll
+      for (int pt = 0; pt < 3; ++pt)
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          const int kk = 2 * wg + kq, part = 2 - pt;
+          if (MODE == DC)
+            hp::Wgmma<64>::ss<1, 0>(Q, hp::desc_mnmajor(t0, kk, BOX),
+                                    hp::desc_kmajor(parts + part * BOX, kk),
+                                    pt > 0 || kq > 0);
+          else
+            hp::Wgmma<64>::ss<1, 1>(
+                Q, hp::desc_mnmajor(t0, kk, BOX),
+                hp::desc_mnmajor(parts + part * BOX, kk, BOX),
+                pt > 0 || kq > 0);
+        }
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(Q);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) P[i] += Q[i];
+    }
+    if (MODE == DC) column_share(P, tile1, red[wg], w4, lane);
+    float4* xch = reinterpret_cast<float4*>(smem + B_XCH) + wt;
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        xch[128 * i] =
+            make_float4(P[4 * i], P[4 * i + 1], P[4 * i + 2], P[4 * i + 3]);
+    }
+    hp::named_sync(1, 256);            // the hand-over and the shares are in
+
+    if (wg == 0) {
+      // the sum, 0's + 1's, out in bf16 through the hand-over's first 8 KB,
+      // transposed (rows j, 64 columns r), and a TMA store
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = xch[128 * i];
+        P[4 * i] += v.x;
+        P[4 * i + 1] += v.y;
+        P[4 * i + 2] += v.z;
+        P[4 * i + 3] += v.w;
+      }
+      hp::named_sync(4, 128);          // every thread has read the hand-over
+      const uint32_t ot = base + B_XCH;
+      const int mm = lane >> 3;
+#pragma unroll
+      for (int kc = 0; kc < 8; kc += 2) {
+        const uint32_t off =
+            hp::swz(8 * (kc + (mm >> 1)) + (lane & 7), 2 * w4 + (mm & 1));
+        hp::stmatrix_x4_trans(ot + off,
+                              repro::pack_bf16(P[4 * kc], P[4 * kc + 1]),
+                              repro::pack_bf16(P[4 * kc + 2], P[4 * kc + 3]),
+                              repro::pack_bf16(P[4 * kc + 4], P[4 * kc + 5]),
+                              repro::pack_bf16(P[4 * kc + 6], P[4 * kc + 7]));
+      }
+      hp::fence_proxy_async();
+      hp::named_sync(4, 128);
+      hp::attn_store_box_if(wt == 0, omap, ot, operm, 64 * band, h, k * L, b);
+      hp::bulk_commit_if(wt == 0);
+    } else if (COL) {
+      // the shares' sums (warpgroup 0's warps, then 1's); (DB) this band's
+      // (B G)[:, 512] = sum_n b[j, n] G[n, 512]; column 512's update, S +=
+      // (w o B)^T x[:, 512] (DC) or G += (e o C)^T dy[:, 512] (DB): two
+      // threads an output, each half of the sum, added in the same order
+      const int o = wt >> 1, half = wt & 1;
+      float* sh = p.share + ((ll)bh * nc + k) * SHARE + band * L;
+      if (half == 0) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int w = 0; w < 4; ++w) s += red[q][w][o];
+        sh[(MODE == DC ? SH_CDC : SH_Q) + o] = s;
+      }
+      if (MODE == DB) {
+        float x = 0.f;
+#pragma unroll
+        for (int n = 32 * half; n < 32 * half + 32; ++n)
+          x = fmaf(tile_at(tile1, o, n), col[ph][n], x);
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        if (half == 0) sh[SH_X + o] = x;
+      }
+      const float* bs = fl + (MODE == DC ? F_W : F_E);
+      const float* vec = fl + (MODE == DC ? F_X : F_DY);
+      float s = 0.f;
+#pragma unroll
+      for (int j = 32 * half; j < 32 * half + 32; ++j)
+        s = fmaf(bs[j] * tile_at(tile0, j, o), vec[j], s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      if (half == 0) col[ph ^ 1][o] = fmaf(fl[F_DECAY], col[ph][o], s);
+    }
+    {
+      // the update's A operand: the band's first tile, rows scaled (w for
+      // DC, e for DB and DX), in three parts, layout as the tile's; each
+      // warpgroup half of the rows
+      const float* bs = fl + (MODE == DC ? F_W : F_E);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c16 = 256 * wg + 128 * i + wt;
+        const float sv = bs[c16 >> 3];
+        float f[8];
+        repro::unpack8_bf16(*reinterpret_cast<const uint4*>(tile0 + 16 * c16),
+                            f);
+        uint4 hi, mid, lo;
+        split3(f[0] * sv, f[1] * sv, hi.x, mid.x, lo.x);
+        split3(f[2] * sv, f[3] * sv, hi.y, mid.y, lo.y);
+        split3(f[4] * sv, f[5] * sv, hi.z, mid.z, lo.z);
+        split3(f[6] * sv, f[7] * sv, hi.w, mid.w, lo.w);
+        uint4* dst = reinterpret_cast<uint4*>(smem + B_BUILT) + c16;
+        dst[0] = hi;
+        dst[BOX / 16] = mid;
+        dst[2 * BOX / 16] = lo;
+      }
+      hp::fence_proxy_async();
+    }
+    const float dec = fl[F_DECAY];
+    // the store has read the hand-over before warpgroup 1 writes it again
+    hp::bulk_wait_read_if(wg == 0 && wt == 0);
+    hp::named_sync(1, 256);            // the scaled tile is in; the record
+                                       // and the band's tiles are read
+    issue_rec(it + 1);
+
+    // (3) the update: T = exp(l_L) T + A^T Z over the chunk's rows, a
+    // 128-column block at a time into an accumulator of its own (low part
+    // first), folded into the state by one rounded fma an element: adding
+    // the parts' products into the state's accumulators would round the
+    // state at every step
+    hp::bar_wait(&zfull[wg], ph);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint32_t zb = base + B_Z + wg * HALF + q * 2 * BOX;
+      const uint32_t bt = base + B_BUILT;
+      float U[64];
+      hp::wgmma_fence();
+#pragma unroll
+      for (int pt = 0; pt < 3; ++pt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hp::Wgmma<128>::ss<1, 1>(
+              U, hp::desc_mnmajor(bt + (2 - pt) * BOX, kk, BOX),
+              hp::desc_mnmajor(zb, kk, BOX), pt > 0 || kk > 0);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(U);
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        st[64 * q + i] = fmaf(st[64 * q + i], dec, U[i]);
+    }
+    hp::named_sync(2 + wg, 128);       // the warpgroup's Z boxes are read
+    issue_z(it + 1);
   }
+  hp::bulk_wait_if(wg == 0 && wt == 0);   // the last store is done
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(256, 1)
+    wide_bwd_band_kernel(const __grid_constant__ CUtensorMap c_map,
+                         const __grid_constant__ CUtensorMap b_map,
+                         const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap dy_map,
+                         const __grid_constant__ CUtensorMap dc_map,
+                         const __grid_constant__ CUtensorMap db_map,
+                         const __grid_constant__ CUtensorMap dx_map,
+                         const BandParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t vfull[2], zfull[2], rfull;
+  __shared__ float red[2][4][L];
+  __shared__ __align__(16) float col[2][L];
+  __shared__ float dsred[8];
+  const uint32_t raw = hp::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hp::bar_init(&vfull[i], 1);
+      hp::bar_init(&zfull[i], 1);
+    }
+    hp::bar_init(&rfull, 1);
+    hp::bar_init_fence();
+  }
+  __syncthreads();
+  band_pass<MODE>(&c_map, &b_map, &x_map, &dy_map, &dc_map, &db_map, &dx_map,
+                  p, smem, base, vfull, zfull, &rfull, red, col, dsred);
 }
 
 // ---------------------------------------------------------------------------
-// dgate and dlog_a
+// dgate, dlog_a and dx's column 512
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(L) wide_bwd_finish_kernel(const Args a) {
-  __shared__ Gates gt;
-  __shared__ float v[L], wq[L], dot;
-  const int k = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int t = threadIdx.x;
-  if (t < 32) chunk_gates(a, b, h, k, t, gt);
-  const ll slot = (ll)bh * a.nc + k;
-  const float* part = a.ws_part + slot * PART;
-  if (t == 0) {
+constexpr int FIN = 1024;              // threads: rows a segment
+
+struct FinishParams {
+  const unsigned char* rec;
+  const float *share, *ds_share;
+  float *dlog_a, *dgate;
+  ll dla_s[3], dg_s[3];
+  bf16* dx;
+  ll dx_s[3];
+  int H, S, nc;
+};
+
+__global__ void __launch_bounds__(FIN) wide_bwd_finish_kernel(
+    const FinishParams p) {
+  __shared__ double wsum[FIN / 32];
+  __shared__ double cst;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nc = p.nc;
+  auto fl = [&](int k) {
+    return reinterpret_cast<const float*>(
+        p.rec + ((ll)bh * nc + k) * REC + REC_F);
+  };
+  auto band_sum = [&](int k, int which, int j) {
+    const float* s = p.share + ((ll)bh * nc + k) * SHARE + which + j;
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < BANDS; ++q) v += s[q * L];
+    return v;
+  };
+  if (tid == 0) {
+    // <ds_final, S_final> = exp(l_L) <ds_final, S_in> + sum_j w_j q_j, of
+    // the last chunk
+    const float* f = fl(nc - 1);
     float d = 0.f;
-    for (int i = 0; i < NT * PT; ++i) d += part[PART_DOT + i];
-    dot = d;
+    for (int q = 0; q < BANDS; ++q) d += p.ds_share[(ll)bh * BANDS + q];
+    double c = (double)f[F_DECAY] * (double)d;
+    for (int j = 0; j < L; ++j)    // w_j q_j as u_j g_j q_j, as v takes it
+      c += (double)f[F_U + j] * (double)f[F_G + j] *
+           (double)band_sum(nc - 1, SH_Q, j);
+    cst = c;
   }
   __syncthreads();
-  float rc = 0.f, q = 0.f;
-  for (int nt = 0; nt < NT; ++nt) {
-    rc += part[nt * L + t];
-    q += part[PART_Q + nt * L + t];
+  double carry = cst;
+  for (int end = p.S; end > 0; end -= FIN) {
+    const int r = end - FIN + tid;
+    double v = 0.0;
+    if (r >= 0) {
+      const int k = r / L, j = r % L;
+      const float* f = fl(k);
+      const float q = band_sum(k, SH_Q, j);
+      const float dgate = f[F_DG1 + j] + f[F_U + j] * q;
+      // c.dc - g dgate in fp64: the terms of u g q cancel the constant's
+      v = (double)band_sum(k, SH_CDC, j) -
+          (double)f[F_G + j] *
+              ((double)f[F_DG1 + j] + (double)f[F_U + j] * (double)q);
+      p.dgate[b * p.dg_s[0] + h * p.dg_s[1] + r * p.dg_s[2]] = dgate;
+      p.dx[b * p.dx_s[0] + h * p.dx_s[1] + r * p.dx_s[2] + NS] =
+          __float2bfloat16_rn(f[F_W + j] * band_sum(k, SH_X, j) + f[F_MD + j]);
+    }
+    // the sum over the rows at or after r: the warp's, the later warps',
+    // the later segments' and the constant
+    double s = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double o = __shfl_down_sync(0xffffffffu, s, off);
+      if (lane + off < 32) s += o;
+    }
+    if (lane == 0) wsum[warp] = s;
+    __syncthreads();
+    double later = 0.0, total = 0.0;
+    for (int w = 0; w < FIN / 32; ++w) {
+      if (w > warp) later += wsum[w];
+      total += wsum[w];
+    }
+    if (r >= 0)
+      p.dlog_a[b * p.dla_s[0] + h * p.dla_s[1] + r * p.dla_s[2]] =
+          (float)(s + later + carry);
+    carry += total;
+    __syncthreads();
   }
-  const float dgate = a.ws_rec[slot * REC + REC_DG + t] + gt.u[t] * q;
-  v[t] = rc - gt.g[t] * dgate;
-  wq[t] = gt.w[t] * q;
-  __syncthreads();
-  float wqs = 0.f;
-  for (int j = 0; j < L; ++j) wqs += wq[j];
-  const float carry = gt.decay * dot + wqs;
-  float rsum = 0.f;                    // sum over the rows u >= t, from the end
-  for (int u = L - 1; u >= t; --u) rsum += v[u];
-  const int row = k * L + t;
-  if (row < a.S) {
-    a.dgate[b * a.dg_s[0] + h * a.dg_s[1] + row * a.dg_s[2]] = dgate;
-    a.dlog_a[b * a.dla_s[0] + h * a.dla_s[1] + row * a.dla_s[2]] =
-        rsum + carry;
-  }
+}
+
+template <int MODE>
+cudaError_t launch_band(const CUtensorMap (&m)[7], const BandParams& p,
+                        int B, int H, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_bwd_band_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BAND_SMEM);
+  if (err != cudaSuccess) return err;
+  wide_bwd_band_kernel<MODE><<<dim3(BANDS, B * H), 256, BAND_SMEM, st>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of the workspace for (B, H, S): every chunk's S_in and G (512 x 576
-// fp32 each), its record and its shares.
+// Bytes of the workspace for (B, H, S): each chunk's record and shares,
+// and each (batch, head)'s shares of <ds_final, S_in>.
 extern "C" long long ssd_scan_bwd_wide_workspace(int B, int H, int S) {
-  const ll nc = (S + L - 1) / L;
-  return 4ll * B * H * nc * (2 * STATE + REC + PART);
+  const ll chunks = (ll)B * H * ((S + L - 1) / L);
+  return chunks * (REC + 4ll * SHARE) + 4ll * B * H * BANDS;
 }
 
 // c, b: (B, H, S, 512) bf16; x, dy: (B, H, S, 513) bf16; log_a, gate: (B, H,
-// S) fp32; each read through its (batch, head, seq) strides, which are
-// multiples of 8 elements (c's and b's head stride may be 0), with a unit
-// stride on the last dim and a 16-byte aligned base.  ds_final: (B, H, 512,
+// S) fp32; each read through its (batch, head, seq) strides (TMA: unit
+// stride on the last dim, the others multiples of 8 elements, 16-byte
+// aligned bases; c's and b's head stride may be 0).  ds_final: (B, H, 512,
 // 513) fp32 contiguous, or null for zero.  dc, db: (B, H, S, 512) bf16
 // contiguous; dx: bf16 through its strides as x; dlog_a, dgate: fp32
 // through their strides.  ws: ssd_scan_bwd_wide_workspace(B, H, S) bytes,
@@ -593,48 +975,83 @@ extern "C" int ssd_scan_bwd_wide(
   if (B <= 0 || H <= 0 || S <= 0) return -1;
   if (N != NS || P != PD) return -1;   // xlstm's d_head 512 and the ones
   const int nc = (S + L - 1) / L;
-  if ((ll)B * H > 65535 || nc > 65535) return -1;
-  Args a{};
-  a.c = static_cast<const bf16*>(c);
-  a.b = static_cast<const bf16*>(b);
-  a.x = static_cast<const bf16*>(x);
-  a.dy = static_cast<const bf16*>(dy);
-  a.log_a = static_cast<const float*>(log_a);
-  a.gate = static_cast<const float*>(gate);
-  a.ds_final = static_cast<const float*>(ds_final);
-  a.dc = static_cast<bf16*>(dc);
-  a.db = static_cast<bf16*>(db);
-  a.dx = static_cast<bf16*>(dx);
-  a.dlog_a = static_cast<float*>(dlog_a);
-  a.dgate = static_cast<float*>(dgate);
+  if ((ll)B * H > 65535 || nc > 65535 || B > 65535) return -1;
+  // maps: c and b with a head stride of 0 over one head; the outputs
+  CUtensorMap cm, bm, xm, dym, dcm, dbm, dxm;
+  int perm_c, perm_b, perm_x, perm_dy, perm_dc, perm_dx;
+  const ll o_ss = NS, o_sh = (ll)S * NS, o_sb = (ll)H * S * NS;
+  if (!hp::attn_map(&cm, &perm_c, c, B, c_sh ? H : 1, S, NS, c_sb,
+                    c_sh ? c_sh : c_sb, c_ss, L) ||
+      !hp::attn_map(&bm, &perm_b, b, B, b_sh ? H : 1, S, NS, b_sb,
+                    b_sh ? b_sh : b_sb, b_ss, L) ||
+      !hp::attn_map(&xm, &perm_x, x, B, H, S, PD, x_sb, x_sh, x_ss, L) ||
+      !hp::attn_map(&dym, &perm_dy, dy, B, H, S, PD, dy_sb, dy_sh, dy_ss, L) ||
+      !hp::attn_map(&dcm, &perm_dc, dc, B, H, S, NS, o_sb, o_sh, o_ss, L) ||
+      !hp::attn_map(&dbm, &perm_dc, db, B, H, S, NS, o_sb, o_sh, o_ss, L) ||
+      !hp::attn_map(&dxm, &perm_dx, dx, B, H, S, PD, dx_sb, dx_sh, dx_ss, L))
+    return static_cast<int>(cudaErrorInvalidValue);
   const ll chunks = (ll)B * H * nc;
-  a.ws_s = static_cast<float*>(ws);
-  a.ws_g = a.ws_s + chunks * STATE;
-  a.ws_rec = a.ws_g + chunks * STATE;
-  a.ws_part = a.ws_rec + chunks * REC;
-  const ll st[9][3] = {{c_sb, c_sh, c_ss},       {b_sb, b_sh, b_ss},
-                       {x_sb, x_sh, x_ss},       {dy_sb, dy_sh, dy_ss},
-                       {dx_sb, dx_sh, dx_ss},    {la_sb, la_sh, la_ss},
-                       {g_sb, g_sh, g_ss},       {dla_sb, dla_sh, dla_ss},
-                       {dg_sb, dg_sh, dg_ss}};
-  ll* dst[9] = {a.c_s, a.b_s, a.x_s, a.dy_s, a.dx_s,
-                a.la_s, a.g_s, a.dla_s, a.dg_s};
-  for (int i = 0; i < 9; ++i)
-    for (int j = 0; j < 3; ++j) dst[i][j] = st[i][j];
-  a.H = H;
-  a.S = S;
-  a.nc = nc;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bh = B * H;
-  wide_bwd_state_kernel<false><<<dim3(NT * PT, bh), NTH, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
+  unsigned char* rec = static_cast<unsigned char*>(ws);
+  float* share = reinterpret_cast<float*>(rec + chunks * REC);
+  float* ds_share = share + chunks * SHARE;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  PrepParams pp{};
+  pp.log_a = static_cast<const float*>(log_a);
+  pp.gate = static_cast<const float*>(gate);
+  pp.la_s[0] = la_sb; pp.la_s[1] = la_sh; pp.la_s[2] = la_ss;
+  pp.g_s[0] = g_sb; pp.g_s[1] = g_sh; pp.g_s[2] = g_ss;
+  pp.x = static_cast<const bf16*>(x);
+  pp.dy = static_cast<const bf16*>(dy);
+  pp.x_s[0] = x_sb; pp.x_s[1] = x_sh; pp.x_s[2] = x_ss;
+  pp.dy_s[0] = dy_sb; pp.dy_s[1] = dy_sh; pp.dy_s[2] = dy_ss;
+  pp.rec = rec;
+  pp.perm_c = perm_c; pp.perm_b = perm_b;
+  pp.perm_x = perm_x; pp.perm_dy = perm_dy;
+  pp.c_head = c_sh != 0;
+  pp.b_head = b_sh != 0;
+  pp.H = H;
+  pp.S = S;
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_bwd_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      PREP_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // after the forward pass: the reverse one reads S_in for <G, S_in>
-  wide_bwd_state_kernel<true><<<dim3(NT * PT, bh), NTH, 0, s>>>(a);
-  wide_bwd_chunk_kernel<<<dim3(nc, bh), NTH, 0, s>>>(a);
+  wide_bwd_prep_kernel<<<dim3(nc, H, B), 128, PREP_SMEM, st>>>(cm, bm, xm,
+                                                                dym, pp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_bwd_out_kernel<<<dim3(OUT_TILES, nc, bh), NTH, 0, s>>>(a);
-  wide_bwd_finish_kernel<<<dim3(nc, bh), L, 0, s>>>(a);
+
+  BandParams bp{};
+  bp.ds_final = static_cast<const float*>(ds_final);
+  bp.rec = rec;
+  bp.share = share;
+  bp.ds_share = ds_share;
+  bp.perm_c = perm_c; bp.perm_b = perm_b;
+  bp.perm_x = perm_x; bp.perm_dy = perm_dy;
+  bp.perm_dc = perm_dc; bp.perm_dx = perm_dx;
+  bp.c_head = pp.c_head;
+  bp.b_head = pp.b_head;
+  bp.H = H;
+  bp.nc = nc;
+  const CUtensorMap maps[7] = {cm, bm, xm, dym, dcm, dbm, dxm};
+  if ((err = launch_band<DC>(maps, bp, B, H, st)) != cudaSuccess ||
+      (err = launch_band<DB>(maps, bp, B, H, st)) != cudaSuccess ||
+      (err = launch_band<DX>(maps, bp, B, H, st)) != cudaSuccess)
+    return static_cast<int>(err);
+
+  FinishParams fp{};
+  fp.rec = rec;
+  fp.share = share;
+  fp.ds_share = ds_share;
+  fp.dlog_a = static_cast<float*>(dlog_a);
+  fp.dgate = static_cast<float*>(dgate);
+  fp.dla_s[0] = dla_sb; fp.dla_s[1] = dla_sh; fp.dla_s[2] = dla_ss;
+  fp.dg_s[0] = dg_sb; fp.dg_s[1] = dg_sh; fp.dg_s[2] = dg_ss;
+  fp.dx = static_cast<bf16*>(dx);
+  fp.dx_s[0] = dx_sb; fp.dx_s[1] = dx_sh; fp.dx_s[2] = dx_ss;
+  fp.H = H;
+  fp.S = S;
+  fp.nc = nc;
+  wide_bwd_finish_kernel<<<B * H, FIN, 0, st>>>(fp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -176,23 +176,25 @@ def check_bwd_shape(N: int, P: int) -> None:
 # The backward's workspace at 64 / 64: each (batch, head, 64-row chunk)'s
 # state entering the chunk and the gradient reaching its end, each a 64 x 64
 # fp32 matrix in the order of the wgmma accumulators that hold it
-# (csrc/ssd_scan_bwd.cu: STATE_BYTES).  At 512 / 513 each chunk's S_in and G
-# as 512 x 576 fp32 (rows padded to 9 tiles of 64), a record (M, dM∘D and
-# its transpose, dgate's first term) and the column tiles' shares of the
-# sums over N and P (csrc/ssd_scan_bwd_wide.cu: STATE, REC, PART).
+# (csrc/ssd_scan_bwd.cu: STATE_BYTES).  At 512 / 513 the states stay on the
+# chip: each chunk's record (M and dM∘D in three bf16 parts each, 48 KB, and
+# the gates, dgate's first term and x's, dy's and (Mᵀ dy)'s column 512 in
+# 3 KB) and the eight bands' shares of c·dc, q and (B G)[:, 512] (fp32),
+# and each (batch, head)'s eight shares of ⟨ds_final, S_in⟩
+# (csrc/ssd_scan_bwd_wide.cu: REC, SHARE, BANDS).
 BWD_CHUNK = 64
 BWD_STATE_BYTES = 64 * 64 * 4
-WIDE_BWD_CHUNK_FLOATS = (2 * 512 * 576 + (3 * 64 * 64 + 64)
-                         + (2 * 8 * 64 + 8 * 9))
+WIDE_BWD_CHUNK_BYTES = (6 * 8192 + 3072) + 4 * 3 * 8 * 64
+WIDE_BWD_HEAD_BYTES = 4 * 8
 
 
 def bwd_workspace_bytes(B: int, H: int, S: int, shape=(64, 64)) -> int:
     """Bytes of the backward's workspace at ``shape`` = (N, P): two states
-    a chunk at 64 / 64; at 512 / 513 two wide states, a record and the
-    shares."""
+    a chunk at 64 / 64; at 512 / 513 a record and the bands' shares a
+    chunk, and ⟨ds_final, S_in⟩'s shares a (batch, head)."""
     chunks = B * H * -(-S // BWD_CHUNK)
     if tuple(shape) == WIDE:
-        return 4 * chunks * WIDE_BWD_CHUNK_FLOATS
+        return chunks * WIDE_BWD_CHUNK_BYTES + B * H * WIDE_BWD_HEAD_BYTES
     return 2 * chunks * BWD_STATE_BYTES
 
 

@@ -18,6 +18,9 @@ gates, which the wide CUDA kernel's first pass writes and the card check
 holds against this.  ``ssd_chunked_bwd_ref`` is the backward in the same
 chunked form, the decomposition of ``csrc/ssd_scan_bwd.cu``: the CPU path of
 the backward and the plain version the kernel is held against.
+``ssd_dlog_a_telescoped`` is dlog_a in the form ``csrc/ssd_scan_bwd_wide.cu``
+takes it, a reverse sum over the whole sequence, from the backward's dc and
+dgate.
 """
 
 from __future__ import annotations
@@ -244,3 +247,39 @@ def ssd_chunked_bwd_ref(c, b, x, log_a, gate, dy, ds_final=None, chunk=64):
     if Hc == 1 and H > 1:
         dc, db = (t.sum(1, keepdim=True) for t in (dc, db))
     return dc, db, dx, dlog_a, dgate
+
+
+def ssd_dlog_a_telescoped(c, b, x, log_a, gate, dc, dgate, ds_final=None,
+                          chunk=64):
+    """dlog_a as ``csrc/ssd_scan_bwd_wide.cu`` takes it.  ⟨G_t, S_t⟩
+    telescopes over the whole sequence (⟨G_t, S_t⟩ − ⟨G_{t−1}, S_{t−1}⟩ =
+    c_t·dc_t − g_t dgate_t), so
+
+        dlog_a_t = Σ_{u ≥ t} (c_u·dc_u − g_u dgate_u) + ⟨ds_final, S_final⟩,
+        ⟨ds_final, S_final⟩ = exp(l_L)⟨ds_final, S_in⟩
+                              + Σ_j w_j b_j·(ds_final x_j)
+
+    over the last chunk (l, w as in ``ssd_chunked_bwd_ref``, S_in the state
+    entering it): no per-chunk ⟨Ĝ, S_in⟩, and at S ≤ ``chunk`` the constant
+    is the twin's carry term for term.  The sum over u in fp64.  c, b: (B,
+    H, S, N) per head; x: (B, H, S, P); log_a, gate: (B, H, S); dc, dgate:
+    the backward's (fp32); ds_final: (B, H, N, P) or None for zero.
+    Returns dlog_a (B, H, S) fp32."""
+    S = c.shape[2]
+    v = (c.float() * dc.float()).sum(-1) - gate.float() * dgate.float()
+    dlog_a = v.double().flip(-1).cumsum(-1).flip(-1)
+    if ds_final is not None:
+        s0 = (S - 1) // chunk * chunk            # the last chunk's first row
+        l = log_a[:, :, s0:].double().cumsum(-1)
+        ltot = l[..., -1:]
+        w = torch.exp(ltot - l).float() * gate[:, :, s0:].float()
+        ds = ds_final.float()
+        s_in = (ssd_chunked_ref(*(t[:, :, :s0] for t in
+                                  (c, b, x, log_a, gate)), chunk)[1]
+                if s0 else torch.zeros_like(ds))
+        q = (b[:, :, s0:].float()
+             * (x[:, :, s0:].float() @ ds.transpose(-1, -2))).sum(-1)
+        const = (torch.exp(ltot[..., 0]).float() * (ds * s_in).sum((-2, -1))
+                 + (w * q).sum(-1))
+        dlog_a = dlog_a + const.double()[..., None]
+    return dlog_a.float()

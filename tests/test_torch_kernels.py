@@ -912,12 +912,18 @@ def test_ssd_scan_bwd_cuda_refuses_before_any_launch(bad):
         ds = torch.zeros(B, H, 64, 32)
     with pytest.raises((ValueError, TypeError)):
         ssd_scan_bwd_cuda(c, c, x, g, g, x, ds)
-    # two fp32 states a (batch, head, 64-row chunk); at 512 / 513 two
-    # 512 x 576 states, a record and the tiles' shares
+    # two fp32 states a (batch, head, 64-row chunk); at 512 / 513 a record
+    # (M and dM∘D in three bf16 parts, 3 KB of floats) and the 8 bands'
+    # shares of c·dc, q and (B G)[:, 512] a chunk, and 8 shares of
+    # <ds_final, S_in> a (batch, head): 29.9 MB at the train shape, where
+    # the states themselves took 1.21 GB
     assert bwd_workspace_bytes(4, 64, 2048) == 2 * 4 * 64 * 32 * 64 * 64 * 4
     assert bwd_workspace_bytes(1, 1, 65) == 2 * 2 * 64 * 64 * 4
-    assert bwd_workspace_bytes(1, 1, 65, (512, 513)) == 2 * 4 * (
-        2 * 512 * 576 + 3 * 64 * 64 + 64 + 2 * 8 * 64 + 8 * 9)
+    wide_chunk = 6 * 64 * 64 * 2 + 3072 + 3 * 8 * 64 * 4
+    assert bwd_workspace_bytes(1, 1, 65, (512, 513)) == (
+        2 * wide_chunk + 8 * 4)
+    assert bwd_workspace_bytes(4, 4, 2048, (512, 513)) == (
+        4 * 4 * 32 * wide_chunk + 4 * 4 * 8 * 4) == 29_884_928
 
 
 def test_bf16_ulps_counts_one_ulp_off_above_the_floor():

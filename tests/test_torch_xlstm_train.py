@@ -7,6 +7,9 @@ the CPU, with JAX's parameters carried across by ``params_from_numpy``.
   ``ssd_scan`` against ``jax.vjp`` of the JAX ``ssd_ref``, ds_final zero
   and not (the reduced (32, 33) runs with the other shapes in
   ``tests/test_torch_hybrid_train.py``).
+* dlog_a in the wide kernel's telescoped form (a reverse sum over the
+  whole sequence and the last chunk's constant) against ``jax.vjp`` and
+  the twin, at (32, 33) and (512, 513), S 70 and 1, ds_final zero and not.
 * The card's limit for dlog_a at S 1 (0 in exact arithmetic) against its
   control, a carry one row late, at both SSD shapes.
 * The wide backward's operands: dy and dx reach the kernel in rows that
@@ -49,7 +52,8 @@ from repro_torch.configs import reduced as t_reduced
 from repro_torch.kernels.common import REL_L2, TOLERANCES
 from repro_torch.kernels.ssd.kernel import wide_bwd_operands
 from repro_torch.kernels.ssd.ops import ssd_scan
-from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref, ssd_ref
+from repro_torch.kernels.ssd.ref import (ssd_chunked_bwd_ref,
+                                         ssd_dlog_a_telescoped, ssd_ref)
 from repro_torch.models import loss_fn, model as t_model, params_from_numpy
 from repro_torch.models import xlstm
 from repro_torch.optim import adamw
@@ -165,6 +169,41 @@ def test_wide_ssd_bwd_matches_jax_vjp(ds):
                             (tdy, tds) if ds else (tdy,))
     for name, leaf, w in zip(GRADS, leaves, want):
         _close(leaf.grad.numpy(), w, key[name], name)
+
+
+@pytest.mark.parametrize("S", [70, 1], ids=["S70", "S1"])
+@pytest.mark.parametrize("ds", [False, True], ids=["ds0", "ds"])
+@pytest.mark.parametrize("N,P", [(32, 33), (512, 513)],
+                         ids=["32_33", "512_513"])
+def test_telescoped_dlog_a_matches_jax_vjp_and_twin(N, P, ds, S):
+    """``ssd_dlog_a_telescoped``, dlog_a as the wide kernel takes it (the
+    reverse sum of c·dc − g·dgate over the whole sequence plus the last
+    chunk's exp(l_L)<ds_final, S_in> + Σ w q), from the twin's dc and dgate,
+    against ``jax.vjp`` of the JAX ``ssd_ref`` and against the twin's own
+    dlog_a (a sum within each chunk plus its carry), at B 2, H 2, x's last
+    column ones, ds_final zero and given, S 70 (two chunks, the state
+    carried) and S 1 (dlog_a 0 in exact arithmetic)."""
+    rng = np.random.default_rng(11)
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    B, H = 2, 2
+    c, b, x = f(B, H, S, N) * N ** -0.5, f(B, H, S, N), f(B, H, S, P)
+    x[..., N:] = 1.0
+    log_a = -np.log1p(np.exp(-(f(B, H, S) + 3.0))).astype(np.float32)
+    gate = (1.0 / (1.0 + np.exp(-f(B, H, S)))).astype(np.float32)
+    dy = f(B, H, S, P)
+    ds_final = f(B, H, N, P) if ds else np.zeros((B, H, N, P), np.float32)
+    args = (c, b, x, log_a, gate)
+    _, vjp = jax.vjp(jax_ssd_ref, *map(jnp.asarray, args))
+    want = np.asarray(vjp((jnp.asarray(dy), jnp.asarray(ds_final)))[3])
+    t = [torch.from_numpy(a) for a in args]
+    tds = torch.from_numpy(ds_final) if ds else None
+    dc, _, _, twin, dgate = ssd_chunked_bwd_ref(*t, torch.from_numpy(dy), tds)
+    got = ssd_dlog_a_telescoped(*t, dc, dgate, tds)
+    assert got.shape == (B, H, S) and got.dtype == torch.float32
+    _close(got.numpy(), want, "ssd_bwd_dlog_a/cpu_fp32", "vs jax.vjp")
+    _close(got.numpy(), twin.numpy(), "ssd_bwd_dlog_a/cpu_fp32", "vs twin")
+    if S == 1:
+        assert not want.any()
 
 
 @pytest.mark.parametrize("N,P", [(64, 64), (512, 513)],
